@@ -1,20 +1,22 @@
 """cuttlefish_tpu_torch: the PyTorch/CUDA port of cuttlefish_tpu.
 
 Same public API as ``cuttlefish_tpu``, with a ``Texture`` that takes a
-``device``: on a CUDA device the block encoders are hand-written CUDA
-kernels (``csrc/``), on the CPU their plain PyTorch versions.  The host
-layers (formats, images, containers, standard converters) are
-``cuttlefish_tpu``'s own, reused by import; this package never imports JAX.
+``device``: the CUDA card by default, where the block encoders are
+hand-written CUDA kernels (``csrc/``); on a CPU device their plain PyTorch
+versions.  The host layers (formats, images, codecs, containers, standard
+converters, decoders) are the port's own copies of the JAX package's; this
+package imports neither JAX nor ``cuttlefish_tpu``.
 
-    import torch
     from cuttlefish_tpu_torch import Dimension, Texture, TextureFormat
-    tex = Texture(Dimension.Dim2D, 256, 256, device=torch.device("cuda"))
+    tex = Texture(Dimension.Dim2D, 256, 256)               # on the card
+    tex = Texture(Dimension.Dim2D, 256, 256, device="cpu")  # plain version
 
-Ported so far: BC7 at quality 0-2 (``Quality.Lowest`` .. ``Normal``).
+Ported so far: BC1-BC5 at every quality and BC7 at quality 0-2
+(``Quality.Lowest`` .. ``Normal``).
 """
 
-from cuttlefish_tpu.containers.load import LoadError, load_texture
-from cuttlefish_tpu.formats import (
+from cuttlefish_tpu_torch.containers.load import LoadError, load_texture
+from cuttlefish_tpu_torch.formats import (
     Alpha,
     ColorMask,
     ColorSpace,
@@ -38,9 +40,8 @@ from cuttlefish_tpu.formats import (
     min_height,
     min_width,
 )
-from cuttlefish_tpu.image import Image, ImageFormat, NormalOptions, ResizeFilter, RotateAngle
-from cuttlefish_tpu.texture import CustomMipImage
-from cuttlefish_tpu_torch.texture import Texture
+from cuttlefish_tpu_torch.image import Image, ImageFormat, NormalOptions, ResizeFilter, RotateAngle
+from cuttlefish_tpu_torch.texture import CustomMipImage, Texture
 
 __version__ = "0.1.0"
 

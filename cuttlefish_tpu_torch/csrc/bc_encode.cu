@@ -1,0 +1,872 @@
+// BC1-BC5 block encoders, written by hand for Hopper (sm_90a).
+//
+// Replaces the five TPU kernels of cuttlefish_tpu/kernels/bc_pallas.py:
+// encode_bc1_pallas, encode_bc2_pallas, encode_bc3_pallas, encode_bc4_pallas
+// and encode_bc5_pallas (all launched through pl.pallas_call at :431).  They
+// are two algorithms: bc1_tile (the Pallas _bc1_tile: PCA seed, least-squares
+// refinement, the 565 lattice sweep from quality 2, the 3-colour mode with
+// black or punch-through alpha) and bc4_tile (the Pallas _bc4_tile: 8-value
+// mode, and from quality 2 the 6-value mode with the fixed extremes).  The
+// five entries compose them as the Pallas entries do: BC2 = explicit 4-bit
+// alpha + bc1_tile without black, BC3 = bc4_tile on alpha + bc1_tile without
+// black, BC5 = bc4_tile on red and on green.  The plain PyTorch version of the
+// same algorithms is cuttlefish_tpu_torch/kernels/bc.py; the two are compared
+// on the card.
+//
+// Design: one thread per 4x4 block, its texels in registers, 128 threads per
+// CTA, grid = ceil(N / 128).  The TPU kernels put 1024 blocks on vector lanes
+// and unrolled every candidate sweep over [16, TN] tiles; here each thread
+// runs its block's candidate sweep alone, with the indices packed into one
+// word (2 bits a texel for BC1, 3 for BC4) so that the state of a block fits
+// the registers.  Quality, punch-through, black and signedness are template
+// parameters, so each instantiation has no dead branches.
+//
+// What bounds it: arithmetic.  A block reads 256 bytes (64 for BC4) and
+// writes 8 or 16, but a BC1 block at quality 2 tries some 60 palettes, each
+// 16 texels x 4 entries x ~12 float operations, and a BC4 block about 9
+// palettes of 8 entries.  Loads are per thread and not coalesced across a
+// warp; shared-memory staging is later work.
+//
+// Numerics, so that the kernel agrees with the plain version bit for bit:
+// every sum over texels runs in texel order and every sum over channels in
+// channel order; rounding is rintf (half to even, as torch.round and
+// jnp.round); every constant is the float32 value that JAX and PyTorch use;
+// the build passes --fmad=false so that no a*b+c is contracted to one
+// rounding; division and sqrtf stay IEEE (no fast-math).  Palette searches
+// keep the first minimum (strict <, in table order; black last, the BC4
+// extremes after the interpolated entries).
+//
+// The device functions are plain C++: the __global__ kernels and the
+// launchers need nvcc and sit under __CUDACC__.
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+#include <math.h>
+#include <stdint.h>
+
+namespace bcx {
+
+constexpr int kThreads = 128;
+
+// Least-squares rounds per quality (bc_pallas.py:_LS_ITERS).
+template <int Q>
+struct Iters {
+  static constexpr int value = Q <= 0 ? 1 : Q == 1 ? 2 : Q == 2 ? 3 : Q == 3 ? 6 : 10;
+};
+
+constexpr float kInv255 = (float)(1.0 / 255.0);
+constexpr float kInv127 = (float)(1.0 / 127.0);
+
+// Palette weights w (entry = w*e0 + (1-w)*e1) and their complements, each
+// the float32 rounding of the double that the Python source computes.  They
+// are selects over compile-time constants (as bc_pallas.py:_wtable), not
+// arrays, so that a lookup by a texel's index stays in registers.
+#define CF_F32(x) ((float)(x))
+#define CF_TABLE(Name, A0, A1, A2, A3, A4, A5, A6, A7)                                  \
+  struct Name {                                                                          \
+    static __device__ __forceinline__ float w(int k) {                                   \
+      return k == 0 ? CF_F32(A0) : k == 1 ? CF_F32(A1) : k == 2 ? CF_F32(A2)             \
+           : k == 3 ? CF_F32(A3) : k == 4 ? CF_F32(A4) : k == 5 ? CF_F32(A5)             \
+           : k == 6 ? CF_F32(A6) : CF_F32(A7);                                           \
+    }                                                                                    \
+    static __device__ __forceinline__ float ow(int k) {                                  \
+      return k == 0 ? CF_F32(1.0 - (A0)) : k == 1 ? CF_F32(1.0 - (A1))                   \
+           : k == 2 ? CF_F32(1.0 - (A2)) : k == 3 ? CF_F32(1.0 - (A3))                   \
+           : k == 4 ? CF_F32(1.0 - (A4)) : k == 5 ? CF_F32(1.0 - (A5))                   \
+           : k == 6 ? CF_F32(1.0 - (A6)) : CF_F32(1.0 - (A7));                           \
+    }                                                                                    \
+  };
+// BC1 4-colour (_BC1_4C_W) and 3-colour (_BC1_3C_W, index 3 = black or
+// transparent, weight 0 in the least squares).
+CF_TABLE(W4, 1.0, 0.0, 2.0 / 3.0, 1.0 / 3.0, 0.0, 0.0, 0.0, 0.0)
+CF_TABLE(W3, 1.0, 0.0, 0.5, 0.0, 0.0, 0.0, 0.0, 0.0)
+// BC4 8-value (_BC4_8V_W) and 6-value (_BC4_6V_W; 6, 7 = the extremes).
+CF_TABLE(W8, 1.0, 0.0, 6.0 / 7, 5.0 / 7, 4.0 / 7, 3.0 / 7, 2.0 / 7, 1.0 / 7)
+CF_TABLE(W6, 1.0, 0.0, 4.0 / 5, 3.0 / 5, 2.0 / 5, 1.0 / 5, 0.0, 0.0)
+#undef CF_TABLE
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ float sq(float x) { return x * x; }
+
+// ---------------------------------------------------------------------------
+// Least squares (bc_pallas.py:_ls1 / _ls3)
+// ---------------------------------------------------------------------------
+
+// Sums of the 2x2 normal equations over the texels, in texel order.
+struct LsSums {
+  float a11, a12, a22;
+};
+
+__device__ __forceinline__ void ls_accumulate(LsSums& s, float w, float p,
+                                              float& wv, float& uv) {
+  wv = w * p;
+  uv = (1.0f - w) * p;
+  s.a11 = s.a11 + wv * w;
+  s.a12 = s.a12 + wv * (1.0f - w);
+  s.a22 = s.a22 + uv * (1.0f - w);
+}
+
+// One channel: returns the endpoints (e0 at w = 1, e1 at w = 0).
+__device__ __forceinline__ void ls1(const float (&v)[16], const float (&w)[16],
+                                    const float (&p)[16], float& e0, float& e1) {
+  LsSums s = {0.0f, 0.0f, 0.0f};
+  float b0 = 0.0f, b1 = 0.0f, msum = 0.0f, psum = 0.0f;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    float wv, uv;
+    ls_accumulate(s, w[t], p[t], wv, uv);
+    b0 = b0 + wv * v[t];
+    b1 = b1 + uv * v[t];
+    msum = msum + v[t] * p[t];
+    psum = psum + p[t];
+  }
+  const float det = s.a11 * s.a22 - s.a12 * s.a12;
+  const bool ok = fabsf(det) > 1e-8f;
+  const float safe = ok ? det : 1.0f;
+  const float mean = msum / (psum + 1e-12f);
+  e0 = ok ? (s.a22 * b0 - s.a12 * b1) / safe : mean;
+  e1 = ok ? (s.a11 * b1 - s.a12 * b0) / safe : mean;
+}
+
+// Three channels sharing the weights.
+__device__ __forceinline__ void ls3(const float (&px)[3][16], const float (&w)[16],
+                                    const float (&p)[16], float (&e0)[3], float (&e1)[3]) {
+  LsSums s = {0.0f, 0.0f, 0.0f};
+  float b0[3] = {0.0f, 0.0f, 0.0f}, b1[3] = {0.0f, 0.0f, 0.0f};
+  float msum[3] = {0.0f, 0.0f, 0.0f}, psum = 0.0f;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    float wv, uv;
+    ls_accumulate(s, w[t], p[t], wv, uv);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      b0[c] = b0[c] + wv * px[c][t];
+      b1[c] = b1[c] + uv * px[c][t];
+      msum[c] = msum[c] + px[c][t] * p[t];
+    }
+    psum = psum + p[t];
+  }
+  const float det = s.a11 * s.a22 - s.a12 * s.a12;
+  const bool ok = fabsf(det) > 1e-8f;
+  const float safe = ok ? det : 1.0f;
+  const float cnt = psum + 1e-12f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float mean = msum[c] / cnt;
+    e0[c] = ok ? (s.a22 * b0[c] - s.a12 * b1[c]) / safe : mean;
+    e1[c] = ok ? (s.a11 * b1[c] - s.a12 * b0[c]) / safe : mean;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// BC1 tile (bc_pallas.py:_bc1_tile)
+// ---------------------------------------------------------------------------
+
+// Principal-axis extremes over all 16 texels (bc_pallas.py:_pca_seed3 with
+// an all-ones mask): 6 power iterations from the first texel of largest norm.
+__device__ __forceinline__ void pca_seed3(const float (&px)[3][16], float (&hi)[3],
+                                          float (&lo)[3]) {
+  const float cnt = 16.0f + 1e-12f;
+  float mean[3], cent[3][16];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float s = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) s = s + px[c][t];
+    mean[c] = s / cnt;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) cent[c][t] = px[c][t] - mean[c];
+  }
+  float cov[3][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      float s = 0.0f;
+#pragma unroll
+      for (int t = 0; t < 16; ++t) s = s + cent[c][t] * cent[d][t];
+      cov[c][d] = s;
+    }
+  }
+  float best = 0.0f;
+  int fidx = 0;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    const float nrm = (cent[0][t] * cent[0][t] + cent[1][t] * cent[1][t]) + cent[2][t] * cent[2][t];
+    if (t == 0 || nrm > best) {
+      best = nrm;
+      fidx = t;
+    }
+  }
+  float st[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float s = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) s = t == fidx ? cent[c][t] : s;
+    st[c] = s;
+  }
+  const float n0 = sqrtf((st[0] * st[0] + st[1] * st[1]) + st[2] * st[2]);
+  float v[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) v[c] = n0 > 1e-10f ? st[c] / (n0 + 1e-20f) : 1.0f;
+#pragma unroll 1
+  for (int it = 0; it < 6; ++it) {
+    float nv[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) nv[c] = (cov[c][0] * v[0] + cov[c][1] * v[1]) + cov[c][2] * v[2];
+    const float nn = sqrtf((nv[0] * nv[0] + nv[1] * nv[1]) + nv[2] * nv[2]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) v[c] = nn > 1e-10f ? nv[c] / (nn + 1e-20f) : v[c];
+  }
+  float tmax = 0.0f, tmin = 0.0f;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    const float tt = (cent[0][t] * v[0] + cent[1][t] * v[1]) + cent[2][t] * v[2];
+    tmax = t == 0 ? tt : fmaxf(tmax, tt);
+    tmin = t == 0 ? tt : fminf(tmin, tt);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    hi[c] = mean[c] + v[c] * tmax;
+    lo[c] = mean[c] + v[c] * tmin;
+  }
+}
+
+__device__ __forceinline__ void dq565(int c16, float (&d)[3]) {
+  const int r = (c16 >> 11) & 31, g = (c16 >> 5) & 63, b = c16 & 31;
+  d[0] = (float)((r << 3) | (r >> 2)) * kInv255;
+  d[1] = (float)((g << 2) | (g >> 4)) * kInv255;
+  d[2] = (float)((b << 3) | (b >> 2)) * kInv255;
+}
+
+__device__ __forceinline__ int quant565(const float (&e)[3]) {
+  const int r = (int)rintf(clampf(e[0], 0.0f, 1.0f) * 31.0f);
+  const int g = (int)rintf(clampf(e[1], 0.0f, 1.0f) * 63.0f);
+  const int b = (int)rintf(clampf(e[2], 0.0f, 1.0f) * 31.0f);
+  return (r << 11) | (g << 5) | b;
+}
+
+struct Bc1Cand {
+  int c0, c1;
+  uint32_t idx;  // 2 bits a texel, texel t at bits 2t
+  float err;
+};
+
+// Nearest of NW palette entries (+ black when BLACK) per texel, first
+// minimum in table order; the block error is the texel errors (times the
+// opaque mask when PV) summed in texel order (bc_pallas.py:_bc1_assign).
+template <class T, int NW, bool BLACK, bool PV>
+__device__ __forceinline__ float bc1_assign(const float (&px)[3][16], uint32_t opaque,
+                                            const float (&d0)[3], const float (&d1)[3],
+                                            const float (&chw)[3], uint32_t& idx) {
+  float pal[NW][3];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) pal[k][c] = T::w(k) * d0[c] + T::ow(k) * d1[c];
+  }
+  float err = 0.0f;
+  uint32_t out = 0;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    float best = 0.0f;
+    uint32_t bi = 0;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      const float e = (chw[0] * sq(px[0][t] - pal[k][0]) + chw[1] * sq(px[1][t] - pal[k][1])) +
+                      chw[2] * sq(px[2][t] - pal[k][2]);
+      if (k == 0 || e < best) {
+        best = e;
+        bi = (uint32_t)k;
+      }
+    }
+    if (BLACK) {
+      const float e = (chw[0] * px[0][t] * px[0][t] + chw[1] * px[1][t] * px[1][t]) +
+                      chw[2] * px[2][t] * px[2][t];
+      if (e < best) {
+        best = e;
+        bi = (uint32_t)NW;
+      }
+    }
+    if (PV) best = best * (((opaque >> t) & 1u) ? 1.0f : 0.0f);
+    err = err + best;
+    out |= bi << (2 * t);
+  }
+  idx = out;
+  return err;
+}
+
+__device__ __forceinline__ void take_if_better(Bc1Cand& best, const Bc1Cand& cand) {
+  if (cand.err < best.err) best = cand;
+}
+
+// 4-colour candidate from float endpoints.
+__device__ __forceinline__ Bc1Cand cand4(const float (&px)[3][16], const float (&e0)[3],
+                                         const float (&e1)[3], const float (&chw)[3]) {
+  Bc1Cand r;
+  r.c0 = quant565(e0);
+  r.c1 = quant565(e1);
+  float d0[3], d1[3];
+  dq565(r.c0, d0);
+  dq565(r.c1, d1);
+  r.err = bc1_assign<W4, 4, false, false>(px, 0u, d0, d1, chw, r.idx);
+  return r;
+}
+
+// 3-colour candidate: with black as entry 3, or (PUNCH) with the
+// transparent texels forced to index 3 and left out of the error.
+template <bool PUNCH>
+__device__ __forceinline__ Bc1Cand cand3(const float (&px)[3][16], uint32_t opaque,
+                                         const float (&e0)[3], const float (&e1)[3],
+                                         const float (&chw)[3]) {
+  Bc1Cand r;
+  r.c0 = quant565(e0);
+  r.c1 = quant565(e1);
+  float d0[3], d1[3];
+  dq565(r.c0, d0);
+  dq565(r.c1, d1);
+  if (!PUNCH) {
+    r.err = bc1_assign<W3, 3, true, false>(px, opaque, d0, d1, chw, r.idx);
+  } else {
+    r.err = bc1_assign<W3, 3, false, true>(px, opaque, d0, d1, chw, r.idx);
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+      if (!((opaque >> t) & 1u)) r.idx |= 3u << (2 * t);
+  }
+  return r;
+}
+
+// Returns (c0, c1, packed 2-bit indices) of the chosen mode.  `opaque` has
+// bit t set when texel t has alpha >= 0.5 (all set unless PUNCH).
+template <int Q, bool PUNCH, bool BLACK>
+__device__ __forceinline__ void bc1_tile(const float (&px)[3][16], uint32_t opaque,
+                                         const float (&chw)[3], int& c0o, int& c1o,
+                                         uint32_t& idxo) {
+  constexpr int iters = Iters<Q>::value;
+  float hi[3], lo[3];
+  pca_seed3(px, hi, lo);
+  float ones[16];
+#pragma unroll
+  for (int t = 0; t < 16; ++t) ones[t] = 1.0f;
+
+  Bc1Cand best4 = cand4(px, hi, lo, chw);
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+    float w[16];
+#pragma unroll
+    for (int t = 0; t < 16; ++t) w[t] = W4::w((int)((best4.idx >> (2 * t)) & 3u));
+    float e0[3], e1[3];
+    ls3(px, w, ones, e0, e1);
+    take_if_better(best4, cand4(px, e0, e1, chw));
+  }
+  if (Q >= 2) {
+    // Per-channel +-1 sweep of both 565 endpoints around the pass's
+    // starting pair: 2 passes x 3 channels x 8 neighbour pairs.
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+      const int base0 = best4.c0, base1 = best4.c1;
+#pragma unroll 1
+      for (int ch = 0; ch < 3; ++ch) {
+        const int shift = ch == 0 ? 11 : ch == 1 ? 5 : 0;
+        const int maxv = ch == 1 ? 63 : 31;
+#pragma unroll 1
+        for (int nb = 0; nb < 9; ++nb) {
+          const int dd0 = nb / 3 - 1, dd1 = nb % 3 - 1;
+          if (dd0 == 0 && dd1 == 0) continue;
+          const int f0 = min(max(((base0 >> shift) & maxv) + dd0, 0), maxv);
+          const int f1 = min(max(((base1 >> shift) & maxv) + dd1, 0), maxv);
+          Bc1Cand c;
+          c.c0 = (base0 & ~(maxv << shift)) | (f0 << shift);
+          c.c1 = (base1 & ~(maxv << shift)) | (f1 << shift);
+          float d0[3], d1[3];
+          dq565(c.c0, d0);
+          dq565(c.c1, d1);
+          c.err = bc1_assign<W4, 4, false, false>(px, 0u, d0, d1, chw, c.idx);
+          take_if_better(best4, c);
+        }
+      }
+    }
+  }
+  // 4-colour mode needs c0 > c1: swapping flips each index's low bit; equal
+  // endpoints take index 0 everywhere.
+  const bool swap = best4.c0 < best4.c1;
+  const int c0_4 = swap ? best4.c1 : best4.c0;
+  const int c1_4 = swap ? best4.c0 : best4.c1;
+  uint32_t idx_4 = swap ? best4.idx ^ 0x55555555u : best4.idx;
+  if (c0_4 == c1_4) idx_4 = 0u;
+
+  constexpr bool use3 = PUNCH || (BLACK && Q >= 2);
+  if (!use3) {
+    c0o = c0_4;
+    c1o = c1_4;
+    idxo = idx_4;
+    return;
+  }
+  Bc1Cand best3 = cand3<PUNCH>(px, opaque, hi, lo, chw);
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+    float w[16], pv[16];
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      const uint32_t k = (best3.idx >> (2 * t)) & 3u;
+      w[t] = W3::w((int)k);
+      pv[t] = (((opaque >> t) & 1u) ? 1.0f : 0.0f) * (k != 3u ? 1.0f : 0.0f);
+    }
+    float e0[3], e1[3];
+    ls3(px, w, pv, e0, e1);
+    take_if_better(best3, cand3<PUNCH>(px, opaque, e0, e1, chw));
+  }
+  // 3-colour mode needs c0 <= c1: swapping exchanges entries 0 and 1 only.
+  const bool swap3 = best3.c0 > best3.c1;
+  const int c0_3 = swap3 ? best3.c1 : best3.c0;
+  const int c1_3 = swap3 ? best3.c0 : best3.c1;
+  uint32_t idx_3 = best3.idx;
+  if (swap3) idx_3 ^= ~(idx_3 >> 1) & 0x55555555u;
+  bool pick3 = best3.err < best4.err;
+  if (PUNCH && opaque != 0xFFFFu) pick3 = true;
+  c0o = pick3 ? c0_3 : c0_4;
+  c1o = pick3 ? c1_3 : c1_4;
+  idxo = pick3 ? idx_3 : idx_4;
+}
+
+// ---------------------------------------------------------------------------
+// BC4 tile (bc_pallas.py:_bc4_tile)
+// ---------------------------------------------------------------------------
+
+struct Bc4Cand {
+  int q0, q1;     // stored bytes
+  float d0, d1;   // decoded endpoints
+  uint64_t idx;   // 3 bits a texel, texel t at bits 3t
+  float err;
+};
+
+template <bool SIGNED>
+__device__ __forceinline__ void quant_bc4(float e, int& q, float& d) {
+  if (SIGNED) {
+    const int qi = (int)rintf(clampf(e, -1.0f, 1.0f) * 127.0f);
+    q = qi & 0xFF;
+    d = (float)qi * kInv127;
+  } else {
+    q = (int)rintf(clampf(e, 0.0f, 1.0f) * 255.0f);
+    d = (float)q * kInv255;
+  }
+}
+
+// Nearest of NW interpolated entries, then (EXT) the two fixed extremes
+// with a 1e-12 tie-break towards them; error = clamped minima summed in
+// texel order (bc_pallas.py:_bc4_assign).
+template <class T, int NW, bool EXT, bool SIGNED>
+__device__ __forceinline__ float bc4_assign(const float (&v)[16], float d0, float d1,
+                                            uint64_t& idx) {
+  constexpr float lo_ext = SIGNED ? -1.0f : 0.0f;
+  constexpr float hi_ext = 1.0f;
+  float pal[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) pal[k] = T::w(k) * d0 + T::ow(k) * d1;
+  float err = 0.0f;
+  uint64_t out = 0;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    float best = 0.0f;
+    uint32_t bi = 0;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      const float e = sq(v[t] - pal[k]);
+      if (k == 0 || e < best) {
+        best = e;
+        bi = (uint32_t)k;
+      }
+    }
+    if (EXT) {
+      float e = sq(v[t] - lo_ext) - 1e-12f;
+      if (e < best) {
+        best = e;
+        bi = (uint32_t)NW;
+      }
+      e = sq(v[t] - hi_ext) - 1e-12f;
+      if (e < best) {
+        best = e;
+        bi = (uint32_t)NW + 1u;
+      }
+    }
+    err = err + fmaxf(best, 0.0f);
+    out |= (uint64_t)bi << (3 * t);
+  }
+  idx = out;
+  return err;
+}
+
+template <class T, int NW, bool EXT, bool SIGNED>
+__device__ __forceinline__ Bc4Cand bc4_cand(const float (&v)[16], float e0, float e1) {
+  Bc4Cand r;
+  quant_bc4<SIGNED>(e0, r.q0, r.d0);
+  quant_bc4<SIGNED>(e1, r.q1, r.d1);
+  r.err = bc4_assign<T, NW, EXT, SIGNED>(v, r.d0, r.d1, r.idx);
+  return r;
+}
+
+// Returns (q0, q1, packed 3-bit indices) of the chosen mode.
+template <int Q, bool SIGNED>
+__device__ __forceinline__ void bc4_tile(const float (&v)[16], int& q0o, int& q1o,
+                                         uint64_t& idxo) {
+  constexpr int iters = Iters<Q>::value;
+  constexpr double lo_ext_d = SIGNED ? -1.0 : 0.0;
+  constexpr double hi_ext_d = 1.0;
+  float hi = v[0], lo = v[0];
+#pragma unroll
+  for (int t = 1; t < 16; ++t) {
+    hi = fmaxf(hi, v[t]);
+    lo = fminf(lo, v[t]);
+  }
+  float ones[16];
+#pragma unroll
+  for (int t = 0; t < 16; ++t) ones[t] = 1.0f;
+
+  Bc4Cand best8 = bc4_cand<W8, 8, false, SIGNED>(v, hi, lo);
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+    float w[16];
+#pragma unroll
+    for (int t = 0; t < 16; ++t) w[t] = W8::w((int)((best8.idx >> (3 * t)) & 7u));
+    float e0, e1;
+    ls1(v, w, ones, e0, e1);
+    const Bc4Cand c = bc4_cand<W8, 8, false, SIGNED>(v, e0, e1);
+    if (c.err < best8.err) best8 = c;
+  }
+  // 8-value mode needs e0 > e1: swapping maps 0 <-> 1 and k -> 9 - k.
+  const bool swap = best8.d0 < best8.d1;
+  const int q0_8 = swap ? best8.q1 : best8.q0;
+  const int q1_8 = swap ? best8.q0 : best8.q1;
+  uint64_t idx_8 = 0;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    uint32_t k = (uint32_t)(best8.idx >> (3 * t)) & 7u;
+    if (swap) k = k < 2u ? k ^ 1u : 9u - k;
+    idx_8 |= (uint64_t)k << (3 * t);
+  }
+  if (q0_8 == q1_8) idx_8 = 0;
+  if (Q < 2) {
+    q0o = q0_8;
+    q1o = q1_8;
+    idxo = idx_8;
+    return;
+  }
+  // 6-value mode, seeded from the interior range: values at the fixed
+  // extremes are served by entries 6 and 7.
+  const float lo_tol = (float)(lo_ext_d + 1.0 / 255.0);
+  const float hi_tol = (float)(hi_ext_d - 1.0 / 255.0);
+  float hi_i = -1e30f, lo_i = 1e30f;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    const bool interior = v[t] > lo_tol && v[t] < hi_tol;
+    hi_i = fmaxf(hi_i, interior ? v[t] : -1e30f);
+    lo_i = fminf(lo_i, interior ? v[t] : 1e30f);
+  }
+  const float hi_s = hi_i > -1e29f ? hi_i : hi;
+  const float lo_s = lo_i < 1e29f ? lo_i : lo;
+  Bc4Cand best6 = bc4_cand<W6, 6, true, SIGNED>(v, hi_s, lo_s);
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+    float w[16], pv[16];
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      const int k = (int)((best6.idx >> (3 * t)) & 7u);
+      w[t] = W6::w(k);
+      pv[t] = k < 6 ? 1.0f : 0.0f;
+    }
+    float e0, e1;
+    ls1(v, w, pv, e0, e1);
+    const Bc4Cand c = bc4_cand<W6, 6, true, SIGNED>(v, e0, e1);
+    if (c.err < best6.err) best6 = c;
+  }
+  // 6-value mode needs e0 <= e1: swapping maps 0 <-> 1 and k -> 7 - k
+  // for the interpolated entries; the extremes keep their indices.
+  const bool swap6 = best6.d0 > best6.d1;
+  const int q0_6 = swap6 ? best6.q1 : best6.q0;
+  const int q1_6 = swap6 ? best6.q0 : best6.q1;
+  uint64_t idx_6 = 0;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    uint32_t k = (uint32_t)(best6.idx >> (3 * t)) & 7u;
+    if (swap6 && k < 6u) k = k < 2u ? k ^ 1u : 7u - k;
+    idx_6 |= (uint64_t)k << (3 * t);
+  }
+  const bool pick6 = best6.err < best8.err;
+  q0o = pick6 ? q0_6 : q0_8;
+  q1o = pick6 ? q1_6 : q1_8;
+  idxo = pick6 ? idx_6 : idx_8;
+}
+
+// ---------------------------------------------------------------------------
+// Words (bc_pallas.py:_bc1_words / _bc4_words) and whole blocks
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void bc4_words(int q0, int q1, uint64_t idx, uint32_t& lo,
+                                          uint32_t& hi) {
+  // Texel 5's index straddles the two words (bits 31 of lo, 0-1 of hi).
+  lo = ((uint32_t)q0 & 0xFFu) | (((uint32_t)q1 & 0xFFu) << 8) | ((uint32_t)(idx & 0xFFFFu) << 16);
+  hi = (uint32_t)(idx >> 16);
+}
+
+template <int Q, bool PUNCH, bool BLACK>
+__device__ __forceinline__ void bc1_block(const float (&px)[3][16], uint32_t opaque,
+                                          const float (&chw)[3], uint32_t (&w)[2]) {
+  int c0, c1;
+  uint32_t idx;
+  bc1_tile<Q, PUNCH, BLACK>(px, opaque, chw, c0, c1, idx);
+  w[0] = (uint32_t)c0 | ((uint32_t)c1 << 16);
+  w[1] = idx;
+}
+
+__device__ __forceinline__ void bc2_alpha(const float (&a)[16], uint32_t (&w)[2]) {
+  w[0] = 0u;
+  w[1] = 0u;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    w[0] |= (uint32_t)rintf(clampf(a[i], 0.0f, 1.0f) * 15.0f) << (4 * i);
+    w[1] |= (uint32_t)rintf(clampf(a[i + 8], 0.0f, 1.0f) * 15.0f) << (4 * i);
+  }
+}
+
+template <int Q, bool SIGNED>
+__device__ __forceinline__ void bc4_block(const float (&v)[16], uint32_t (&w)[2]) {
+  int q0, q1;
+  uint64_t idx;
+  bc4_tile<Q, SIGNED>(v, q0, q1, idx);
+  bc4_words(q0, q1, idx, w[0], w[1]);
+}
+
+#ifdef __CUDACC__
+
+// [n,16,4] float32 RGBA -> px (r, g, b) and the alpha channel.
+__device__ __forceinline__ void load_rgba(const float4* __restrict__ src, float (&px)[3][16],
+                                          float (&a)[16]) {
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    const float4 q = src[t];
+    px[0][t] = q.x;
+    px[1][t] = q.y;
+    px[2][t] = q.z;
+    a[t] = q.w;
+  }
+}
+
+struct Chw {
+  float w[3];
+};
+
+template <int Q, bool PUNCH, bool BLACK>
+__global__ void __launch_bounds__(kThreads)
+    bc1_kernel(const float4* __restrict__ blocks, uint2* __restrict__ out, int n, Chw chw) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float px[3][16], a[16];
+  load_rgba(blocks + (size_t)i * 16, px, a);
+  uint32_t opaque = 0xFFFFu;
+  if (PUNCH) {
+    opaque = 0u;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) opaque |= (a[t] >= 0.5f ? 1u : 0u) << t;
+  }
+  uint32_t w[2];
+  bc1_block<Q, PUNCH, BLACK>(px, opaque, chw.w, w);
+  out[i] = make_uint2(w[0], w[1]);
+}
+
+template <int Q>
+__global__ void __launch_bounds__(kThreads)
+    bc2_kernel(const float4* __restrict__ blocks, uint4* __restrict__ out, int n, Chw chw) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float px[3][16], a[16];
+  load_rgba(blocks + (size_t)i * 16, px, a);
+  uint32_t aw[2], cw[2];
+  bc2_alpha(a, aw);
+  bc1_block<Q, false, false>(px, 0xFFFFu, chw.w, cw);
+  out[i] = make_uint4(aw[0], aw[1], cw[0], cw[1]);
+}
+
+template <int Q>
+__global__ void __launch_bounds__(kThreads)
+    bc3_kernel(const float4* __restrict__ blocks, uint4* __restrict__ out, int n, Chw chw) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float px[3][16], a[16];
+  load_rgba(blocks + (size_t)i * 16, px, a);
+  uint32_t aw[2], cw[2];
+  bc4_block<Q, false>(a, aw);
+  bc1_block<Q, false, false>(px, 0xFFFFu, chw.w, cw);
+  out[i] = make_uint4(aw[0], aw[1], cw[0], cw[1]);
+}
+
+template <int Q, bool SIGNED>
+__global__ void __launch_bounds__(kThreads)
+    bc4_kernel(const float4* __restrict__ vals, uint2* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float v[16];
+  const float4* src = vals + (size_t)i * 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 q = src[j];
+    v[4 * j] = q.x;
+    v[4 * j + 1] = q.y;
+    v[4 * j + 2] = q.z;
+    v[4 * j + 3] = q.w;
+  }
+  uint32_t w[2];
+  bc4_block<Q, SIGNED>(v, w);
+  out[i] = make_uint2(w[0], w[1]);
+}
+
+// blocks: [n,16,C] float32 with C >= 2; red and green are channels 0, 1.
+template <int Q, bool SIGNED>
+__global__ void __launch_bounds__(kThreads)
+    bc5_kernel(const float* __restrict__ blocks, uint4* __restrict__ out, int n, int nch) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* src = blocks + (size_t)i * 16 * nch;
+  float r[16], g[16];
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    r[t] = src[t * nch];
+    g[t] = src[t * nch + 1];
+  }
+  uint32_t rw[2], gw[2];
+  bc4_block<Q, SIGNED>(r, rw);
+  bc4_block<Q, SIGNED>(g, gw);
+  out[i] = make_uint4(rw[0], rw[1], gw[0], gw[1]);
+}
+
+inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
+
+#endif  // __CUDACC__
+
+}  // namespace bcx
+
+#ifdef __CUDACC__
+
+// Each launcher launches on `stream` and returns cudaGetLastError() (the
+// launch is not synchronised); quality is 0-4.
+
+// blocks: [n,16,4] float32; out: [n,2] uint32.
+extern "C" int bc1_encode_launch(const void* blocks, void* out, int n, int quality,
+                                 int punch_through, int allow_black, float w0, float w1,
+                                 float w2, void* stream) {
+  if (n <= 0) return 0;
+  const bcx::Chw chw = {{w0, w1, w2}};
+  cudaStream_t s = (cudaStream_t)stream;
+  const float4* in = (const float4*)blocks;
+  uint2* o = (uint2*)out;
+  const dim3 g = bcx::grid_for(n);
+  const int variant = punch_through ? 2 : allow_black ? 1 : 0;
+#define CF_BC1(Q)                                                                    \
+  case Q:                                                                            \
+    if (variant == 2)                                                                \
+      bcx::bc1_kernel<Q, true, false><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw);    \
+    else if (variant == 1)                                                           \
+      bcx::bc1_kernel<Q, false, true><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw);    \
+    else                                                                             \
+      bcx::bc1_kernel<Q, false, false><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw);   \
+    break;
+  switch (quality) {
+    CF_BC1(0) CF_BC1(1) CF_BC1(2) CF_BC1(3) CF_BC1(4)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CF_BC1
+  return (int)cudaGetLastError();
+}
+
+// blocks: [n,16,4] float32; out: [n,4] uint32 (2 alpha words, 2 colour words).
+extern "C" int bc2_encode_launch(const void* blocks, void* out, int n, int quality, float w0,
+                                 float w1, float w2, void* stream) {
+  if (n <= 0) return 0;
+  const bcx::Chw chw = {{w0, w1, w2}};
+  cudaStream_t s = (cudaStream_t)stream;
+  const float4* in = (const float4*)blocks;
+  uint4* o = (uint4*)out;
+  const dim3 g = bcx::grid_for(n);
+  switch (quality) {
+    case 0: bcx::bc2_kernel<0><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
+    case 1: bcx::bc2_kernel<1><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
+    case 2: bcx::bc2_kernel<2><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
+    case 3: bcx::bc2_kernel<3><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
+    case 4: bcx::bc2_kernel<4><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// blocks: [n,16,4] float32; out: [n,4] uint32 (2 BC4 alpha words, 2 colour words).
+extern "C" int bc3_encode_launch(const void* blocks, void* out, int n, int quality, float w0,
+                                 float w1, float w2, void* stream) {
+  if (n <= 0) return 0;
+  const bcx::Chw chw = {{w0, w1, w2}};
+  cudaStream_t s = (cudaStream_t)stream;
+  const float4* in = (const float4*)blocks;
+  uint4* o = (uint4*)out;
+  const dim3 g = bcx::grid_for(n);
+  switch (quality) {
+    case 0: bcx::bc3_kernel<0><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
+    case 1: bcx::bc3_kernel<1><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
+    case 2: bcx::bc3_kernel<2><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
+    case 3: bcx::bc3_kernel<3><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
+    case 4: bcx::bc3_kernel<4><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// vals: [n,16] float32; out: [n,2] uint32.
+extern "C" int bc4_encode_launch(const void* vals, void* out, int n, int quality,
+                                 int is_signed, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float4* in = (const float4*)vals;
+  uint2* o = (uint2*)out;
+  const dim3 g = bcx::grid_for(n);
+#define CF_BC4(Q)                                                                         \
+  case Q:                                                                                 \
+    if (is_signed)                                                                        \
+      bcx::bc4_kernel<Q, true><<<g, bcx::kThreads, 0, s>>>(in, o, n);                     \
+    else                                                                                  \
+      bcx::bc4_kernel<Q, false><<<g, bcx::kThreads, 0, s>>>(in, o, n);                    \
+    break;
+  switch (quality) {
+    CF_BC4(0) CF_BC4(1) CF_BC4(2) CF_BC4(3) CF_BC4(4)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CF_BC4
+  return (int)cudaGetLastError();
+}
+
+// blocks: [n,16,nch] float32, nch >= 2; out: [n,4] uint32 (red words, green words).
+extern "C" int bc5_encode_launch(const void* blocks, void* out, int n, int nch, int quality,
+                                 int is_signed, void* stream) {
+  if (n <= 0) return 0;
+  if (nch < 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* in = (const float*)blocks;
+  uint4* o = (uint4*)out;
+  const dim3 g = bcx::grid_for(n);
+#define CF_BC5(Q)                                                                         \
+  case Q:                                                                                 \
+    if (is_signed)                                                                        \
+      bcx::bc5_kernel<Q, true><<<g, bcx::kThreads, 0, s>>>(in, o, n, nch);                \
+    else                                                                                  \
+      bcx::bc5_kernel<Q, false><<<g, bcx::kThreads, 0, s>>>(in, o, n, nch);               \
+    break;
+  switch (quality) {
+    CF_BC5(0) CF_BC5(1) CF_BC5(2) CF_BC5(3) CF_BC5(4)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CF_BC5
+  return (int)cudaGetLastError();
+}
+
+#endif  // __CUDACC__

@@ -1,3 +1,14 @@
-"""Reference block decoders of the port (host numpy, no JAX)."""
+"""Reference block decoders of the port (host numpy, no JAX).
+
+BC1-BC5 (``s3tc.py``) and BC7 (``bc7.py``), copies of the JAX package's
+decoders; ``surface.py`` decodes whole surfaces of the ported formats.
+"""
 
 from cuttlefish_tpu_torch.decode.bc7 import decode_bc7  # noqa: F401
+from cuttlefish_tpu_torch.decode.s3tc import (  # noqa: F401
+    decode_bc1,
+    decode_bc2,
+    decode_bc3,
+    decode_bc4,
+    decode_bc5,
+)

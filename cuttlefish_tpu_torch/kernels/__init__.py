@@ -1,6 +1,14 @@
 """Block encoders of the PyTorch/CUDA port.
 
-Submodules are imported where they are used: ``bc7`` (plain PyTorch
-version and dispatch), ``bc7_cuda`` (the hand kernel's wrapper),
-``bc7_tables`` (spec tables) and ``_build`` (nvcc build of ``csrc/``).
+Submodules are imported where they are used: ``bc7`` and ``bc`` (plain
+PyTorch versions and dispatch), ``bc7_cuda`` and ``bc_cuda`` (the hand
+kernels' wrappers), ``bc7_tables`` (spec tables) and ``_build`` (nvcc
+build of ``csrc/``).
 """
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel name -> launches so far, for every hand kernel of the port."""
+    from cuttlefish_tpu_torch.kernels import bc7_cuda, bc_cuda
+
+    return {"bc7": bc7_cuda.launches, **bc_cuda.launches}

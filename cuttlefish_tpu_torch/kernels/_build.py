@@ -1,9 +1,11 @@
 """Build the hand-written CUDA kernels from the package's own sources.
 
-``nvcc`` compiles ``csrc/*.cu`` into one shared library with a plain C
-interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  The library goes into a build directory keyed by a hash of the
-sources and flags, at first use; nothing GPU-side happens at import.
+``nvcc`` compiles each ``csrc/<name>.cu`` into its own shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds).  The first ``load`` builds every source that is not built
+yet, one ``nvcc`` per source, all started together.  A library goes into a
+build directory keyed by a hash of its source and the flags; nothing
+GPU-side happens at import.
 
 The build directory is ``cuttlefish_tpu_torch/_build`` unless
 ``CUTTLEFISH_TORCH_BUILD_DIR`` names another.  ``nvcc`` is taken from
@@ -33,8 +35,9 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-build_info: dict = {}
+_libs: dict[str, ctypes.CDLL] = {}
+# source name -> {"path", "built", "seconds", "log"}
+build_info: dict[str, dict] = {}
 
 
 def build_dir() -> Path:
@@ -59,45 +62,65 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest() -> str:
+def _digest(src: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def load() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    global _lib
+def _target(src: Path) -> Path:
+    return build_dir() / _digest(src) / f"lib{src.stem}.so"
+
+
+def _start(src: Path, nvcc: str) -> tuple[subprocess.Popen, Path, list[str]]:
+    so = _target(src)
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.parent / f"tmp-{os.getpid()}.so"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+    )
+    return proc, tmp, cmd
+
+
+def _build_missing() -> None:
+    """One nvcc per unbuilt source, all running at once."""
+    pending = [s for s in _sources() if not _target(s).exists()]
+    if not pending:
+        return
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    jobs = [(src, *_start(src, nvcc)) for src in pending]
+    errors = []
+    for src, proc, tmp, cmd in jobs:
+        out, err = proc.communicate()
+        so = _target(src)
+        (so.parent / "build.log").write_text(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"nvcc {src.name} failed ({proc.returncode}):\n{err[-4000:]}")
+            continue
+        os.replace(tmp, so)
+        build_info[src.stem] = {"built": True, "seconds": time.perf_counter() - t0}
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (once per source hash) and load the library of csrc/<name>.cu."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        out_dir = build_dir() / _digest()
-        so = out_dir / "libcuttlefish_kernels.so"
-        t0 = time.perf_counter()
-        built = False
-        if not so.exists():
-            out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"tmp-{os.getpid()}.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            (out_dir / "build.log").write_text(
-                " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-            )
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-                )
-            os.replace(tmp, so)
-            built = True
-        _lib = ctypes.CDLL(str(so))
-        log = out_dir / "build.log"
-        build_info.update(
-            path=str(so),
-            built=built,
-            seconds=time.perf_counter() - t0,
-            log=log.read_text() if log.exists() else "",
-        )
-        return _lib
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        src = CSRC / f"{name}.cu"
+        if not src.exists():
+            raise FileNotFoundError(f"no kernel source {src}")
+        _build_missing()
+        so = _target(src)
+        lib = ctypes.CDLL(str(so))
+        log = so.parent / "build.log"
+        info = build_info.setdefault(name, {"built": False, "seconds": 0.0})
+        info.update(path=str(so), log=log.read_text() if log.exists() else "")
+        _libs[name] = lib
+        return lib

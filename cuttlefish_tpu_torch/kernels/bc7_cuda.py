@@ -26,7 +26,7 @@ def reset_launches() -> None:
 
 def _lib() -> ctypes.CDLL:
     global _bound
-    lib = _build.load()
+    lib = _build.load("bc7_encode")
     if not _bound:
         lib.bc7_set_tables.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.bc7_set_tables.restype = ctypes.c_int

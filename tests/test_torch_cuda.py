@@ -1,4 +1,4 @@
-"""The hand-written BC7 kernel against its plain PyTorch version.
+"""The hand-written kernels (BC7, BC1-BC5) against their plain versions.
 
 Tests marked ``gpu`` need a CUDA card and skip without one; run them on
 the card with ``python -m pytest tests/test_torch_cuda.py -m gpu``.  The
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from cuttlefish_tpu_torch.decode import decode_bc7
-from cuttlefish_tpu_torch.kernels import _build, bc7_cuda
+from cuttlefish_tpu_torch.kernels import _build, bc, bc7_cuda, bc_cuda
 from cuttlefish_tpu_torch.kernels.bc7 import _constants, encode_bc7, encode_bc7_plain
 
 
@@ -79,8 +79,76 @@ def test_kernel_rejects_bad_input(cuda):
         bc7_cuda.encode_bc7_cuda(x.transpose(0, 1), 2, consts)
 
 
+# (name, kernel call, plain call, input) for each BC1-BC5 entry on the card.
+_SRGB = tuple(float(w) for w in np.float32([0.3, 0.59, 0.11]) * np.float32(3))
+_BC_CASES = {
+    "bc1_q2_black": (lambda x: bc.encode_bc1(x, 2), lambda x: bc.encode_bc1_plain(x, 2), "rgba"),
+    "bc1_q2_punch": (
+        lambda x: bc.encode_bc1(x, 2, True, False),
+        lambda x: bc.encode_bc1_plain(x, 2, True, False),
+        "hard",
+    ),
+    "bc1_q4_srgb": (
+        lambda x: bc.encode_bc1(x, 4, ch_weights=_SRGB),
+        lambda x: bc.encode_bc1_plain(x, 4, chw=_SRGB),
+        "rgba",
+    ),
+    "bc2_q2": (lambda x: bc.encode_bc2(x, 2), lambda x: bc.encode_bc2_plain(x, 2), "rgba"),
+    "bc3_q2": (lambda x: bc.encode_bc3(x, 2), lambda x: bc.encode_bc3_plain(x, 2), "rgba"),
+    "bc4_q2": (lambda x: bc.encode_bc4(x, 2), lambda x: bc.encode_bc4_plain(x, 2), "red"),
+    "bc4s_q2": (lambda x: bc.encode_bc4(x, 2, True), lambda x: bc.encode_bc4_plain(x, 2, True), "sred"),
+    "bc5s_q2": (lambda x: bc.encode_bc5(x, 2, True), lambda x: bc.encode_bc5_plain(x, 2, True), "signed"),
+    "bc5_q0": (lambda x: bc.encode_bc5(x, 0), lambda x: bc.encode_bc5_plain(x, 0), "rgba"),
+}
+
+
+def _bc_input(kind, n=4096):
+    b = _blocks(n, seed=5)
+    b = (np.round(b * 255) / 255).astype(np.float32)  # the u8 wire's values
+    if kind == "hard":
+        b[..., 3] = (np.random.default_rng(6).random((n, 16)) > 0.3).astype(np.float32)
+    if kind == "red":
+        return np.ascontiguousarray(b[..., 0])
+    signed = (b * 2 - 1).astype(np.float16).astype(np.float32)  # the f16 wire
+    if kind == "sred":
+        return np.ascontiguousarray(signed[..., 0])
+    return signed if kind == "signed" else b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_BC_CASES))
+def test_bc_kernel_matches_plain_on_card(cuda, case):
+    """Every BC1-BC5 entry: one launch, >= 99 % blocks identical to the
+    plain version on the same card (100 % expected: same arithmetic)."""
+    kernel, plain, kind = _BC_CASES[case]
+    x = torch.from_numpy(_bc_input(kind)).to(cuda)
+    name = case.split("_")[0].rstrip("s")
+    before = dict(bc_cuda.launches)
+    k = kernel(x)
+    torch.cuda.synchronize()
+    assert bc_cuda.launches[name] == before[name] + 1
+    p = plain(x)
+    k, p = k.cpu().numpy(), p.cpu().numpy()
+    assert k.shape == p.shape and k.dtype == p.dtype == np.uint32
+    assert np.all(k == p, axis=1).mean() >= 0.99
+
+
+@pytest.mark.gpu
+def test_bc_kernels_reject_bad_input(cuda):
+    x = torch.zeros((8, 16, 4), device=cuda)
+    with pytest.raises(TypeError):
+        bc_cuda.encode_bc1_cuda(x.half(), 2, False, True, (1.0, 1.0, 1.0))
+    with pytest.raises(ValueError):
+        bc_cuda.encode_bc3_cuda(x[:, :8], 2, (1.0, 1.0, 1.0))
+    with pytest.raises(ValueError):
+        bc_cuda.encode_bc4_cuda(x[..., 0], 2, False)  # not contiguous
+    with pytest.raises(ValueError):
+        bc_cuda.encode_bc5_cuda(x[..., :1].contiguous(), 2, False)
+    assert tuple(bc.encode_bc2(x[:0], 2).shape) == (0, 4)
+
+
 def test_cpu_tensor_never_reaches_the_launcher(monkeypatch):
-    def no_build():
+    def no_build(name):
         raise AssertionError("the CPU path must not build or load the kernel")
 
     monkeypatch.setattr(_build, "load", no_build)
@@ -90,6 +158,17 @@ def test_cpu_tensor_never_reaches_the_launcher(monkeypatch):
         bc7_cuda.encode_bc7_cuda(x, 2, _constants(False, x.device))
     encode_bc7(x, 2)  # the CPU runs the plain version
     assert bc7_cuda.launches == before
+    counts = dict(bc_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bc_cuda.encode_bc1_cuda(x, 2, False, True, (1.0, 1.0, 1.0))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bc_cuda.encode_bc4_cuda(x[..., 0].contiguous(), 2, False)
+    bc.encode_bc1(x, 2)
+    bc.encode_bc2(x, 2)
+    bc.encode_bc3(x, 2)
+    bc.encode_bc4(x[..., 0], 2)
+    bc.encode_bc5(x, 2, True)
+    assert bc_cuda.launches == counts
 
 
 def test_build_flags_and_sources():
@@ -98,5 +177,10 @@ def test_build_flags_and_sources():
     assert "--fmad=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     srcs = [p.name for p in _build._sources()]
-    assert srcs == ["bc7_encode.cu"]
-    assert len(_build._digest()) == 16 and _build._digest() == _build._digest()
+    assert srcs == ["bc7_encode.cu", "bc_encode.cu"]
+    # One library per source, keyed by its own hash.
+    digests = {_build._digest(p) for p in _build._sources()}
+    assert len(digests) == 2 and all(len(d) == 16 for d in digests)
+    assert [p.name for p in map(_build._target, _build._sources())] == [
+        "libbc7_encode.so", "libbc_encode.so",
+    ]

@@ -1,12 +1,20 @@
-"""The port imports neither jax nor triton on its main path.
+"""The port imports neither jax, triton nor the JAX package.
 
-The test conftest imports jax, so the check runs in a fresh interpreter.
+The test conftest imports jax, so the run-time check goes to a fresh
+interpreter: it converts BC7 + mips -> DDS, BC1 -> DDS and BC3 + mips ->
+KTX on the CPU, reads each file back, and lists the loaded modules.  A
+static check scans every module of the port and chip_smoke.py for an
+import of ``cuttlefish_tpu`` (other than ``cuttlefish_tpu_torch``), jax or
+triton at any level.
 """
 
+import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 _ROOT = Path(__file__).resolve().parent.parent
 
@@ -14,19 +22,34 @@ _SCRIPT = r"""
 import os, sys, tempfile
 import numpy as np
 import cuttlefish_tpu_torch as cp
-from cuttlefish_tpu_torch.decode import decode_bc7
+from cuttlefish_tpu_torch.decode import decode_bc1, decode_bc3, decode_bc7
 
 arr = np.random.default_rng(0).random((12, 20, 4)).astype(np.float32)
-tex = cp.Texture(cp.Dimension.Dim2D, 20, 12, mip_levels=9, device="cpu")
-tex.set_image(cp.Image.from_array(arr, cp.ImageFormat.RGBAF))
-tex.generate_mipmaps()
-assert tex.convert(cp.TextureFormat.BC7, cp.TextureType.UNorm, cp.Quality.Normal)
-path = os.path.join(tempfile.mkdtemp(), "t.dds")
-assert tex.save(path) is cp.SaveResult.Success
-loaded = cp.load_texture(path)
-assert loaded.data() == tex.data()
-assert decode_bc7(np.frombuffer(tex.data(), np.uint8)).shape == (15, 16, 4)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton"))
+out = tempfile.mkdtemp()
+cases = [
+    (cp.TextureFormat.BC7, 9, "t7.dds", decode_bc7),
+    (cp.TextureFormat.BC1_RGB, 1, "t1.dds", lambda raw: decode_bc1(raw, opaque=True)),
+    (cp.TextureFormat.BC3, 9, "t3.ktx", decode_bc3),
+]
+for fmt, mips, name, dec in cases:
+    tex = cp.Texture(cp.Dimension.Dim2D, 20, 12, mip_levels=mips, device="cpu")
+    tex.set_image(cp.Image.from_array(arr, cp.ImageFormat.RGBAF))
+    if mips > 1:
+        tex.generate_mipmaps()
+    assert tex.convert(fmt, cp.TextureType.UNorm, cp.Quality.Normal)
+    assert tex.last_convert_stats["launches"] == {}
+    path = os.path.join(out, name)
+    assert tex.save(path) is cp.SaveResult.Success
+    loaded = cp.load_texture(path)
+    assert loaded.format is fmt and loaded.mip_levels == tex.mip_levels
+    for m in range(tex.mip_levels):
+        assert loaded.data(mip_level=m) == tex.data(mip_level=m)
+    assert dec(np.frombuffer(tex.data(), np.uint8)).shape[0] == 15
+    assert loaded.decode_image().array.shape == (12, 20, 4)
+bad = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "triton", "cuttlefish_tpu")
+)
 print("LOADED", bad)
 assert not bad, bad
 """
@@ -43,3 +66,28 @@ def test_port_main_path_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
+
+
+_FORBIDDEN = ("cuttlefish_tpu", "jax", "jaxlib", "triton")
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+
+
+def _port_files():
+    return sorted((_ROOT / "cuttlefish_tpu_torch").rglob("*.py")) + [_ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(_ROOT)))
+def test_no_module_of_the_port_imports_the_jax_package(path):
+    bad = [
+        (line, name) for line, name in _imports(path)
+        if name.split(".")[0] in _FORBIDDEN
+    ]
+    assert not bad, bad

@@ -46,3 +46,13 @@ def test_bc7_constants_match_pallas_operands(perceptual):
     # kernel's index packing relies on.
     assert not (c.masks & 1).any()
     assert all((int(m) >> int(a)) & 1 for m, a in zip(c.masks, c.anchors))
+
+
+@pytest.mark.parametrize("name", ["_BC1_4C_W", "_BC1_3C_W", "_BC4_8V_W", "_BC4_6V_W", "_LS_ITERS"])
+def test_bc_tables_equal_pallas_kernel(name):
+    """The port's BC1-BC5 weight tables and quality ladder are the Pallas
+    kernel's (bc_pallas.py:27-32), value for value."""
+    from cuttlefish_tpu.kernels import bc_pallas
+    from cuttlefish_tpu_torch.kernels import bc
+
+    assert getattr(bc, name) == getattr(bc_pallas, name)

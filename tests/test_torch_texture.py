@@ -26,9 +26,11 @@ def _psnr(dec, ref):
 
 
 def _texture(mod, arr, cs, **kw):
+    """A mipmapped texture of package ``mod``, built from its own enums."""
     h, w = arr.shape[:2]
-    tex = mod.Texture(ct.Dimension.Dim2D, w, h, mip_levels=99, color_space=cs, **kw)
-    assert tex.set_image(ct.Image.from_array(arr, ct.ImageFormat.RGBAF, cs))
+    cs = mod.ColorSpace[cs.name]
+    tex = mod.Texture(mod.Dimension.Dim2D, w, h, mip_levels=99, color_space=cs, **kw)
+    assert tex.set_image(mod.Image.from_array(arr, mod.ImageFormat.RGBAF, cs))
     assert tex.generate_mipmaps()
     return tex
 
@@ -50,8 +52,8 @@ def converted():
             arr = np.clip(arr + rng.normal(0, 0.05, arr.shape), 0, 1).astype(np.float32)
             port = _texture(cp, arr, cs, device="cpu")
             ref = _texture(ct, arr, cs)
-            for tex in (port, ref):
-                assert tex.convert(ct.TextureFormat.BC7, ct.TextureType.UNorm, ct.Quality.Normal)
+            for mod, tex in ((cp, port), (ct, ref)):
+                assert tex.convert(mod.TextureFormat.BC7, mod.TextureType.UNorm, mod.Quality.Normal)
             out[(h, w, cs)] = (port, ref)
     finally:
         mp.undo()
@@ -65,9 +67,9 @@ def _ids(c):
 @pytest.mark.parametrize("case", _CASES, ids=_ids)
 def test_dds_header_and_size(case, converted):
     port, ref = converted[case]
-    rp, dp = port.save_to_bytes(ct.FileType.DDS)
+    rp, dp = port.save_to_bytes(cp.FileType.DDS)
     rr, dr = ref.save_to_bytes(ct.FileType.DDS)
-    assert rp is ct.SaveResult.Success and rr is ct.SaveResult.Success
+    assert rp is cp.SaveResult.Success and rr is ct.SaveResult.Success
     assert dp[:_DDS_HEADER] == dr[:_DDS_HEADER]
     sizes = [port.data_size(mip_level=m) for m in range(port.mip_levels)]
     assert port.mip_levels == ref.mip_levels > 1
@@ -88,7 +90,7 @@ def test_blocks_and_psnr_match_reference(case, converted):
         total += a.shape[0]
     assert same / total >= 0.99, (same, total)
     # PSNR of level 0 against its source texels (edge-padded blocks).
-    from cuttlefish_tpu.convert.blocks import extract_blocks
+    from cuttlefish_tpu_torch.convert.blocks import extract_blocks
 
     src, _, _ = extract_blocks(port.get_image(mip_level=0).rgbaf(), 4, 4)
     target = np.clip(np.round(src * 255), 0, 255)
@@ -102,11 +104,12 @@ def test_blocks_and_psnr_match_reference(case, converted):
 def test_load_texture_round_trip(case, converted, tmp_path):
     port, _ = converted[case]
     path = tmp_path / "out.dds"
-    assert port.save(str(path)) is ct.SaveResult.Success
+    assert port.save(str(path)) is cp.SaveResult.Success
     loaded = cp.load_texture(str(path))
-    assert loaded.format is ct.TextureFormat.BC7
+    assert isinstance(loaded, cp.Texture)
+    assert loaded.format is cp.TextureFormat.BC7
     assert loaded.mip_levels == port.mip_levels
-    assert loaded.color_space is case[2]
+    assert loaded.color_space is cp.ColorSpace[case[2].name]
     for m in range(port.mip_levels):
         assert loaded.data(mip_level=m) == port.data(mip_level=m)
 
@@ -115,6 +118,7 @@ def test_convert_stats(converted):
     port, _ = converted[_CASES[0]]
     stats = port.last_convert_stats
     assert stats["bc7_launches"] == 0  # the CPU runs the plain version
+    assert stats["launches"] == {}
     assert stats["texels"] == sum(
         port.width(m) * port.height(m) for m in range(port.mip_levels)
     )
@@ -138,20 +142,46 @@ def test_wire_dequantisation_is_the_reference_f32():
 
 
 def test_unported_formats_raise_and_invalid_combos_fail():
-    tex = cp.Texture(ct.Dimension.Dim2D, 8, 8)
-    tex.set_image(ct.Image.from_array(np.full((8, 8, 4), 0.5, np.float32), ct.ImageFormat.RGBAF))
+    tex = cp.Texture(cp.Dimension.Dim2D, 8, 8, device="cpu")
+    tex.set_image(cp.Image.from_array(np.full((8, 8, 4), 0.5, np.float32), cp.ImageFormat.RGBAF))
     with pytest.raises(NotImplementedError, match="later PR"):
-        tex.convert(ct.TextureFormat.BC1_RGB)
-    assert tex.format is ct.TextureFormat.Unknown
-    assert tex.convert(ct.TextureFormat.BC7, ct.TextureType.SNorm) is False
+        tex.convert(cp.TextureFormat.BC6H, cp.TextureType.UFloat)
+    assert tex.format is cp.TextureFormat.Unknown
+    assert tex.convert(cp.TextureFormat.BC7, cp.TextureType.SNorm) is False
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        tex.convert_with_mips(ct.TextureFormat.BC7)
-    # Uncompressed formats use the reused host converters.
-    assert tex.convert(ct.TextureFormat.R8G8B8A8)
+        tex.convert_with_mips(cp.TextureFormat.BC7)
+    # BC1 is ported now.
+    assert tex.convert(cp.TextureFormat.BC1_RGB)
+    assert tex.format is cp.TextureFormat.BC1_RGB and tex.data_size() == 4 * 8
+    # Uncompressed formats use the port's copy of the host converters.
+    assert tex.convert(cp.TextureFormat.R8G8B8A8)
     assert tex.data() == bytes([128] * 4 * 64)
 
 
 def test_texture_device_argument():
-    tex = cp.Texture(ct.Dimension.Dim2D, 4, 4, device=torch.device("cpu"))
+    tex = cp.Texture(cp.Dimension.Dim2D, 4, 4, device=torch.device("cpu"))
     assert tex.device == torch.device("cpu")
-    assert isinstance(tex, ct.Texture)
+    # The port's Texture is a class of its own, not the JAX package's.
+    from cuttlefish_tpu.texture import Texture as JaxTexture
+
+    assert not issubclass(cp.Texture, JaxTexture)
+    assert not isinstance(tex, ct.Texture)
+
+
+def test_texture_defaults_to_the_card_and_never_falls_back():
+    """Texture(), create_converter() and BlockConverter() default to the
+    CUDA device; without a card, a block-format convert raises."""
+    from cuttlefish_tpu_torch.convert import create_converter
+    from cuttlefish_tpu_torch.convert.device import BlockConverter
+
+    tex = cp.Texture(cp.Dimension.Dim2D, 8, 8)
+    assert tex.device == torch.device("cuda")
+    conv = create_converter(cp.TextureFormat.BC1_RGB, cp.TextureType.UNorm)
+    assert isinstance(conv, BlockConverter) and conv.device == torch.device("cuda")
+    assert BlockConverter().device == torch.device("cuda")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works here")
+    tex.set_image(cp.Image.from_array(np.full((8, 8, 4), 0.5, np.float32), cp.ImageFormat.RGBAF))
+    with pytest.raises((RuntimeError, AssertionError)):
+        tex.convert(cp.TextureFormat.BC1_RGB)
+    assert tex.format is cp.TextureFormat.Unknown and not tex.converted
