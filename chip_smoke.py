@@ -5,7 +5,8 @@
 
 Drives the port's paths once at the bench size, on 2048x2048 RGBA
 surfaces made from a seed (the formula of bench.py:_test_surface, seed 0,
-plus an alpha variant and a signed variant), through the hand-written CUDA
+plus an alpha variant, a signed variant and an HDR variant that spans the
+half-float range, unsigned and signed), through the hand-written CUDA
 kernels, and reads every file back.  Phases, one line each; any failure
 exits non-zero:
 
@@ -16,20 +17,25 @@ exits non-zero:
    (registers, spills) for every kernel entry.
 3. kernel vs plain: the 262,144 blocks of the surface through each kernel
    and through its plain PyTorch version on the card: >= 99 % identical
-   blocks, |dPSNR| <= 0.05 dB on a decoded sample of 4,096 blocks.  BC7 q2;
-   BC1 q0-q4 (with black), BC1 q2 punch-through on a hard-alpha surface,
-   BC2, BC3, BC4 unsigned at q2; BC4 and BC5 signed at q2 on 2x-1 through
-   the f16 wire.
+   blocks, |dPSNR| <= 0.05 dB on a decoded sample of 4,096 blocks.  BC7 q0,
+   q1 and q2 perceptual, q2, q3, q4 and q4 perceptual; BC1 q0-q4 (with
+   black), BC1 q2 punch-through on a hard-alpha surface, BC2, BC3, BC4
+   unsigned at q2; BC4 and BC5 signed at q2 on 2x-1 through the f16 wire;
+   BC6H q0-q4 unsigned, q2 and q4 signed (value metric) and q2 code metric
+   on the HDR surfaces through the f16 wire.
 4. paths: Texture(device=cuda).convert(...) then save, load_texture and a
    payload check, each with every launch counter set to 0 just before and
    read just after (the kernel must have launched, no plain version may
-   have run): the main path BC7 q2 2048^2 + mips -> DDS; this slice's
-   BC1_RGB 2048^2 -> DDS, BC1_RGB 512^2 -> DDS, BC3 2048^2 + mips -> KTX,
-   BC5 SNorm 2048^2 + mips -> KTX; and BC1_RGBA, BC2, BC4 UNorm and BC4
-   SNorm through the same converters.  Level-0 sample blocks must equal the
-   plain version on the same wire input.
+   have run): BC7 q2 2048^2 + mips -> DDS; BC1_RGB 2048^2 -> DDS, BC1_RGB
+   512^2 -> DDS, BC3 2048^2 + mips -> KTX, BC5 SNorm 2048^2 + mips -> KTX;
+   BC1_RGBA, BC2, BC4 UNorm and BC4 SNorm through the same converters; and
+   this slice's main paths BC7 Highest 2048^2 + mips -> DDS and BC6H
+   UFloat Highest 2048^2 + mips -> DDS, with BC7 High -> DDS and BC6H Float
+   Normal -> KTX.  Level-0 sample blocks must equal the plain version on
+   the same wire input.
 5. times: CUDA events, one warm-up, median of 7: each kernel alone and its
-   plain version alone on the 262,144 blocks; each main-path convert (host
+   plain version alone on the 262,144 blocks (BC7 q3-4 and BC6H at q4, the
+   main paths' quality, and at q3 and q2); each main-path convert (host
    clock, synchronised) median of 5 with its phases.
 
 Then one JSON line of kernels (launches from the paths of phase 4; bound_ms
@@ -53,7 +59,6 @@ import numpy as np
 
 SIZE = 2048
 SMALL = 512
-QUALITY = 2
 SAMPLE_STRIDE = 64  # 262,144 / 64 = 4,096 decoded blocks
 MIN_SAME = 0.99
 MAX_DPSNR = 0.05
@@ -111,6 +116,33 @@ def hard_alpha_surface(surf: np.ndarray) -> np.ndarray:
     y, x = np.mgrid[0:size, 0:size].astype(np.float32) / size
     out = surf.copy()
     out[..., 3] = (np.sin(97.0 * x) * np.sin(61.0 * y) > -0.2).astype(np.float32)
+    return out
+
+
+def hdr_surface(surf: np.ndarray) -> np.ndarray:
+    """An HDR variant of the test surface: its colours scaled by 2^e, with
+    e running smoothly from -22 to 15 across the surface, so that texels
+    fall in every exponent segment of a half float (denormals included)
+    below the largest finite one; opaque alpha."""
+    size = surf.shape[0]
+    rng = np.random.default_rng(2)
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    e = -22.0 + 37.0 * (0.5 * x + 0.3 * y + 0.2 * (0.5 + 0.5 * np.sin(9.0 * x * y)))
+    scale = np.exp2(e) * (1.0 + rng.normal(0, 0.03, x.shape))
+    out = surf.copy()
+    out[..., :3] = surf[..., :3] * scale[..., None].astype(np.float32) * 1.6
+    out[..., 3] = 1.0
+    return out.astype(np.float32)
+
+
+def signed_hdr_surface(hdr: np.ndarray) -> np.ndarray:
+    """The HDR surface with a sign pattern per channel (BC6H Float)."""
+    size = hdr.shape[0]
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    out = hdr.copy()
+    for c in range(3):
+        sign = np.where(np.sin(40.0 * x + 2.0 * c) * np.cos(30.0 * y - c) < -0.2, -1.0, 1.0)
+        out[..., c] *= sign.astype(np.float32)
     return out
 
 
@@ -191,9 +223,12 @@ def main() -> int:
     from cuttlefish_tpu_torch.convert.blocks import extract_blocks
     from cuttlefish_tpu_torch.convert.device import dequant, wire
     from cuttlefish_tpu_torch.decode import (
-        decode_bc1, decode_bc2, decode_bc3, decode_bc4, decode_bc5, decode_bc7,
+        decode_bc1, decode_bc2, decode_bc3, decode_bc4, decode_bc5, decode_bc6h_f32,
+        decode_bc7,
     )
-    from cuttlefish_tpu_torch.kernels import _build, bc, bc7_cuda, bc_cuda, launch_counts
+    from cuttlefish_tpu_torch.kernels import (
+        _build, bc, bc6h, bc6h_cuda, bc7, bc7_cuda, bc7_hq_cuda, bc_cuda, launch_counts,
+    )
     from cuttlefish_tpu_torch.kernels.bc7 import _constants, encode_bc7, encode_bc7_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -210,7 +245,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    for name in ("bc7_encode", "bc_encode"):
+    for name in ("bc7_encode", "bc7_hq_encode", "bc_encode", "bc6h_encode"):
         _build.load(name)
     build_s = time.perf_counter() - t0
     for name, info in sorted(_build.build_info.items()):
@@ -230,8 +265,11 @@ def main() -> int:
     asurf = alpha_surface(surf)
     hsurf = hard_alpha_surface(surf)
     ssurf = surf * 2.0 - 1.0
+    hdr = hdr_surface(surf)
+    shdr = signed_hdr_surface(hdr)
     host = {k: extract_blocks(v, 4, 4)[0] for k, v in
-            (("rgba", surf), ("alpha", asurf), ("hard", hsurf), ("signed", ssurf))}
+            (("rgba", surf), ("alpha", asurf), ("hard", hsurf), ("signed", ssurf),
+             ("hdr", hdr), ("shdr", shdr))}
     n = host["rgba"].shape[0]
     check(n == 262144, f"expected 262144 blocks, got {n}")
     dev_in = {
@@ -239,6 +277,9 @@ def main() -> int:
         "alpha": torch.from_numpy(host["alpha"]).to(dev),
         "hard": torch.from_numpy(host["hard"]).to(dev),
         "signed": dequant(wire(host["signed"], "f16").to(dev)),
+        # BC6H: RGB of the f16 wire, as Bc6hConverter hands it on.
+        "hdr": dequant(wire(host["hdr"], "f16").to(dev))[..., :3].contiguous(),
+        "shdr": dequant(wire(host["shdr"], "f16").to(dev))[..., :3].contiguous(),
     }
     dev_in["alpha1"] = dev_in["alpha"][..., 3].contiguous()  # BC4 unsigned: alpha
     dev_in["signed1"] = dev_in["signed"][..., 0].contiguous()  # BC4 signed: red
@@ -250,10 +291,16 @@ def main() -> int:
         return decode_bc1(raw, opaque=True)[..., :3]
 
     # name -> (kernel, plain, input, decoder, target channels, peak)
-    cases = {
-        "bc7_q2": (lambda x: encode_bc7(x, 2),
-                   lambda x: encode_bc7_plain(x, 2, _constants(False, x.device)),
-                   "rgba", decode_bc7, slice(0, 4), 255.0),
+    cases = {}
+    # BC7 q0-2: every instantiation of the q0-2 kernel, and the perceptual
+    # weights (0.55, 1.1, 0.35, 1.0) that every sRGB texture takes.
+    for q, perc in ((0, False), (1, True), (2, False), (2, True)):
+        cases[f"bc7_q{q}{'p' if perc else ''}"] = (
+            lambda x, q=q, p=perc: encode_bc7(x, q, p),
+            lambda x, q=q, p=perc: encode_bc7_plain(x, q, _constants(p, x.device)),
+            "rgba", decode_bc7, slice(0, 4), 255.0,
+        )
+    cases.update({
         "bc2_q2": (lambda x: bc.encode_bc2(x, 2), lambda x: bc.encode_bc2_plain(x, 2),
                    "alpha", decode_bc2, slice(0, 4), 255.0),
         "bc3_q2": (lambda x: bc.encode_bc3(x, 2), lambda x: bc.encode_bc3_plain(x, 2),
@@ -269,7 +316,7 @@ def main() -> int:
         "bc1_q2_punch": (lambda x: bc.encode_bc1(x, 2, True, False),
                          lambda x: bc.encode_bc1_plain(x, 2, True, False),
                          "hard", decode_bc1, slice(0, 4), 255.0),
-    }
+    })
     for q in range(5):
         cases[f"bc1_q{q}"] = (
             lambda x, q=q: bc.encode_bc1(x, q), lambda x, q=q: bc.encode_bc1_plain(x, q),
@@ -279,11 +326,29 @@ def main() -> int:
         lambda x: bc.encode_bc1(x, 2, ch_weights=srgb),
         lambda x: bc.encode_bc1_plain(x, 2, chw=srgb), "rgba", dec_rgb, slice(0, 3), 255.0,
     )
+    # This slice: BC7 q3-4 (the high-quality kernel) and BC6H.
+    for q, perc in ((3, False), (4, False), (4, True)):
+        cases[f"bc7_q{q}{'p' if perc else ''}"] = (
+            lambda x, q=q, p=perc: encode_bc7(x, q, p),
+            lambda x, q=q, p=perc: encode_bc7_plain(x, q, _constants(p, x.device)),
+            "rgba", decode_bc7, slice(0, 4), 255.0,
+        )
+    bc6h_cases = [(f"bc6h_q{q}", q, False, "value") for q in range(5)] + [
+        ("bc6hs_q2", 2, True, "value"), ("bc6hs_q4", 4, True, "value"),
+        ("bc6h_q2_code", 2, False, "code"),
+    ]
+    for name, q, sgn, metric in bc6h_cases:
+        cases[name] = (
+            lambda x, q=q, s=sgn, m=metric: bc6h.encode_bc6h(x, q, s, m),
+            lambda x, q=q, s=sgn, m=metric: bc6h.encode_bc6h_plain(x, q, s, m),
+            "shdr" if sgn else "hdr",
+            lambda r, s=sgn: decode_bc6h_f32(r, signed=s), slice(0, 3), None,
+        )
 
     def target_of(kind, chans):
         """What the sample should decode to: 8-bit texels of the source for
-        the colour formats, the float input for BC4 and BC5."""
-        if kind in ("alpha1", "signed1", "signed"):
+        the colour formats, the float input for BC4, BC5 and BC6H."""
+        if kind in ("alpha1", "signed1", "signed", "hdr", "shdr"):
             vals = dev_in[kind].cpu().numpy()[sample].astype(np.float64)
             return vals if chans is None else vals[..., chans]
         src = host[kind][sample]
@@ -304,6 +369,8 @@ def main() -> int:
         dk = np.asarray(decode(to_bytes(k_np[sample])), np.float64)
         dp = np.asarray(decode(to_bytes(p_np[sample])), np.float64)
         target = target_of(kind, chans)
+        if peak is None:  # HDR: peak-relative, as tests/test_pallas.py:319-336
+            peak = float(np.abs(target).max())
         pk, pp = psnr(dk, target, peak), psnr(dp, target, peak)
         err = float(np.abs(dk - dp).max())
         max_err[name] = err
@@ -316,9 +383,10 @@ def main() -> int:
 
     # 4. the paths, each with every launch counter at 0 just before
     plain_calls = {"n": 0}
-    plain_names = ["encode_bc1_plain", "encode_bc2_plain", "encode_bc3_plain",
-                   "encode_bc4_plain", "encode_bc5_plain"]
-    originals = {nm: getattr(bc, nm) for nm in plain_names}
+    plain_fns = [(bc, "encode_bc1_plain"), (bc, "encode_bc2_plain"), (bc, "encode_bc3_plain"),
+                 (bc, "encode_bc4_plain"), (bc, "encode_bc5_plain"),
+                 (bc7, "encode_bc7_plain"), (bc6h, "encode_bc6h_plain")]
+    originals = {nm: getattr(mod, nm) for mod, nm in plain_fns}
 
     def counting(fn):
         def wrapped(*a, **k):
@@ -328,19 +396,31 @@ def main() -> int:
 
     TF, TT = cp.TextureFormat, cp.TextureType
     images = {k: cp.Image.from_array(v, cp.ImageFormat.RGBAF) for k, v in
-              (("rgba", surf), ("alpha", asurf), ("hard", hsurf), ("signed", ssurf))}
+              (("rgba", surf), ("alpha", asurf), ("hard", hsurf), ("signed", ssurf),
+               ("hdr", hdr), ("shdr", shdr))}
     small = cp.Image.from_array(surf[:SMALL, :SMALL].copy(), cp.ImageFormat.RGBAF)
-    # name -> (format, type, mips, file type, image, kernel, main path?)
+    QN, QH, QX = cp.Quality.Normal, cp.Quality.High, cp.Quality.Highest
+    # name -> (format, type, quality, mips, file type, image, kernel, timed?)
     paths = {
-        "bc7_2048_mips_dds": (TF.BC7, TT.UNorm, True, "dds", images["rgba"], "bc7", True),
-        "bc1_2048_dds": (TF.BC1_RGB, TT.UNorm, False, "dds", images["rgba"], "bc1", True),
-        "bc1_512_dds": (TF.BC1_RGB, TT.UNorm, False, "dds", small, "bc1", True),
-        "bc3_2048_mips_ktx": (TF.BC3, TT.UNorm, True, "ktx", images["alpha"], "bc3", True),
-        "bc5s_2048_mips_ktx": (TF.BC5, TT.SNorm, True, "ktx", images["signed"], "bc5", True),
-        "bc1a_2048_mips_dds": (TF.BC1_RGBA, TT.UNorm, True, "dds", images["hard"], "bc1", False),
-        "bc2_2048_mips_dds": (TF.BC2, TT.UNorm, True, "dds", images["alpha"], "bc2", False),
-        "bc4_2048_mips_ktx": (TF.BC4, TT.UNorm, True, "ktx", images["alpha"], "bc4", False),
-        "bc4s_2048_mips_ktx": (TF.BC4, TT.SNorm, True, "ktx", images["signed"], "bc4", False),
+        "bc7_2048_mips_dds": (TF.BC7, TT.UNorm, QN, True, "dds", images["rgba"], "bc7", True),
+        "bc1_2048_dds": (TF.BC1_RGB, TT.UNorm, QN, False, "dds", images["rgba"], "bc1", True),
+        "bc1_512_dds": (TF.BC1_RGB, TT.UNorm, QN, False, "dds", small, "bc1", True),
+        "bc3_2048_mips_ktx": (TF.BC3, TT.UNorm, QN, True, "ktx", images["alpha"], "bc3", True),
+        "bc5s_2048_mips_ktx": (TF.BC5, TT.SNorm, QN, True, "ktx", images["signed"], "bc5", True),
+        "bc1a_2048_mips_dds": (TF.BC1_RGBA, TT.UNorm, QN, True, "dds", images["hard"], "bc1",
+                               False),
+        "bc2_2048_mips_dds": (TF.BC2, TT.UNorm, QN, True, "dds", images["alpha"], "bc2", False),
+        "bc4_2048_mips_ktx": (TF.BC4, TT.UNorm, QN, True, "ktx", images["alpha"], "bc4", False),
+        "bc4s_2048_mips_ktx": (TF.BC4, TT.SNorm, QN, True, "ktx", images["signed"], "bc4", False),
+        # This slice's main paths (BASELINE config 4), then its others.
+        "bc7_q4_2048_mips_dds": (TF.BC7, TT.UNorm, QX, True, "dds", images["rgba"], "bc7_hq",
+                                 True),
+        "bc6h_q4_2048_mips_dds": (TF.BC6H, TT.UFloat, QX, True, "dds", images["hdr"], "bc6h",
+                                  True),
+        "bc7_q3_2048_mips_dds": (TF.BC7, TT.UNorm, QH, True, "dds", images["rgba"], "bc7_hq",
+                                 False),
+        "bc6hs_q2_2048_mips_ktx": (TF.BC6H, TT.Float, QN, True, "ktx", images["shdr"], "bc6h",
+                                   False),
     }
 
     def make_texture(img, mips):
@@ -353,38 +433,42 @@ def main() -> int:
         return tex
 
     # The plain reference of a path's level-0 sample: the same wire input.
-    def plain_reference(fmt, typ, blocks):
-        signed = typ is TT.SNorm
-        x = dequant(wire(blocks, "f16" if signed else "u8").to(dev))
+    def plain_reference(fmt, typ, quality, blocks):
+        signed = typ in (TT.SNorm, TT.Float)
+        f16 = signed or fmt is TF.BC6H
+        x = dequant(wire(blocks, "f16" if f16 else "u8").to(dev))
+        q = int(quality)
+        if fmt is TF.BC6H:
+            return originals["encode_bc6h_plain"](x[..., :3].contiguous(), q, signed, "value")
         if fmt is TF.BC7:
-            return encode_bc7_plain(x, QUALITY, consts)
+            return originals["encode_bc7_plain"](x, q, consts)
         if fmt in (TF.BC1_RGB, TF.BC1_RGBA):
             punch = fmt is TF.BC1_RGBA
-            return originals["encode_bc1_plain"](x, QUALITY, punch, not punch)
+            return originals["encode_bc1_plain"](x, q, punch, not punch)
         if fmt is TF.BC2:
-            return originals["encode_bc2_plain"](x, QUALITY)
+            return originals["encode_bc2_plain"](x, q)
         if fmt is TF.BC3:
-            return originals["encode_bc3_plain"](x, QUALITY)
+            return originals["encode_bc3_plain"](x, q)
         if fmt is TF.BC4:
-            return originals["encode_bc4_plain"](x[..., 0].contiguous(), QUALITY, signed)
-        return originals["encode_bc5_plain"](x, QUALITY, signed)
+            return originals["encode_bc4_plain"](x[..., 0].contiguous(), q, signed)
+        return originals["encode_bc5_plain"](x, q, signed)
 
     path_launches = {k: 0 for k in launch_counts()}
     path_stats = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for pname, (fmt, typ, mips, ext, img, kname, _) in paths.items():
+        for pname, (fmt, typ, quality, mips, ext, img, kname, _) in paths.items():
             tex = make_texture(img, mips)
-            for nm in plain_names:
-                setattr(bc, nm, counting(originals[nm]))
-            bc7_cuda.reset_launches()
-            bc_cuda.reset_launches()
+            for mod, nm in plain_fns:
+                setattr(mod, nm, counting(originals[nm]))
+            for wrapper in (bc7_cuda, bc7_hq_cuda, bc_cuda, bc6h_cuda):
+                wrapper.reset_launches()
             plain_calls["n"] = 0
             try:
-                ok = tex.convert(fmt, typ, cp.Quality.Normal)
+                ok = tex.convert(fmt, typ, quality)
                 torch.cuda.synchronize()
             finally:
-                for nm in plain_names:
-                    setattr(bc, nm, originals[nm])
+                for mod, nm in plain_fns:
+                    setattr(mod, nm, originals[nm])
             counts = launch_counts()
             check(ok, f"{pname}: Texture.convert returned False")
             check(counts[kname] > 0, f"{pname}: the path launched no {kname} kernel")
@@ -415,18 +499,28 @@ def main() -> int:
             bs = 8 if fmt in (TF.BC1_RGB, TF.BC1_RGBA, TF.BC4) else 16
             lvl0 = np.frombuffer(tex.data(), np.uint8).reshape(-1, bs)
             idx = np.arange(0, b0.shape[0], max(1, b0.shape[0] // 4096))
-            ref = to_bytes(plain_reference(fmt, typ, b0[idx]).cpu().numpy()).reshape(-1, bs)
+            ref = plain_reference(fmt, typ, quality, b0[idx]).cpu().numpy()
+            ref = to_bytes(ref).reshape(-1, bs)
             same = float(np.all(lvl0[idx] == ref, axis=1).mean())
-            dec = loaded.decode_image().rgbaf()
-            ch = {TF.BC4: 1, TF.BC5: 2, TF.BC1_RGB: 3}.get(fmt, 4)
-            if fmt is TF.BC1_RGBA:
-                ch = 3
-            finite = bool(np.isfinite(dec).all()) and dec.shape == src0.shape
-            err_src = src0[..., :ch]
-            if fmt is TF.BC1_RGBA:
-                opaque = src0[..., 3:] >= 0.5
-                err_src = np.where(opaque, src0[..., :3], 0.0)
-            p0 = psnr(dec[..., :ch], err_src, 2.0 if typ is TT.SNorm else 1.0)
+            if fmt is TF.BC6H:
+                # The whole surface decodes one block at a time in Python:
+                # decode the level-0 sample of the file read back instead.
+                raw = np.frombuffer(loaded.data(), np.uint8).reshape(-1, bs)[idx]
+                dec = decode_bc6h_f32(raw.reshape(-1), signed=typ is TT.Float)
+                src_s = b0[idx][..., :3].astype(np.float16).astype(np.float32)
+                finite = bool(np.isfinite(dec).all()) and dec.shape == src_s.shape
+                p0 = psnr(dec, src_s, float(np.abs(src_s).max()))
+            else:
+                dec = loaded.decode_image().rgbaf()
+                ch = {TF.BC4: 1, TF.BC5: 2, TF.BC1_RGB: 3}.get(fmt, 4)
+                if fmt is TF.BC1_RGBA:
+                    ch = 3
+                finite = bool(np.isfinite(dec).all()) and dec.shape == src0.shape
+                err_src = src0[..., :ch]
+                if fmt is TF.BC1_RGBA:
+                    opaque = src0[..., 3:] >= 0.5
+                    err_src = np.where(opaque, src0[..., :3], 0.0)
+                p0 = psnr(dec[..., :ch], err_src, 2.0 if typ is TT.SNorm else 1.0)
             path_stats[pname] = {"launches": {k: v for k, v in counts.items() if v},
                                  "bytes": size, "psnr": p0, "same": same}
             log("paths", f"{pname}: {tex.mip_levels} mips, {payload // bs} blocks, "
@@ -435,27 +529,37 @@ def main() -> int:
                 f"{same * 100:.2f} %; phases {json.dumps(stats['phases'])}")
             check(same >= MIN_SAME, f"{pname}: blocks disagree with the plain version")
             check(finite, f"{pname}: decoded texels not finite or of the wrong shape")
-            check(p0 > 30.0, f"{pname}: PSNR too low")
+            # LDR: above 30 dB.  HDR: finite (peak-relative PSNR swings with
+            # the range a surface spans).
+            check(np.isfinite(p0) and (fmt is TF.BC6H or p0 > 30.0), f"{pname}: PSNR too low")
             del tex, loaded
 
     # 5. times on the card
+    # (row name, counter, case timed for the row, source, TPU kernel, input
+    # bytes per block, other cases timed alongside)
     kernel_rows = [
         ("bc7_encode_q0_2", "bc7", "bc7_q2", "cuttlefish_tpu_torch/csrc/bc7_encode.cu",
-         "cuttlefish_tpu/kernels/bc7_pallas.py:1044", 256),
+         "cuttlefish_tpu/kernels/bc7_pallas.py:1044", 256, ()),
+        ("bc7_hq_encode_q3_4", "bc7_hq", "bc7_q4", "cuttlefish_tpu_torch/csrc/bc7_hq_encode.cu",
+         "cuttlefish_tpu/kernels/bc7_pallas.py:1085", 256, ("bc7_q3",)),
         ("bc1_encode", "bc1", "bc1_q2", "cuttlefish_tpu_torch/csrc/bc_encode.cu",
-         "cuttlefish_tpu/kernels/bc_pallas.py:452", 192),
+         "cuttlefish_tpu/kernels/bc_pallas.py:452", 192, ()),
         ("bc2_encode", "bc2", "bc2_q2", "cuttlefish_tpu_torch/csrc/bc_encode.cu",
-         "cuttlefish_tpu/kernels/bc_pallas.py:491", 256),
+         "cuttlefish_tpu/kernels/bc_pallas.py:491", 256, ()),
         ("bc3_encode", "bc3", "bc3_q2", "cuttlefish_tpu_torch/csrc/bc_encode.cu",
-         "cuttlefish_tpu/kernels/bc_pallas.py:517", 256),
+         "cuttlefish_tpu/kernels/bc_pallas.py:517", 256, ()),
         ("bc4_encode", "bc4", "bc4_q2", "cuttlefish_tpu_torch/csrc/bc_encode.cu",
-         "cuttlefish_tpu/kernels/bc_pallas.py:477", 64),
+         "cuttlefish_tpu/kernels/bc_pallas.py:477", 64, ()),
         ("bc5_encode", "bc5", "bc5s_q2", "cuttlefish_tpu_torch/csrc/bc_encode.cu",
-         "cuttlefish_tpu/kernels/bc_pallas.py:539", 128),
+         "cuttlefish_tpu/kernels/bc_pallas.py:539", 128, ()),
+        ("bc6h_encode", "bc6h", "bc6h_q4", "cuttlefish_tpu_torch/csrc/bc6h_encode.cu",
+         "cuttlefish_tpu/kernels/bc6h_pallas.py:584", 192, ("bc6h_q2",)),
     ]
     out_bytes = {"bc1": 8, "bc4": 8}
     rows = []
-    for name, key, case, src, replaces, in_bytes in kernel_rows:
+
+    def time_case(case, key, in_bytes):
+        """(kernel ms, plain ms, bound ms, bound_by) of one case."""
         kernel, plain, kind, *_ = cases[case]
         x = dev_in[kind]
         kernel_ms = event_ms(torch, lambda: kernel(x), 7)
@@ -463,28 +567,33 @@ def main() -> int:
         ops = ops_per_block(torch, plain, x[:1024].cpu())
         bytes_ = n * (in_bytes + out_bytes.get(key, 16))
         t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, n * ops / F32_OPS_PER_S * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log("times", f"{card}: {key} ({case}, {n} blocks): kernel {kernel_ms:.4f} ms "
+            f"({SIZE * SIZE / kernel_ms / 1e3:.1f} Mtexels/s); plain {plain_ms:.4f} ms; "
+            f"bound {max(t_bytes, t_ops):.4f} ms ({bound_by}: "
+            f"{bytes_ / 1e6:.1f} MB, {ops:.0f} ops/block)")
+        return kernel_ms, plain_ms, max(t_bytes, t_ops), bound_by
+
+    for name, key, case, src, replaces, in_bytes, others in kernel_rows:
+        kernel_ms, plain_ms, bound_ms, bound_by = time_case(case, key, in_bytes)
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": path_launches[key], "max_abs_err": max_err[case],
             "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
-        log("times", f"{card}: {name} ({case}, {n} blocks): kernel {kernel_ms:.4f} ms "
-            f"({SIZE * SIZE / kernel_ms / 1e3:.1f} Mtexels/s); plain {plain_ms:.4f} ms; "
-            f"bound {max(t_bytes, t_ops):.4f} ms ({rows[-1]['bound_by']}: "
-            f"{bytes_ / 1e6:.1f} MB, {ops:.0f} ops/block)")
+        for other in others:
+            time_case(other, key, in_bytes)
 
-    for pname, (fmt, typ, mips, ext, img, kname, main_path) in paths.items():
-        if not main_path:
+    for pname, (fmt, typ, quality, mips, ext, img, kname, timed) in paths.items():
+        if not timed:
             continue
         secs = []
         for _ in range(5):
             t = make_texture(img, mips)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            check(t.convert(fmt, typ, cp.Quality.Normal), f"{pname}: timed convert failed")
+            check(t.convert(fmt, typ, quality), f"{pname}: timed convert failed")
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             phases = t.last_convert_stats["phases"]

@@ -3,8 +3,8 @@
 ``EncodeParams`` and ``Converter`` are copied from
 ``cuttlefish_tpu/convert/__init__.py`` unchanged; ``create_converter`` is
 the port's.  Uncompressed formats go to the copied host converters of
-``convert/standard.py``; BC1-BC5 and BC7 go to the port's block converters
-on a torch device.  Every other block format raises
+``convert/standard.py``; BC1-BC7 go to the port's block converters on a
+torch device.  Every other block format (ETC/EAC, ASTC, PVRTC) raises
 ``NotImplementedError`` until its slice is ported.
 """
 
@@ -81,7 +81,7 @@ def create_converter(
     std = standard.create_standard_converter(fmt, type_)
     if std is not None:
         return std
-    if fmt in (F.BC1_RGB, F.BC1_RGBA, F.BC2, F.BC3, F.BC4, F.BC5, F.BC7):
+    if fmt in (F.BC1_RGB, F.BC1_RGBA, F.BC2, F.BC3, F.BC4, F.BC5, F.BC6H, F.BC7):
         from cuttlefish_tpu_torch.convert import s3tc
 
         return s3tc.create_s3tc_converter(fmt, type_, device)

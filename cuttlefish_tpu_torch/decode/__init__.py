@@ -1,9 +1,11 @@
 """Reference block decoders of the port (host numpy, no JAX).
 
-BC1-BC5 (``s3tc.py``) and BC7 (``bc7.py``), copies of the JAX package's
-decoders; ``surface.py`` decodes whole surfaces of the ported formats.
+BC1-BC5 (``s3tc.py``), BC6H (``bc6h.py``) and BC7 (``bc7.py``), copies of
+the JAX package's decoders; ``surface.py`` decodes whole surfaces of the
+ported formats.
 """
 
+from cuttlefish_tpu_torch.decode.bc6h import decode_bc6h, decode_bc6h_f32  # noqa: F401
 from cuttlefish_tpu_torch.decode.bc7 import decode_bc7  # noqa: F401
 from cuttlefish_tpu_torch.decode.s3tc import (  # noqa: F401
     decode_bc1,

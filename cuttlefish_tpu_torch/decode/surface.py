@@ -8,7 +8,7 @@ pipelines and by round-trip tests.  The reference has no decode path at
 all (it only writes containers), so this is an extension.
 
 Copied from ``cuttlefish_tpu/decode/surface.py`` with its imports pointed at
-the port.  The port decodes the uncompressed formats, BC1-BC5 and BC7;
+the port.  The port decodes the uncompressed formats and BC1-BC7;
 every other block format raises ``NotImplementedError`` until its decoder
 is ported (ROADMAP queue 1, item 13).
 """
@@ -89,6 +89,9 @@ def _decode_blocks(data: np.ndarray, fmt: _F, type_: _T) -> np.ndarray:
     if fmt is _F.BC5:
         rg = D.decode_bc5(data, signed=signed).astype(np.float32)
         return _rgba(rg[..., 0], rg[..., 1], 0.0, 1.0)
+    if fmt is _F.BC6H:
+        rgb = D.decode_bc6h_f32(data, signed=type_ is _T.Float)
+        return _rgba(rgb[..., 0], rgb[..., 1], rgb[..., 2], 1.0)
     if fmt is _F.BC7:
         return D.decode_bc7(data).astype(np.float32) / 255.0
     raise NotImplementedError(_unported(fmt))

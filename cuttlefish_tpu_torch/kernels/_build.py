@@ -1,11 +1,12 @@
 """Build the hand-written CUDA kernels from the package's own sources.
 
-``nvcc`` compiles each ``csrc/<name>.cu`` into its own shared library with a
-plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds).  The first ``load`` builds every source that is not built
-yet, one ``nvcc`` per source, all started together.  A library goes into a
-build directory keyed by a hash of its source and the flags; nothing
-GPU-side happens at import.
+``nvcc`` compiles each ``csrc/<name>.cu`` (with the ``csrc/*.cuh`` headers
+it includes) into its own shared library with a plain C interface, loaded
+with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The first
+``load`` builds every source that is not built yet, one ``nvcc`` per
+source, all started together.  A library goes into a build directory keyed
+by a hash of its source, the headers and the flags; nothing GPU-side
+happens at import.
 
 The build directory is ``cuttlefish_tpu_torch/_build`` unless
 ``CUTTLEFISH_TORCH_BUILD_DIR`` names another.  ``nvcc`` is taken from
@@ -63,9 +64,11 @@ def _sources() -> list[Path]:
 
 
 def _digest(src: Path) -> str:
+    """Hash of the flags, the source and every shared header of csrc/."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(src.name.encode())
-    h.update(src.read_bytes())
+    for path in [src, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -54,22 +54,30 @@ def _set_tables(lib, consts, device: torch.device) -> None:
     _tables_set.add(device.index)
 
 
+def check_blocks(blocks: torch.Tensor, channels: int, what: str) -> None:
+    """Raise unless blocks is a contiguous float32 [N,16,channels] CUDA
+    tensor with fewer than 2**31 blocks."""
+    if blocks.device.type != "cuda":
+        raise ValueError(f"{what} kernel needs a CUDA tensor, got {blocks.device}")
+    if blocks.dtype != torch.float32:
+        raise TypeError(f"{what} kernel needs float32 blocks, got {blocks.dtype}")
+    if blocks.dim() != 3 or tuple(blocks.shape[1:]) != (16, channels):
+        raise ValueError(
+            f"{what} kernel needs [N,16,{channels}] blocks, got {tuple(blocks.shape)}"
+        )
+    if not blocks.is_contiguous():
+        raise ValueError(f"{what} kernel needs contiguous blocks")
+    if blocks.shape[0] >= 2**31:
+        raise ValueError(f"{what} kernel takes fewer than 2**31 blocks")
+
+
 def encode_bc7_cuda(blocks: torch.Tensor, quality: int, consts) -> torch.Tensor:
     """[N,16,4] float32 CUDA blocks (0..1) -> [N,4] uint32 BC7 words."""
     global launches
-    if blocks.device.type != "cuda":
-        raise ValueError(f"BC7 kernel needs a CUDA tensor, got {blocks.device}")
-    if blocks.dtype != torch.float32:
-        raise TypeError(f"BC7 kernel needs float32 blocks, got {blocks.dtype}")
-    if blocks.dim() != 3 or tuple(blocks.shape[1:]) != (16, 4):
-        raise ValueError(f"BC7 kernel needs [N,16,4] blocks, got {tuple(blocks.shape)}")
-    if not blocks.is_contiguous():
-        raise ValueError("BC7 kernel needs contiguous blocks")
+    check_blocks(blocks, 4, "BC7")
     if quality not in (0, 1, 2):
         raise ValueError(f"BC7 kernel covers quality 0-2, got {quality}")
     n = blocks.shape[0]
-    if n >= 2**31:
-        raise ValueError("BC7 kernel takes fewer than 2**31 blocks")
     device = blocks.device
     out = torch.empty((n, 4), dtype=torch.uint32, device=device)
     if n == 0:

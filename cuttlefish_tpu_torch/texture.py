@@ -384,10 +384,10 @@ class Texture:
         all surfaces in one encode on ``self.device``.
 
         ``threads`` is accepted for API parity.  ``hdr_metric`` is BC6H's
-        error domain, which the port does not encode yet.
-        ``last_convert_stats`` adds ``launches`` (kernel name -> launches of
-        this convert, only kernels that ran; empty on a CPU device) and
-        ``bc7_launches``.
+        candidate-selection error domain: "value" (linear) or "code"
+        (half-bit).  ``last_convert_stats`` adds ``launches`` (kernel name
+        -> launches of this convert, only kernels that ran; empty on a CPU
+        device) and ``bc7_launches``.
         """
         del threads
         if not self.images_complete() or not is_format_valid(fmt, type_):

@@ -102,13 +102,11 @@ def test_quality_ladder_and_modes(encoded):
     assert modes(encoded[(2, False)][0]) == {1, 4, 5, 6}
 
 
-def test_quality_3_4_not_ported():
+def test_quality_out_of_range_raises():
     x = torch.zeros((4, 16, 4))
-    for q in (3, 4):
-        with pytest.raises(NotImplementedError, match="queue 2, item 2"):
+    for q in (-1, 5, 7):
+        with pytest.raises(ValueError, match="0-4"):
             encode_bc7(x, q)
-    with pytest.raises(ValueError):
-        encode_bc7(x, 7)
 
 
 def test_empty_and_out_of_range_inputs():

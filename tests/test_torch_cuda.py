@@ -1,4 +1,5 @@
-"""The hand-written kernels (BC7, BC1-BC5) against their plain versions.
+"""The hand-written kernels (BC7 q0-2 and q3-4, BC1-BC5, BC6H) against
+their plain versions.
 
 Tests marked ``gpu`` need a CUDA card and skip without one; run them on
 the card with ``python -m pytest tests/test_torch_cuda.py -m gpu``.  The
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 from cuttlefish_tpu_torch.decode import decode_bc7
-from cuttlefish_tpu_torch.kernels import _build, bc, bc7_cuda, bc_cuda
+from cuttlefish_tpu_torch.kernels import _build, bc, bc6h, bc6h_cuda, bc7_cuda, bc7_hq_cuda, bc_cuda
 from cuttlefish_tpu_torch.kernels.bc7 import _constants, encode_bc7, encode_bc7_plain
 
 
@@ -54,6 +55,67 @@ def test_kernel_matches_plain_on_card(cuda, quality, perceptual):
     k, p = k.cpu().numpy(), p.cpu().numpy()
     assert np.all(k == p, axis=1).mean() >= 0.99
     assert abs(_psnr(k, b) - _psnr(p, b)) <= 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quality,perceptual", [(3, False), (4, False), (4, True)])
+def test_hq_kernel_matches_plain_on_card(cuda, quality, perceptual):
+    """BC7 q3-4: one bc7_hq launch, >= 99 % identical blocks and |dPSNR|
+    <= 0.05 dB, on blocks with flat and two-tone ones among them."""
+    b = _blocks(2048)
+    b[::7] = b[::7, :1]  # flat
+    b[3::11, 8:] = b[3::11, :1]  # two-tone
+    x = torch.from_numpy(b).to(cuda)
+    before = bc7_hq_cuda.launches
+    k = encode_bc7(x, quality, perceptual)
+    torch.cuda.synchronize()
+    assert bc7_hq_cuda.launches == before + 1
+    p = encode_bc7_plain(x, quality, _constants(perceptual, cuda))
+    k, p = k.cpu().numpy(), p.cpu().numpy()
+    assert np.all(k == p, axis=1).mean() >= 0.99
+    assert abs(_psnr(k, b) - _psnr(p, b)) <= 0.05
+
+
+def _hdr(n, signed, seed=9):
+    rng = np.random.default_rng(seed)
+    b = np.exp(rng.normal(0, 1.5, (n, 1, 1))) * (1 + rng.normal(0, 0.1, (n, 16, 3)))
+    if signed:
+        b = b * np.where(rng.random((n, 16, 3)) < 0.3, -1.0, 1.0)
+    return b.astype(np.float16).astype(np.float32)  # the f16 wire
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "quality,signed,metric",
+    [(0, False, "value"), (2, False, "value"), (4, False, "value"), (2, True, "value"),
+     (4, True, "value"), (2, False, "code")],
+)
+def test_bc6h_kernel_matches_plain_on_card(cuda, quality, signed, metric):
+    """BC6H: one bc6h launch, >= 99 % identical blocks (100 % expected)."""
+    x = torch.from_numpy(_hdr(2048, signed)).to(cuda)
+    before = bc6h_cuda.launches
+    k = bc6h.encode_bc6h(x, quality, signed, metric)
+    torch.cuda.synchronize()
+    assert bc6h_cuda.launches == before + 1
+    p = bc6h.encode_bc6h_plain(x, quality, signed, metric)
+    k, p = k.cpu().numpy(), p.cpu().numpy()
+    assert k.dtype == np.uint32 and k.shape == (2048, 4)
+    assert np.all(k == p, axis=1).mean() >= 0.99
+
+
+@pytest.mark.gpu
+def test_new_kernels_reject_bad_input(cuda):
+    x = torch.zeros((8, 16, 4), device=cuda)
+    with pytest.raises(ValueError):
+        bc7_hq_cuda.encode_bc7_hq_cuda(x, 2, _constants(False, cuda))
+    with pytest.raises(TypeError):
+        bc6h_cuda.encode_bc6h_cuda(x[..., :3].contiguous().half(), 2, False, "value")
+    with pytest.raises(ValueError):
+        bc6h_cuda.encode_bc6h_cuda(x, 2, False, "value")  # 4 channels
+    with pytest.raises(ValueError):
+        bc6h_cuda.encode_bc6h_cuda(x[..., :3], 2, False, "value")  # not contiguous
+    assert tuple(bc6h.encode_bc6h(x[:0, :, :3].contiguous(), 2).shape) == (0, 4)
+    assert tuple(encode_bc7(x[:0], 4).shape) == (0, 4)
 
 
 @pytest.mark.gpu
@@ -169,6 +231,14 @@ def test_cpu_tensor_never_reaches_the_launcher(monkeypatch):
     bc.encode_bc4(x[..., 0], 2)
     bc.encode_bc5(x, 2, True)
     assert bc_cuda.launches == counts
+    hq, b6 = bc7_hq_cuda.launches, bc6h_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bc7_hq_cuda.encode_bc7_hq_cuda(x, 4, _constants(False, x.device))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bc6h_cuda.encode_bc6h_cuda(x[..., :3].contiguous(), 2, False, "value")
+    encode_bc7(x, 3)
+    bc6h.encode_bc6h(x[..., :3].contiguous(), 4, True)
+    assert (bc7_hq_cuda.launches, bc6h_cuda.launches) == (hq, b6)
 
 
 def test_build_flags_and_sources():
@@ -177,10 +247,24 @@ def test_build_flags_and_sources():
     assert "--fmad=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     srcs = [p.name for p in _build._sources()]
-    assert srcs == ["bc7_encode.cu", "bc_encode.cu"]
+    assert srcs == ["bc6h_encode.cu", "bc7_encode.cu", "bc7_hq_encode.cu", "bc_encode.cu"]
     # One library per source, keyed by its own hash.
     digests = {_build._digest(p) for p in _build._sources()}
-    assert len(digests) == 2 and all(len(d) == 16 for d in digests)
+    assert len(digests) == 4 and all(len(d) == 16 for d in digests)
     assert [p.name for p in map(_build._target, _build._sources())] == [
-        "libbc7_encode.so", "libbc_encode.so",
+        "libbc6h_encode.so", "libbc7_encode.so", "libbc7_hq_encode.so", "libbc_encode.so",
     ]
+
+
+def test_shared_header_enters_the_build_hash(tmp_path, monkeypatch):
+    """Both BC7 sources include csrc/bc7_common.cuh: a change to a header
+    must change the library paths, so that no stale build is loaded."""
+    for name in ("bc7_encode.cu", "bc7_hq_encode.cu"):
+        assert '#include "bc7_common.cuh"' in (_build.CSRC / name).read_text()
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._digest(src)
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._digest(src) != before

@@ -2,7 +2,7 @@
 
 The port keeps its own copy of every host module it uses (formats, colour,
 images and codecs, containers, standard converters, block tiling, the
-S3TC decoders).  These tests hold the copies to the originals: the code is
+S3TC and BC6H decoders, the BC6H layout tables).  These tests hold the copies to the originals: the code is
 the same apart from imports and docstrings, enums match by name and value,
 a PNG from the port's native codec loads alike through both packages, and
 an uncompressed texture saves to the same bytes in every container.
@@ -30,7 +30,8 @@ _VERBATIM = [
     "image/codecs.py", "image/exr.py", "image/webp.py",
     "containers/__init__.py", "containers/dds.py", "containers/ktx.py",
     "containers/ktx2.py", "containers/pvr.py", "containers/load.py",
-    "convert/blocks.py", "convert/standard.py", "decode/s3tc.py",
+    "convert/blocks.py", "convert/standard.py", "decode/s3tc.py", "decode/bc6h.py",
+    "kernels/bc6h_tables.py",
 ]
 
 

@@ -1,8 +1,9 @@
 """The port imports neither jax, triton nor the JAX package.
 
 The test conftest imports jax, so the run-time check goes to a fresh
-interpreter: it converts BC7 + mips -> DDS, BC1 -> DDS and BC3 + mips ->
-KTX on the CPU, reads each file back, and lists the loaded modules.  A
+interpreter: it converts BC7 + mips -> DDS, BC1 -> DDS, BC3 + mips -> KTX
+and HDR BC6H + mips -> DDS on the CPU, reads each file back, and lists the
+loaded modules.  A
 static check scans every module of the port and chip_smoke.py for an
 import of ``cuttlefish_tpu`` (other than ``cuttlefish_tpu_torch``), jax or
 triton at any level.
@@ -22,26 +23,30 @@ _SCRIPT = r"""
 import os, sys, tempfile
 import numpy as np
 import cuttlefish_tpu_torch as cp
-from cuttlefish_tpu_torch.decode import decode_bc1, decode_bc3, decode_bc7
+from cuttlefish_tpu_torch.decode import decode_bc1, decode_bc3, decode_bc6h_f32, decode_bc7
 
 arr = np.random.default_rng(0).random((12, 20, 4)).astype(np.float32)
+hdr = arr * np.float32(40.0)
 out = tempfile.mkdtemp()
+U = cp.TextureType.UNorm
 cases = [
-    (cp.TextureFormat.BC7, 9, "t7.dds", decode_bc7),
-    (cp.TextureFormat.BC1_RGB, 1, "t1.dds", lambda raw: decode_bc1(raw, opaque=True)),
-    (cp.TextureFormat.BC3, 9, "t3.ktx", decode_bc3),
+    (cp.TextureFormat.BC7, U, arr, 9, "t7.dds", decode_bc7),
+    (cp.TextureFormat.BC1_RGB, U, arr, 1, "t1.dds", lambda raw: decode_bc1(raw, opaque=True)),
+    (cp.TextureFormat.BC3, U, arr, 9, "t3.ktx", decode_bc3),
+    (cp.TextureFormat.BC6H, cp.TextureType.UFloat, hdr, 9, "t6.dds", decode_bc6h_f32),
 ]
-for fmt, mips, name, dec in cases:
+for fmt, typ, src, mips, name, dec in cases:
     tex = cp.Texture(cp.Dimension.Dim2D, 20, 12, mip_levels=mips, device="cpu")
-    tex.set_image(cp.Image.from_array(arr, cp.ImageFormat.RGBAF))
+    tex.set_image(cp.Image.from_array(src, cp.ImageFormat.RGBAF))
     if mips > 1:
         tex.generate_mipmaps()
-    assert tex.convert(fmt, cp.TextureType.UNorm, cp.Quality.Normal)
+    assert tex.convert(fmt, typ, cp.Quality.Normal)
     assert tex.last_convert_stats["launches"] == {}
     path = os.path.join(out, name)
     assert tex.save(path) is cp.SaveResult.Success
     loaded = cp.load_texture(path)
-    assert loaded.format is fmt and loaded.mip_levels == tex.mip_levels
+    assert loaded.format is fmt and loaded.type is typ
+    assert loaded.mip_levels == tex.mip_levels
     for m in range(tex.mip_levels):
         assert loaded.data(mip_level=m) == tex.data(mip_level=m)
     assert dec(np.frombuffer(tex.data(), np.uint8)).shape[0] == 15

@@ -1,4 +1,5 @@
-"""The port's BC7 tables and constant operands equal the reference's."""
+"""The port's BC7 and BC6H tables and constant operands equal the
+reference's."""
 
 import numpy as np
 import pytest
@@ -56,3 +57,73 @@ def test_bc_tables_equal_pallas_kernel(name):
     from cuttlefish_tpu_torch.kernels import bc
 
     assert getattr(bc, name) == getattr(bc_pallas, name)
+
+
+@pytest.mark.parametrize("name", ["TWO_REGION_MODES", "TWO_REGION_LAYOUT"])
+def test_bc6h_table_equals_reference(name):
+    from cuttlefish_tpu.kernels import bc6h_tables as ref
+    from cuttlefish_tpu_torch.kernels import bc6h_tables as port
+
+    assert getattr(port, name) == getattr(ref, name)
+
+
+def test_no_bc6h_table_left_out():
+    from cuttlefish_tpu.kernels import bc6h_tables as ref
+    from cuttlefish_tpu_torch.kernels import bc6h_tables as port
+
+    tables = lambda m: {k for k in vars(m) if k.isupper()}  # noqa: E731
+    assert tables(port) == tables(ref) == {"TWO_REGION_MODES", "TWO_REGION_LAYOUT"}
+
+
+@pytest.mark.parametrize("name", ["_BC6H_ITERS", "_TWO_REGION_PLAN", "_PART_SEEDS"])
+def test_bc6h_plans_equal_reference(name):
+    """The quality plans the TPU kernel imports (bc6h.py:444-462)."""
+    from cuttlefish_tpu.kernels import bc6h as ref
+    from cuttlefish_tpu_torch.kernels import bc6h as port
+
+    assert getattr(port, name) == getattr(ref, name)
+
+
+def test_bc7_hq_plan_equals_pallas_kernel():
+    from cuttlefish_tpu.kernels import bc7_pallas
+    from cuttlefish_tpu_torch.kernels import bc7
+
+    assert bc7._HQ_PLAN == bc7_pallas._HQ_PLAN
+
+
+def test_bc6h_layout_table_round_trips():
+    """The hand kernel's flat constant tables hold every mode's bits and
+    every layout entry of TWO_REGION_LAYOUT, in order, then -1."""
+    from cuttlefish_tpu.kernels.bc6h_tables import TWO_REGION_LAYOUT, TWO_REGION_MODES
+    from cuttlefish_tpu_torch.kernels.bc6h import layout_table
+
+    modes, layout = layout_table()
+    assert modes.dtype == layout.dtype == np.int32
+    assert modes.shape == (10, 6) and layout.shape == (10, 76)
+    names = ["rw", "rx", "ry", "rz"]
+    for m in range(1, 11):
+        mv, _, epbits, dbits, direct = TWO_REGION_MODES[m]
+        assert tuple(modes[m - 1]) == (mv, epbits, *dbits, int(direct))
+        entries = [e for e in layout[m - 1] if e >= 0]
+        assert all(e < 0 for e in layout[m - 1][len(entries):])
+        decoded = [(e & 0xFF, names[(e >> 8) & 3], (e >> 12) & 15, (e >> 16) & 3) for e in entries]
+        assert decoded == list(TWO_REGION_LAYOUT[m])
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+def test_bc7_constants_carry_the_3_subset_operands(perceptual):
+    """The 3-subset masks and anchors the high-quality kernel takes
+    (bc7_pallas.py:1216-1219): one membership per subset, every texel in
+    exactly one subset, texel 0 in subset 0, each anchor in its subset."""
+    chw = (0.55, 1.1, 0.35, 1.0) if perceptual else (1.0, 1.0, 1.0, 1.0)
+    c = bc7_constants(REF.PARTITION2, REF.ANCHOR2, chw, torch.device("cpu"))
+    for s in range(3):
+        assert np.array_equal(c.part3[s].numpy(), (REF.PARTITION3 == s).astype(np.float32))
+        bits = (c.masks3[:, s, None].astype(np.int64) >> np.arange(16)) & 1
+        assert np.array_equal(bits, (REF.PARTITION3 == s).astype(np.int64))
+    assert np.array_equal(c.anchors3, np.stack([REF.ANCHOR3_2, REF.ANCHOR3_3], axis=1))
+    assert np.array_equal(c.anchor3.numpy(), np.stack([REF.ANCHOR3_2, REF.ANCHOR3_3]))
+    assert np.all(c.masks3.astype(np.int64).sum(axis=1) == 0xFFFF)
+    assert np.all(c.masks3[:, 0] & 1)
+    for s in (1, 2):
+        assert all((int(m) >> int(a)) & 1 for m, a in zip(c.masks3[:, s], c.anchors3[:, s - 1]))

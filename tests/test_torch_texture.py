@@ -145,12 +145,15 @@ def test_unported_formats_raise_and_invalid_combos_fail():
     tex = cp.Texture(cp.Dimension.Dim2D, 8, 8, device="cpu")
     tex.set_image(cp.Image.from_array(np.full((8, 8, 4), 0.5, np.float32), cp.ImageFormat.RGBAF))
     with pytest.raises(NotImplementedError, match="later PR"):
-        tex.convert(cp.TextureFormat.BC6H, cp.TextureType.UFloat)
+        tex.convert(cp.TextureFormat.ETC1, cp.TextureType.UNorm)
     assert tex.format is cp.TextureFormat.Unknown
     assert tex.convert(cp.TextureFormat.BC7, cp.TextureType.SNorm) is False
+    assert tex.convert(cp.TextureFormat.BC6H, cp.TextureType.UNorm) is False
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         tex.convert_with_mips(cp.TextureFormat.BC7)
-    # BC1 is ported now.
+    # BC1 and BC6H are ported now.
+    assert tex.convert(cp.TextureFormat.BC6H, cp.TextureType.Float)
+    assert tex.format is cp.TextureFormat.BC6H and tex.data_size() == 16 * 4
     assert tex.convert(cp.TextureFormat.BC1_RGB)
     assert tex.format is cp.TextureFormat.BC1_RGB and tex.data_size() == 4 * 8
     # Uncompressed formats use the port's copy of the host converters.
