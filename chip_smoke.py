@@ -22,26 +22,35 @@ exits non-zero:
    black), BC1 q2 punch-through on a hard-alpha surface, BC2, BC3, BC4
    unsigned at q2; BC4 and BC5 signed at q2 on 2x-1 through the f16 wire;
    BC6H q0-q4 unsigned, q2 and q4 signed (value metric) and q2 code metric
-   on the HDR surfaces through the f16 wire.
+   on the HDR surfaces through the f16 wire; ETC1 q0, q1, q2, q4, ETC2 q2,
+   q4 and q2 with the Rec.709 x 3 sRGB weights, ETC2 RGBA8 q2 and q4 on the
+   alpha surface, EAC A8 q2, R11 q0, q2, q4 and RG11 q2 through the f16
+   wire, R11 and RG11 signed q2 on 2x-1 through the f16 wire.
 4. paths: Texture(device=cuda).convert(...) then save, load_texture and a
    payload check, each with every launch counter set to 0 just before and
    read just after (the kernel must have launched, no plain version may
    have run): BC7 q2 2048^2 + mips -> DDS; BC1_RGB 2048^2 -> DDS, BC1_RGB
    512^2 -> DDS, BC3 2048^2 + mips -> KTX, BC5 SNorm 2048^2 + mips -> KTX;
    BC1_RGBA, BC2, BC4 UNorm and BC4 SNorm through the same converters; and
-   this slice's main paths BC7 Highest 2048^2 + mips -> DDS and BC6H
-   UFloat Highest 2048^2 + mips -> DDS, with BC7 High -> DDS and BC6H Float
-   Normal -> KTX.  Level-0 sample blocks must equal the plain version on
-   the same wire input.
+   BC7 Highest 2048^2 + mips -> DDS and BC6H UFloat Highest 2048^2 + mips
+   -> DDS, with BC7 High -> DDS and BC6H Float Normal -> KTX; and this
+   slice's main paths ETC2 RGB 512^2 x 4 layers -> KTX (BASELINE config 3),
+   ETC2 RGB 2048^2 + mips -> KTX, ETC2 RGB Highest 2048^2 -> KTX and ETC2
+   RGBA8 2048^2 + mips -> KTX, with ETC1 2048^2 -> KTX, EAC R11 2048^2 +
+   mips -> KTX and EAC RG11 SNorm 2048^2 + mips -> KTX.  Level-0 sample
+   blocks must equal the plain version on the same wire input.
 5. times: CUDA events, one warm-up, median of 7: each kernel alone and its
    plain version alone on the 262,144 blocks (BC7 q3-4 and BC6H at q4, the
-   main paths' quality, and at q3 and q2); each main-path convert (host
-   clock, synchronised) median of 5 with its phases.
+   main paths' quality, and at q3 and q2; ETC RGB and RGBA8 at q2 and q4,
+   EAC at q2); each main-path convert (host clock, synchronised) median of
+   5 with its phases.
 
 Then one JSON line of kernels (launches from the paths of phase 4; bound_ms
 from this run's inputs: the larger of the bytes the function must move over
-3.35 TB/s and the plain version's elementwise operations, counted per block
-by a dispatch hook, over 67 TFLOP/s), and as the last line
+3.35 TB/s and its operations over 67 TFLOP/s: for BC the plain version's
+elementwise operations, counted per block by a dispatch hook, for ETC/EAC
+the float operations the function needs, etc_rgb_ops and eac_ops), and as
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -206,6 +215,65 @@ def ops_per_block(torch, fn, blocks) -> float:
     return Counter.ops / blocks.shape[0]
 
 
+# Float operations per block that the ETC/EAC functions need, counted from
+# the loops of their hand kernel (csrc/etc_encode.cu) with every value that
+# is fixed for one palette entry (a clamped base + modifier, a planar
+# channel's slopes) made once, not per texel.  A fit sums the 8 members of
+# its sub-block and builds the 2-bit indices of its winner alone; the plain
+# version computes every texel under a sub-block mask and the indices of
+# every candidate, about twice this.  A clamp counts 2 (max, min); integer
+# work and the packing of the words are not counted.
+ETC_PIX = 11  # sum_c w_c * (x_c - p_c)^2 at one texel: 3 sub, 6 mul, 2 add
+ETC_ENTRY = 9  # p_c = clamp(base_c + modifier): 3 add, 3 clamps
+PLANAR_TEXEL = 12  # w * (x - clamp(floor((a*x + b*y + 4*o + 2) * 0.25)))^2
+TH_TEXEL = 4 * ETC_PIX + 3 + 1  # 4 entries, 3 compares, 1 add
+
+
+def _nearest_sum(entries: int, texels: int) -> int:
+    """Each texel's least error over `entries` palette entries, summed:
+    the entries, then per texel one error per entry, the mins, one add."""
+    return entries * ETC_ENTRY + texels * entries * (ETC_PIX + 1)
+
+
+def etc_rgb_ops(quality: int, etc2: bool) -> int:
+    """Float operations of one block's ETC1 (ETC2) RGB sweep (rgb_words)."""
+    others = (1 if quality < 2 else 27 if quality < 4 else 31) - 1
+    keep = 0 if quality < 2 else 4 if quality < 4 else 8
+    fit = 8 * _nearest_sum(4, 8) + 7  # 8 tables of 8 members, first least
+    centre = fit + 7  # and the runner-up table
+    restricted = _nearest_sum(8, 8)  # the estimate of one offset
+    bits = 4 * ETC_ENTRY + 8 * (4 * ETC_PIX + 3)  # the winner's indices
+    topk = keep * (others - 1)
+    if keep:
+        diff = (24 + 2 * centre + 1 + others * (9 + 2 * restricted + 1) + topk
+                + keep * (9 + 2 * fit + 2))
+        ind = 12 + centre + others * (9 + restricted) + topk + keep * (9 + fit + 1)
+    else:
+        diff, ind = 24 + 2 * fit + 1, 12 + fit
+    flip = 54 + diff + 2 * bits + 1  # the sub-block means first
+    if quality >= 1:
+        flip += 2 * ind + 2 * bits + 2
+    ops = 2 * flip - 1  # the first offer compares nothing
+    if etc2:
+        refine = quality >= 4
+        chan = 3 + 16 * (PLANAR_TEXEL + 1)
+        ops += 315 + (3 * (27 * chan + 26) if refine else 0) + 9 + 16 * (3 * PLANAR_TEXEL + 3)
+        ops += 724  # the principal-axis split of T and H
+        for pal, h in ((18, 0), (36, 1)):  # T, H
+            cand = pal + 16 * TH_TEXEL + h
+            ops += 48 + 16 * cand + 15 + (2 * 44 * (cand + 1) if refine else 0)
+        ops += 3  # the planar, T and H offers
+    return ops
+
+
+def eac_ops(quality: int, r11: bool) -> int:
+    """Float operations of one EAC block (eac_alpha or eac_r11)."""
+    ncand = (1, 2, 3, 5, 7)[quality]
+    pal = 8 * (6 if r11 else 4)
+    search = 16 * 5 + 16 * ncand * (pal + 16 * 24) + 16 * ncand - 1
+    return (55 if r11 else 37) + search + pal + 16 * 23
+
+
 def ptxas_lines(log_text: str) -> list[str]:
     keep = ("Compiling entry", "registers", "spill")
     return [ln.strip() for ln in log_text.splitlines() if any(k in ln for k in keep)]
@@ -224,10 +292,12 @@ def main() -> int:
     from cuttlefish_tpu_torch.convert.device import dequant, wire
     from cuttlefish_tpu_torch.decode import (
         decode_bc1, decode_bc2, decode_bc3, decode_bc4, decode_bc5, decode_bc6h_f32,
-        decode_bc7,
+        decode_bc7, decode_eac_alpha, decode_eac_r11, decode_eac_rg11, decode_etc2_rgba,
+        decode_etc_rgb,
     )
     from cuttlefish_tpu_torch.kernels import (
-        _build, bc, bc6h, bc6h_cuda, bc7, bc7_cuda, bc7_hq_cuda, bc_cuda, launch_counts,
+        _build, bc, bc6h, bc6h_cuda, bc7, bc7_cuda, bc7_hq_cuda, bc_cuda, etc, etc_cuda,
+        launch_counts,
     )
     from cuttlefish_tpu_torch.kernels.bc7 import _constants, encode_bc7, encode_bc7_plain
 
@@ -245,7 +315,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    for name in ("bc7_encode", "bc7_hq_encode", "bc_encode", "bc6h_encode"):
+    for name in ("bc7_encode", "bc7_hq_encode", "bc_encode", "bc6h_encode", "etc_encode"):
         _build.load(name)
     build_s = time.perf_counter() - t0
     for name, info in sorted(_build.build_info.items()):
@@ -281,10 +351,15 @@ def main() -> int:
         "hdr": dequant(wire(host["hdr"], "f16").to(dev))[..., :3].contiguous(),
         "shdr": dequant(wire(host["shdr"], "f16").to(dev))[..., :3].contiguous(),
     }
-    dev_in["alpha1"] = dev_in["alpha"][..., 3].contiguous()  # BC4 unsigned: alpha
-    dev_in["signed1"] = dev_in["signed"][..., 0].contiguous()  # BC4 signed: red
+    dev_in["alpha1"] = dev_in["alpha"][..., 3].contiguous()  # BC4 unsigned, EAC A8: alpha
+    dev_in["signed1"] = dev_in["signed"][..., 0].contiguous()  # BC4, EAC R11 signed: red
+    # EAC R11/RG11 unsigned: the surface through the f16 wire, as
+    # EacR11Converter hands it on.
+    dev_in["rgba16"] = dequant(wire(host["rgba"], "f16").to(dev))
+    dev_in["red16"] = dev_in["rgba16"][..., 0].contiguous()
     sample = np.arange(0, n, SAMPLE_STRIDE)
     srgb = bc.channel_weights(np.float32([0.3, 0.59, 0.11]) * np.float32(3))
+    srgb709 = bc.channel_weights(np.float32([0.2126, 0.7152, 0.0722]) * np.float32(3))
     consts = _constants(False, dev)
 
     def dec_rgb(raw):
@@ -345,10 +420,63 @@ def main() -> int:
             lambda r, s=sgn: decode_bc6h_f32(r, signed=s), slice(0, 3), None,
         )
 
+    # This slice: ETC1/ETC2 RGB, ETC2 RGBA8 and EAC.  needed_ops: the float
+    # operations per block that each needs, its input's clamp and scale (3
+    # per value) included; the BC cases count their plain version instead.
+    needed_ops = {}
+    for q in (0, 1, 2, 4):
+        cases[f"etc1_q{q}"] = (
+            lambda x, q=q: etc.encode_etc_rgb(x, q), lambda x, q=q: etc.encode_etc_rgb_plain(x, q),
+            "rgba", lambda r: decode_etc_rgb(r, False), slice(0, 3), 255.0,
+        )
+        needed_ops[f"etc1_q{q}"] = 3 * 48 + etc_rgb_ops(q, False)
+    for q in (2, 4):
+        cases[f"etc2_q{q}"] = (
+            lambda x, q=q: etc.encode_etc_rgb(x, q, True),
+            lambda x, q=q: etc.encode_etc_rgb_plain(x, q, True),
+            "rgba", lambda r: decode_etc_rgb(r, True), slice(0, 3), 255.0,
+        )
+        cases[f"etc2_rgba_q{q}"] = (
+            lambda x, q=q: etc.encode_etc2_rgba(x, q),
+            lambda x, q=q: etc.encode_etc2_rgba_plain(x, q),
+            "alpha", decode_etc2_rgba, slice(0, 4), 255.0,
+        )
+        needed_ops[f"etc2_q{q}"] = 3 * 48 + etc_rgb_ops(q, True)
+        needed_ops[f"etc2_rgba_q{q}"] = 3 * 64 + eac_ops(q, False) + etc_rgb_ops(q, True)
+    cases["etc2_q2_srgb"] = (
+        lambda x: etc.encode_etc_rgb(x, 2, True, srgb709),
+        lambda x: etc.encode_etc_rgb_plain(x, 2, True, srgb709),
+        "rgba", lambda r: decode_etc_rgb(r, True), slice(0, 3), 255.0,
+    )
+    cases["eac_alpha_q2"] = (
+        lambda x: etc.encode_eac_alpha(x, 2), lambda x: etc.encode_eac_alpha_plain(x, 2),
+        "alpha1", lambda r: decode_eac_alpha(r) / 255.0, None, 1.0,
+    )
+    needed_ops["eac_alpha_q2"] = 3 * 16 + eac_ops(2, False)
+    for q in (0, 2, 4):
+        cases[f"eac_r11_q{q}"] = (
+            lambda x, q=q: etc.encode_eac_r11(x, q),
+            lambda x, q=q: etc.encode_eac_r11_plain(x, q),
+            "red16", decode_eac_r11, None, 1.0,
+        )
+        needed_ops[f"eac_r11_q{q}"] = 3 * 16 + eac_ops(q, True)
+    cases.update({
+        "eac_r11s_q2": (lambda x: etc.encode_eac_r11(x, 2, True),
+                        lambda x: etc.encode_eac_r11_plain(x, 2, True),
+                        "signed1", lambda r: decode_eac_r11(r, signed=True), None, 2.0),
+        "eac_rg11s_q2": (lambda x: etc.encode_eac_rg11(x, 2, True),
+                         lambda x: etc.encode_eac_rg11_plain(x, 2, True),
+                         "signed", lambda r: decode_eac_rg11(r, signed=True), slice(0, 2), 2.0),
+        "eac_rg11_q2": (lambda x: etc.encode_eac_rg11(x, 2),
+                        lambda x: etc.encode_eac_rg11_plain(x, 2),
+                        "rgba16", decode_eac_rg11, slice(0, 2), 1.0),
+    })
+    needed_ops["eac_rg11_q2"] = 3 * 32 + 2 * eac_ops(2, True)
+
     def target_of(kind, chans):
         """What the sample should decode to: 8-bit texels of the source for
-        the colour formats, the float input for BC4, BC5 and BC6H."""
-        if kind in ("alpha1", "signed1", "signed", "hdr", "shdr"):
+        the colour formats, the float input for BC4, BC5, BC6H and EAC."""
+        if kind in ("alpha1", "signed1", "signed", "hdr", "shdr", "red16", "rgba16"):
             vals = dev_in[kind].cpu().numpy()[sample].astype(np.float64)
             return vals if chans is None else vals[..., chans]
         src = host[kind][sample]
@@ -385,7 +513,10 @@ def main() -> int:
     plain_calls = {"n": 0}
     plain_fns = [(bc, "encode_bc1_plain"), (bc, "encode_bc2_plain"), (bc, "encode_bc3_plain"),
                  (bc, "encode_bc4_plain"), (bc, "encode_bc5_plain"),
-                 (bc7, "encode_bc7_plain"), (bc6h, "encode_bc6h_plain")]
+                 (bc7, "encode_bc7_plain"), (bc6h, "encode_bc6h_plain"),
+                 (etc, "encode_etc_rgb_plain"), (etc, "encode_etc2_rgba_plain"),
+                 (etc, "encode_eac_alpha_plain"), (etc, "encode_eac_r11_plain"),
+                 (etc, "encode_eac_rg11_plain")]
     originals = {nm: getattr(mod, nm) for mod, nm in plain_fns}
 
     def counting(fn):
@@ -400,34 +531,54 @@ def main() -> int:
                ("hdr", hdr), ("shdr", shdr))}
     small = cp.Image.from_array(surf[:SMALL, :SMALL].copy(), cp.ImageFormat.RGBAF)
     QN, QH, QX = cp.Quality.Normal, cp.Quality.High, cp.Quality.Highest
-    # name -> (format, type, quality, mips, file type, image, kernel, timed?)
+    # name -> (format, type, quality, mips, layers (0: not an array), file type, image,
+    # kernel, timed?)
     paths = {
-        "bc7_2048_mips_dds": (TF.BC7, TT.UNorm, QN, True, "dds", images["rgba"], "bc7", True),
-        "bc1_2048_dds": (TF.BC1_RGB, TT.UNorm, QN, False, "dds", images["rgba"], "bc1", True),
-        "bc1_512_dds": (TF.BC1_RGB, TT.UNorm, QN, False, "dds", small, "bc1", True),
-        "bc3_2048_mips_ktx": (TF.BC3, TT.UNorm, QN, True, "ktx", images["alpha"], "bc3", True),
-        "bc5s_2048_mips_ktx": (TF.BC5, TT.SNorm, QN, True, "ktx", images["signed"], "bc5", True),
-        "bc1a_2048_mips_dds": (TF.BC1_RGBA, TT.UNorm, QN, True, "dds", images["hard"], "bc1",
+        "bc7_2048_mips_dds": (TF.BC7, TT.UNorm, QN, True, 0, "dds", images["rgba"], "bc7", True),
+        "bc1_2048_dds": (TF.BC1_RGB, TT.UNorm, QN, False, 0, "dds", images["rgba"], "bc1", True),
+        "bc1_512_dds": (TF.BC1_RGB, TT.UNorm, QN, False, 0, "dds", small, "bc1", True),
+        "bc3_2048_mips_ktx": (TF.BC3, TT.UNorm, QN, True, 0, "ktx", images["alpha"], "bc3", True),
+        "bc5s_2048_mips_ktx": (TF.BC5, TT.SNorm, QN, True, 0, "ktx", images["signed"], "bc5", True),
+        "bc1a_2048_mips_dds": (TF.BC1_RGBA, TT.UNorm, QN, True, 0, "dds", images["hard"], "bc1",
                                False),
-        "bc2_2048_mips_dds": (TF.BC2, TT.UNorm, QN, True, "dds", images["alpha"], "bc2", False),
-        "bc4_2048_mips_ktx": (TF.BC4, TT.UNorm, QN, True, "ktx", images["alpha"], "bc4", False),
-        "bc4s_2048_mips_ktx": (TF.BC4, TT.SNorm, QN, True, "ktx", images["signed"], "bc4", False),
+        "bc2_2048_mips_dds": (TF.BC2, TT.UNorm, QN, True, 0, "dds", images["alpha"], "bc2", False),
+        "bc4_2048_mips_ktx": (TF.BC4, TT.UNorm, QN, True, 0, "ktx", images["alpha"], "bc4", False),
+        "bc4s_2048_mips_ktx": (TF.BC4, TT.SNorm, QN, True, 0, "ktx", images["signed"], "bc4",
+                               False),
         # This slice's main paths (BASELINE config 4), then its others.
-        "bc7_q4_2048_mips_dds": (TF.BC7, TT.UNorm, QX, True, "dds", images["rgba"], "bc7_hq",
+        "bc7_q4_2048_mips_dds": (TF.BC7, TT.UNorm, QX, True, 0, "dds", images["rgba"], "bc7_hq",
                                  True),
-        "bc6h_q4_2048_mips_dds": (TF.BC6H, TT.UFloat, QX, True, "dds", images["hdr"], "bc6h",
+        "bc6h_q4_2048_mips_dds": (TF.BC6H, TT.UFloat, QX, True, 0, "dds", images["hdr"], "bc6h",
                                   True),
-        "bc7_q3_2048_mips_dds": (TF.BC7, TT.UNorm, QH, True, "dds", images["rgba"], "bc7_hq",
+        "bc7_q3_2048_mips_dds": (TF.BC7, TT.UNorm, QH, True, 0, "dds", images["rgba"], "bc7_hq",
                                  False),
-        "bc6hs_q2_2048_mips_ktx": (TF.BC6H, TT.Float, QN, True, "ktx", images["shdr"], "bc6h",
+        "bc6hs_q2_2048_mips_ktx": (TF.BC6H, TT.Float, QN, True, 0, "ktx", images["shdr"], "bc6h",
                                    False),
+        # This slice's main paths: BASELINE config 3, a 512^2 2D array of 4
+        # layers (bench.py:212-215), and ETC2 RGB/RGBA8 at 2048^2; then its
+        # others.  No path launches eac_alpha: no converter calls it.
+        "etc2_array_ktx": (TF.ETC2_R8G8B8, TT.UNorm, QN, False, 4, "ktx", small, "etc_rgb", True),
+        "etc2_2048_mips_ktx": (TF.ETC2_R8G8B8, TT.UNorm, QN, True, 0, "ktx", images["rgba"],
+                               "etc_rgb", True),
+        "etc2_q4_2048_ktx": (TF.ETC2_R8G8B8, TT.UNorm, QX, False, 0, "ktx", images["rgba"],
+                             "etc_rgb", True),
+        "etc2_rgba_2048_mips_ktx": (TF.ETC2_R8G8B8A8, TT.UNorm, QN, True, 0, "ktx",
+                                    images["alpha"], "etc2_rgba", True),
+        "etc1_2048_ktx": (TF.ETC1, TT.UNorm, QN, False, 0, "ktx", images["rgba"], "etc_rgb", False),
+        "eac_r11_2048_mips_ktx": (TF.EAC_R11, TT.UNorm, QN, True, 0, "ktx", images["rgba"],
+                                  "eac_r11", False),
+        "eac_rg11s_2048_mips_ktx": (TF.EAC_R11G11, TT.SNorm, QN, True, 0, "ktx", images["signed"],
+                                    "eac_rg11", False),
     }
+    etc_formats = (TF.ETC1, TF.ETC2_R8G8B8, TF.ETC2_R8G8B8A8, TF.EAC_R11, TF.EAC_R11G11)
+    eac_formats = (TF.EAC_R11, TF.EAC_R11G11)
 
-    def make_texture(img, mips):
+    def make_texture(img, mips, layers):
         w = img.width
-        tex = cp.Texture(cp.Dimension.Dim2D, w, w, mip_levels=99 if mips else 1)
+        tex = cp.Texture(cp.Dimension.Dim2D, w, w, depth=layers, mip_levels=99 if mips else 1)
         check(tex.device == dev or tex.device.type == "cuda", "Texture did not default to cuda")
-        check(tex.set_image(img), "set_image failed")
+        for d in range(max(layers, 1)):
+            check(tex.set_image(img, depth=d), "set_image failed")
         if mips:
             check(tex.generate_mipmaps(), "generate_mipmaps failed")
         return tex
@@ -435,9 +586,17 @@ def main() -> int:
     # The plain reference of a path's level-0 sample: the same wire input.
     def plain_reference(fmt, typ, quality, blocks):
         signed = typ in (TT.SNorm, TT.Float)
-        f16 = signed or fmt is TF.BC6H
+        f16 = signed or fmt is TF.BC6H or fmt in eac_formats
         x = dequant(wire(blocks, "f16" if f16 else "u8").to(dev))
         q = int(quality)
+        if fmt in (TF.ETC1, TF.ETC2_R8G8B8):
+            return originals["encode_etc_rgb_plain"](x, q, fmt is TF.ETC2_R8G8B8)
+        if fmt is TF.ETC2_R8G8B8A8:
+            return originals["encode_etc2_rgba_plain"](x, q)
+        if fmt is TF.EAC_R11:
+            return originals["encode_eac_r11_plain"](x[..., 0].contiguous(), q, signed)
+        if fmt is TF.EAC_R11G11:
+            return originals["encode_eac_rg11_plain"](x, q, signed)
         if fmt is TF.BC6H:
             return originals["encode_bc6h_plain"](x[..., :3].contiguous(), q, signed, "value")
         if fmt is TF.BC7:
@@ -456,11 +615,12 @@ def main() -> int:
     path_launches = {k: 0 for k in launch_counts()}
     path_stats = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for pname, (fmt, typ, quality, mips, ext, img, kname, _) in paths.items():
-            tex = make_texture(img, mips)
+        for pname, (fmt, typ, quality, mips, nlayers, ext, img, kname, _) in paths.items():
+            tex = make_texture(img, mips, nlayers)
+            layers = max(tex.depth(), 1)
             for mod, nm in plain_fns:
                 setattr(mod, nm, counting(originals[nm]))
-            for wrapper in (bc7_cuda, bc7_hq_cuda, bc_cuda, bc6h_cuda):
+            for wrapper in (bc7_cuda, bc7_hq_cuda, bc_cuda, bc6h_cuda, etc_cuda):
                 wrapper.reset_launches()
             plain_calls["n"] = 0
             try:
@@ -485,18 +645,22 @@ def main() -> int:
             # DDS has one BC1 code: BC1_RGBA reads back as BC1 of either kind.
             same_format = loaded.format is fmt or (
                 fmt is TF.BC1_RGBA and loaded.format in (TF.BC1_RGB, TF.BC1_RGBA))
-            check(same_format and loaded.type is typ and loaded.mip_levels == tex.mip_levels,
+            check(same_format and loaded.type is typ and loaded.mip_levels == tex.mip_levels
+                  and loaded.depth() == tex.depth(),
                   f"{pname}: loaded texture differs ({loaded.format}, {loaded.type})")
             for m in range(tex.mip_levels):
-                check(loaded.data(mip_level=m) == tex.data(mip_level=m),
-                      f"{pname}: payload of mip {m} differs")
-            payload = sum(tex.data_size(mip_level=m) for m in range(tex.mip_levels))
+                for d in range(layers):
+                    check(loaded.data(mip_level=m, depth=d) == tex.data(mip_level=m, depth=d),
+                          f"{pname}: payload of mip {m} layer {d} differs")
+            payload = sum(tex.data_size(mip_level=m, depth=d)
+                          for m in range(tex.mip_levels) for d in range(layers))
             if ext == "dds":
                 check(size == 148 + payload, f"{pname}: DDS size {size} != 148 + {payload}")
             # Level-0 sample: equal to the plain version on the same wire input.
             src0 = img.rgbaf()
             b0 = extract_blocks(src0, 4, 4)[0]
-            bs = 8 if fmt in (TF.BC1_RGB, TF.BC1_RGBA, TF.BC4) else 16
+            bs = 8 if fmt in (TF.BC1_RGB, TF.BC1_RGBA, TF.BC4, TF.ETC1, TF.ETC2_R8G8B8,
+                              TF.EAC_R11) else 16
             lvl0 = np.frombuffer(tex.data(), np.uint8).reshape(-1, bs)
             idx = np.arange(0, b0.shape[0], max(1, b0.shape[0] // 4096))
             ref = plain_reference(fmt, typ, quality, b0[idx]).cpu().numpy()
@@ -510,6 +674,25 @@ def main() -> int:
                 src_s = b0[idx][..., :3].astype(np.float16).astype(np.float32)
                 finite = bool(np.isfinite(dec).all()) and dec.shape == src_s.shape
                 p0 = psnr(dec, src_s, float(np.abs(src_s).max()))
+            elif fmt in etc_formats:
+                # ETC/EAC decode one block at a time in Python too: the
+                # level-0 sample of the file read back, against its source.
+                raw = np.frombuffer(loaded.data(), np.uint8).reshape(-1, bs)[idx].reshape(-1)
+                src_s = b0[idx]
+                if fmt in eac_formats:
+                    signed = typ is TT.SNorm
+                    ch = 1 if fmt is TF.EAC_R11 else 2
+                    dec = (decode_eac_r11(raw, signed)[..., None] if ch == 1
+                           else decode_eac_rg11(raw, signed))
+                    src_s = np.clip(src_s[..., :ch], -1.0 if signed else 0.0, 1.0)
+                    peak = 2.0 if signed else 1.0
+                elif fmt is TF.ETC2_R8G8B8A8:
+                    dec, peak = decode_etc2_rgba(raw) / 255.0, 1.0
+                else:
+                    dec = decode_etc_rgb(raw, fmt is TF.ETC2_R8G8B8) / 255.0
+                    src_s, peak = src_s[..., :3], 1.0
+                finite = bool(np.isfinite(dec).all()) and dec.shape == src_s.shape
+                p0 = psnr(dec, src_s, peak)
             else:
                 dec = loaded.decode_image().rgbaf()
                 ch = {TF.BC4: 1, TF.BC5: 2, TF.BC1_RGB: 3}.get(fmt, 4)
@@ -523,7 +706,8 @@ def main() -> int:
                 p0 = psnr(dec[..., :ch], err_src, 2.0 if typ is TT.SNorm else 1.0)
             path_stats[pname] = {"launches": {k: v for k, v in counts.items() if v},
                                  "bytes": size, "psnr": p0, "same": same}
-            log("paths", f"{pname}: {tex.mip_levels} mips, {payload // bs} blocks, "
+            log("paths", f"{pname}: {tex.mip_levels} mips x {layers} layers, "
+                f"{payload // bs} blocks, "
                 f"{ext.upper()} {size} bytes read back; launches {stats['launches']}, "
                 f"plain calls 0; level-0 PSNR {p0:.4f} dB; sample identical to plain "
                 f"{same * 100:.2f} %; phases {json.dumps(stats['phases'])}")
@@ -554,8 +738,20 @@ def main() -> int:
          "cuttlefish_tpu/kernels/bc_pallas.py:539", 128, ()),
         ("bc6h_encode", "bc6h", "bc6h_q4", "cuttlefish_tpu_torch/csrc/bc6h_encode.cu",
          "cuttlefish_tpu/kernels/bc6h_pallas.py:584", 192, ("bc6h_q2",)),
+        # This slice: the five entries of csrc/etc_encode.cu.
+        ("etc_rgb_encode", "etc_rgb", "etc2_q2", "cuttlefish_tpu_torch/csrc/etc_encode.cu",
+         "cuttlefish_tpu/kernels/etc_pallas.py:1260", 256, ("etc2_q4", "etc1_q2")),
+        ("etc2_rgba_encode", "etc2_rgba", "etc2_rgba_q2", "cuttlefish_tpu_torch/csrc/etc_encode.cu",
+         "cuttlefish_tpu/kernels/etc_pallas.py:1276", 256, ("etc2_rgba_q4",)),
+        ("eac_alpha_encode", "eac_alpha", "eac_alpha_q2", "cuttlefish_tpu_torch/csrc/etc_encode.cu",
+         "cuttlefish_tpu/kernels/etc_pallas.py:1292", 64, ()),
+        ("eac_r11_encode", "eac_r11", "eac_r11_q2", "cuttlefish_tpu_torch/csrc/etc_encode.cu",
+         "cuttlefish_tpu/kernels/etc_pallas.py:1066", 64, ("eac_r11_q4",)),
+        ("eac_rg11_encode", "eac_rg11", "eac_rg11_q2", "cuttlefish_tpu_torch/csrc/etc_encode.cu",
+         "cuttlefish_tpu/kernels/etc_pallas.py:1103", 128, ()),
     ]
-    out_bytes = {"bc1": 8, "bc4": 8}
+    # Output bytes per block of the 2-word entries; the others write 16.
+    out_bytes = {"bc1": 8, "bc4": 8, "etc_rgb": 8, "eac_alpha": 8, "eac_r11": 8}
     rows = []
 
     def time_case(case, key, in_bytes):
@@ -564,14 +760,17 @@ def main() -> int:
         x = dev_in[kind]
         kernel_ms = event_ms(torch, lambda: kernel(x), 7)
         plain_ms = event_ms(torch, lambda: plain(x), 7)
-        ops = ops_per_block(torch, plain, x[:1024].cpu())
+        if case in needed_ops:
+            ops, counted = needed_ops[case], "needed"
+        else:
+            ops, counted = ops_per_block(torch, plain, x[:1024].cpu()), "plain version's"
         bytes_ = n * (in_bytes + out_bytes.get(key, 16))
         t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, n * ops / F32_OPS_PER_S * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         log("times", f"{card}: {key} ({case}, {n} blocks): kernel {kernel_ms:.4f} ms "
             f"({SIZE * SIZE / kernel_ms / 1e3:.1f} Mtexels/s); plain {plain_ms:.4f} ms; "
             f"bound {max(t_bytes, t_ops):.4f} ms ({bound_by}: "
-            f"{bytes_ / 1e6:.1f} MB, {ops:.0f} ops/block)")
+            f"{bytes_ / 1e6:.1f} MB, {ops:.0f} {counted} ops/block)")
         return kernel_ms, plain_ms, max(t_bytes, t_ops), bound_by
 
     for name, key, case, src, replaces, in_bytes, others in kernel_rows:
@@ -585,12 +784,12 @@ def main() -> int:
         for other in others:
             time_case(other, key, in_bytes)
 
-    for pname, (fmt, typ, quality, mips, ext, img, kname, timed) in paths.items():
+    for pname, (fmt, typ, quality, mips, nlayers, ext, img, kname, timed) in paths.items():
         if not timed:
             continue
         secs = []
         for _ in range(5):
-            t = make_texture(img, mips)
+            t = make_texture(img, mips, nlayers)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             check(t.convert(fmt, typ, quality), f"{pname}: timed convert failed")

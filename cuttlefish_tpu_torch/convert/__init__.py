@@ -3,9 +3,10 @@
 ``EncodeParams`` and ``Converter`` are copied from
 ``cuttlefish_tpu/convert/__init__.py`` unchanged; ``create_converter`` is
 the port's.  Uncompressed formats go to the copied host converters of
-``convert/standard.py``; BC1-BC7 go to the port's block converters on a
-torch device.  Every other block format (ETC/EAC, ASTC, PVRTC) raises
-``NotImplementedError`` until its slice is ported.
+``convert/standard.py``; BC1-BC7 (``convert/s3tc.py``) and ETC1, ETC2 and
+EAC (``convert/etc.py``) go to the port's block converters on a torch
+device.  ETC2_R8G8B8A1 and every other block format (ASTC, PVRTC) raise
+``NotImplementedError`` until their slice is ported.
 """
 
 from __future__ import annotations
@@ -85,6 +86,12 @@ def create_converter(
         from cuttlefish_tpu_torch.convert import s3tc
 
         return s3tc.create_s3tc_converter(fmt, type_, device)
+    if fmt in (
+        F.ETC1, F.ETC2_R8G8B8, F.ETC2_R8G8B8A1, F.ETC2_R8G8B8A8, F.EAC_R11, F.EAC_R11G11,
+    ):
+        from cuttlefish_tpu_torch.convert import etc
+
+        return etc.create_etc_converter(fmt, type_, device)
     raise NotImplementedError(
         f"{fmt.name} is not in the PyTorch port yet: ported in a later PR"
     )

@@ -1,12 +1,20 @@
 """Reference block decoders of the port (host numpy, no JAX).
 
-BC1-BC5 (``s3tc.py``), BC6H (``bc6h.py``) and BC7 (``bc7.py``), copies of
-the JAX package's decoders; ``surface.py`` decodes whole surfaces of the
-ported formats.
+BC1-BC5 (``s3tc.py``), BC6H (``bc6h.py``), BC7 (``bc7.py``) and ETC1/ETC2/
+EAC (``etc.py``), copies of the JAX package's decoders; ``surface.py``
+decodes whole surfaces of the ported formats.
 """
 
 from cuttlefish_tpu_torch.decode.bc6h import decode_bc6h, decode_bc6h_f32  # noqa: F401
 from cuttlefish_tpu_torch.decode.bc7 import decode_bc7  # noqa: F401
+from cuttlefish_tpu_torch.decode.etc import (  # noqa: F401
+    decode_eac_alpha,
+    decode_eac_r11,
+    decode_eac_rg11,
+    decode_etc2_a1,
+    decode_etc2_rgba,
+    decode_etc_rgb,
+)
 from cuttlefish_tpu_torch.decode.s3tc import (  # noqa: F401
     decode_bc1,
     decode_bc2,

@@ -8,9 +8,9 @@ pipelines and by round-trip tests.  The reference has no decode path at
 all (it only writes containers), so this is an extension.
 
 Copied from ``cuttlefish_tpu/decode/surface.py`` with its imports pointed at
-the port.  The port decodes the uncompressed formats and BC1-BC7;
-every other block format raises ``NotImplementedError`` until its decoder
-is ported (ROADMAP queue 1, item 13).
+the port.  The port decodes the uncompressed formats, BC1-BC7 and
+ETC1/ETC2/EAC; ASTC and PVRTC raise ``NotImplementedError`` until their
+decoders are ported (ROADMAP queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -94,6 +94,21 @@ def _decode_blocks(data: np.ndarray, fmt: _F, type_: _T) -> np.ndarray:
         return _rgba(rgb[..., 0], rgb[..., 1], rgb[..., 2], 1.0)
     if fmt is _F.BC7:
         return D.decode_bc7(data).astype(np.float32) / 255.0
+    if fmt in (_F.ETC1, _F.ETC2_R8G8B8):
+        rgb = D.decode_etc_rgb(data, etc2=fmt is _F.ETC2_R8G8B8).astype(
+            np.float32
+        ) / 255.0
+        return _rgba(rgb[..., 0], rgb[..., 1], rgb[..., 2], 1.0)
+    if fmt is _F.ETC2_R8G8B8A1:
+        return D.decode_etc2_a1(data).astype(np.float32) / 255.0
+    if fmt is _F.ETC2_R8G8B8A8:
+        return D.decode_etc2_rgba(data).astype(np.float32) / 255.0
+    if fmt is _F.EAC_R11:
+        r = D.decode_eac_r11(data, signed=signed).astype(np.float32)
+        return _rgba(r, 0.0, 0.0, 1.0)
+    if fmt is _F.EAC_R11G11:
+        rg = D.decode_eac_rg11(data, signed=signed).astype(np.float32)
+        return _rgba(rg[..., 0], rg[..., 1], 0.0, 1.0)
     raise NotImplementedError(_unported(fmt))
 
 

@@ -1,20 +1,21 @@
 """Block encoders of the PyTorch/CUDA port.
 
-Submodules are imported where they are used: ``bc7``, ``bc`` and ``bc6h``
-(plain PyTorch versions and dispatch), ``bc7_cuda``, ``bc7_hq_cuda``,
-``bc_cuda`` and ``bc6h_cuda`` (the hand kernels' wrappers), ``bc7_tables``
-and ``bc6h_tables`` (spec tables) and ``_build`` (nvcc build of
-``csrc/``).
+Submodules are imported where they are used: ``bc7``, ``bc``, ``bc6h`` and
+``etc`` (plain PyTorch versions and dispatch), ``bc7_cuda``,
+``bc7_hq_cuda``, ``bc_cuda``, ``bc6h_cuda`` and ``etc_cuda`` (the hand
+kernels' wrappers), ``bc7_tables``, ``bc6h_tables`` and ``etc_tables``
+(spec tables) and ``_build`` (nvcc build of ``csrc/``).
 """
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel name -> launches so far, for every hand kernel of the port."""
-    from cuttlefish_tpu_torch.kernels import bc6h_cuda, bc7_cuda, bc7_hq_cuda, bc_cuda
+    from cuttlefish_tpu_torch.kernels import bc6h_cuda, bc7_cuda, bc7_hq_cuda, bc_cuda, etc_cuda
 
     return {
         "bc7": bc7_cuda.launches,
         "bc7_hq": bc7_hq_cuda.launches,
         **bc_cuda.launches,
         "bc6h": bc6h_cuda.launches,
+        **etc_cuda.launches,
     }

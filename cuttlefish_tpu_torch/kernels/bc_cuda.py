@@ -1,10 +1,11 @@
 """ctypes wrapper of the hand-written BC1-BC5 kernels (``csrc/bc_encode.cu``).
 
-Each entry checks device, dtype, shape and contiguity, allocates its output
-with ``torch.empty``, launches on the current stream and raises on a
-non-zero launch status.  ``launches`` counts launches per entry; a count
-moves only where its kernel is launched.  The library is built on first
-use (``kernels/_build.py``).
+Each entry checks device, dtype, shape and contiguity (``check_input``),
+allocates its output with ``torch.empty``, launches on the current stream
+and raises on a non-zero launch status (``launch``; the ETC/EAC wrapper
+uses both too).  ``launches`` counts launches per entry; a count moves only
+where its kernel is launched.  The library is built on first use
+(``kernels/_build.py``).
 """
 
 from __future__ import annotations
@@ -44,7 +45,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(x: torch.Tensor, name: str, tail: tuple, quality: int) -> None:
+def check_input(x: torch.Tensor, name: str, tail: tuple, quality: int) -> None:
+    """Raise unless x is a contiguous float32 CUDA tensor [N, *tail] (None
+    in tail: any size) with N < 2**31, and quality is 0-4."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} kernel needs a CUDA tensor, got {x.device}")
     if x.dtype != torch.float32:
@@ -61,24 +64,31 @@ def _check(x: torch.Tensor, name: str, tail: tuple, quality: int) -> None:
         raise ValueError(f"{name} kernel takes fewer than 2**31 blocks")
 
 
-def _launch(name: str, x: torch.Tensor, nwords: int, fn, *args) -> torch.Tensor:
+def launch(load_lib, counts: dict, name: str, fn: str, x: torch.Tensor, nwords: int,
+           *args) -> torch.Tensor:
+    """[N, nwords] uint32 words of launcher ``fn`` of the library
+    ``load_lib()`` on x (N = 0: no launch); counts[name] moves by one."""
     n = x.shape[0]
     out = torch.empty((n, nwords), dtype=torch.uint32, device=x.device)
     if n == 0:
         return out
-    lib = _lib()
+    lib = load_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, fn)(x.data_ptr(), out.data_ptr(), n, *args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    launches[name] += 1
+    counts[name] += 1
     return out
+
+
+def _launch(name: str, x: torch.Tensor, nwords: int, fn: str, *args) -> torch.Tensor:
+    return launch(_lib, launches, name, fn, x, nwords, *args)
 
 
 def encode_bc1_cuda(blocks, quality: int, punch_through: bool, allow_black: bool, chw):
     """[N,16,4] float32 CUDA blocks -> [N,2] uint32 BC1 words."""
-    _check(blocks, "bc1", (16, 4), quality)
+    check_input(blocks, "bc1", (16, 4), quality)
     return _launch(
         "bc1", blocks, 2, "bc1_encode_launch",
         quality, int(punch_through), int(allow_black), *map(float, chw),
@@ -87,25 +97,25 @@ def encode_bc1_cuda(blocks, quality: int, punch_through: bool, allow_black: bool
 
 def encode_bc2_cuda(blocks, quality: int, chw):
     """[N,16,4] float32 CUDA blocks -> [N,4] uint32 BC2 words."""
-    _check(blocks, "bc2", (16, 4), quality)
+    check_input(blocks, "bc2", (16, 4), quality)
     return _launch("bc2", blocks, 4, "bc2_encode_launch", quality, *map(float, chw))
 
 
 def encode_bc3_cuda(blocks, quality: int, chw):
     """[N,16,4] float32 CUDA blocks -> [N,4] uint32 BC3 words."""
-    _check(blocks, "bc3", (16, 4), quality)
+    check_input(blocks, "bc3", (16, 4), quality)
     return _launch("bc3", blocks, 4, "bc3_encode_launch", quality, *map(float, chw))
 
 
 def encode_bc4_cuda(vals, quality: int, signed: bool):
     """[N,16] float32 CUDA values -> [N,2] uint32 BC4 words."""
-    _check(vals, "bc4", (16,), quality)
+    check_input(vals, "bc4", (16,), quality)
     return _launch("bc4", vals, 2, "bc4_encode_launch", quality, int(signed))
 
 
 def encode_bc5_cuda(blocks, quality: int, signed: bool):
     """[N,16,C] float32 CUDA blocks (C >= 2; red, green) -> [N,4] uint32."""
-    _check(blocks, "bc5", (16, None), quality)
+    check_input(blocks, "bc5", (16, None), quality)
     if blocks.shape[2] < 2:
         raise ValueError(f"bc5 kernel needs at least 2 channels, got {blocks.shape[2]}")
     return _launch(

@@ -1,5 +1,5 @@
-"""The hand-written kernels (BC7 q0-2 and q3-4, BC1-BC5, BC6H) against
-their plain versions.
+"""The hand-written kernels (BC7 q0-2 and q3-4, BC1-BC5, BC6H, ETC1/ETC2/
+EAC) against their plain versions.
 
 Tests marked ``gpu`` need a CUDA card and skip without one; run them on
 the card with ``python -m pytest tests/test_torch_cuda.py -m gpu``.  The
@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from cuttlefish_tpu_torch.decode import decode_bc7
-from cuttlefish_tpu_torch.kernels import _build, bc, bc6h, bc6h_cuda, bc7_cuda, bc7_hq_cuda, bc_cuda
+from cuttlefish_tpu_torch.kernels import (
+    _build, bc, bc6h, bc6h_cuda, bc7_cuda, bc7_hq_cuda, bc_cuda, etc, etc_cuda,
+)
 from cuttlefish_tpu_torch.kernels.bc7 import _constants, encode_bc7, encode_bc7_plain
 
 
@@ -209,6 +211,70 @@ def test_bc_kernels_reject_bad_input(cuda):
     assert tuple(bc.encode_bc2(x[:0], 2).shape) == (0, 4)
 
 
+# (name, kernel call, plain call, input) for each ETC/EAC entry on the card.
+_SRGB709 = tuple(float(w) for w in np.array([0.2126, 0.7152, 0.0722], np.float32) * np.float32(3))
+_ETC_CASES = {
+    "etc_rgb_etc1_q2": (lambda x: etc.encode_etc_rgb(x, 2), lambda x: etc.encode_etc_rgb_plain(x, 2), "rgba"),
+    "etc_rgb_etc2_q1_srgb": (
+        lambda x: etc.encode_etc_rgb(x, 1, True, _SRGB709),
+        lambda x: etc.encode_etc_rgb_plain(x, 1, True, _SRGB709),
+        "rgba",
+    ),
+    "etc_rgb_etc2_q4": (
+        lambda x: etc.encode_etc_rgb(x, 4, True), lambda x: etc.encode_etc_rgb_plain(x, 4, True), "rgba",
+    ),
+    "etc2_rgba_q2": (lambda x: etc.encode_etc2_rgba(x, 2), lambda x: etc.encode_etc2_rgba_plain(x, 2), "rgba"),
+    "eac_alpha_q4": (lambda x: etc.encode_eac_alpha(x, 4), lambda x: etc.encode_eac_alpha_plain(x, 4), "red"),
+    "eac_r11_q2": (lambda x: etc.encode_eac_r11(x, 2), lambda x: etc.encode_eac_r11_plain(x, 2), "red"),
+    "eac_r11_signed_q4": (
+        lambda x: etc.encode_eac_r11(x, 4, True), lambda x: etc.encode_eac_r11_plain(x, 4, True), "sred",
+    ),
+    "eac_rg11_signed_q2": (
+        lambda x: etc.encode_eac_rg11(x, 2, True), lambda x: etc.encode_eac_rg11_plain(x, 2, True), "signed",
+    ),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_ETC_CASES))
+def test_etc_kernel_matches_plain_on_card(cuda, case):
+    """Every ETC/EAC entry: one launch of its own counter, >= 99 % blocks
+    identical to the plain version on the same card (100 % expected)."""
+    kernel, plain, kind = _ETC_CASES[case]
+    x = torch.from_numpy(_bc_input(kind, 2048)).to(cuda)
+    name = next(k for k in etc_cuda.launches if case.startswith(k + "_"))
+    before = dict(etc_cuda.launches)
+    k = kernel(x)
+    torch.cuda.synchronize()
+    assert etc_cuda.launches == {**before, name: before[name] + 1}
+    p = plain(x)
+    k, p = k.cpu().numpy(), p.cpu().numpy()
+    assert k.shape == p.shape and k.dtype == p.dtype == np.uint32
+    assert np.all(k == p, axis=1).mean() >= 0.99
+
+
+@pytest.mark.gpu
+def test_etc_kernels_reject_bad_input(cuda):
+    x = torch.zeros((8, 16, 4), device=cuda)
+    one = (1.0, 1.0, 1.0)
+    with pytest.raises(TypeError):
+        etc_cuda.encode_etc_rgb_cuda(x.half(), 2, False, one)
+    with pytest.raises(ValueError):
+        etc_cuda.encode_etc_rgb_cuda(x[..., :2].contiguous(), 2, False, one)  # 2 channels
+    with pytest.raises(ValueError):
+        etc_cuda.encode_etc2_rgba_cuda(x[..., :3].contiguous(), 2, one)
+    with pytest.raises(ValueError):
+        etc_cuda.encode_eac_alpha_cuda(x[..., 3], 2)  # not contiguous
+    with pytest.raises(ValueError):
+        etc_cuda.encode_eac_r11_cuda(x[:, :8, 0].contiguous(), 2, False)
+    with pytest.raises(ValueError):
+        etc_cuda.encode_eac_rg11_cuda(x[..., :1].contiguous(), 2, False)
+    with pytest.raises(ValueError):
+        etc_cuda.encode_eac_r11_cuda(x[..., 0].contiguous(), 5, False)
+    assert tuple(etc.encode_etc2_rgba(x[:0], 2).shape) == (0, 4)
+    assert tuple(etc.encode_eac_rg11(x[:0], 2).shape) == (0, 4)
+
+
 def test_cpu_tensor_never_reaches_the_launcher(monkeypatch):
     def no_build(name):
         raise AssertionError("the CPU path must not build or load the kernel")
@@ -239,6 +305,23 @@ def test_cpu_tensor_never_reaches_the_launcher(monkeypatch):
     encode_bc7(x, 3)
     bc6h.encode_bc6h(x[..., :3].contiguous(), 4, True)
     assert (bc7_hq_cuda.launches, bc6h_cuda.launches) == (hq, b6)
+    counts = dict(etc_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        etc_cuda.encode_etc_rgb_cuda(x, 2, True, (1.0, 1.0, 1.0))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        etc_cuda.encode_etc2_rgba_cuda(x, 2, (1.0, 1.0, 1.0))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        etc_cuda.encode_eac_alpha_cuda(x[..., 3].contiguous(), 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        etc_cuda.encode_eac_r11_cuda(x[..., 0].contiguous(), 2, False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        etc_cuda.encode_eac_rg11_cuda(x, 2, True)
+    etc.encode_etc_rgb(x, 1, True)
+    etc.encode_etc2_rgba(x, 0)
+    etc.encode_eac_alpha(x[..., 3], 2)
+    etc.encode_eac_r11(x[..., 0], 2, True)
+    etc.encode_eac_rg11(x, 2)
+    assert etc_cuda.launches == counts
 
 
 def test_build_flags_and_sources():
@@ -247,12 +330,15 @@ def test_build_flags_and_sources():
     assert "--fmad=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     srcs = [p.name for p in _build._sources()]
-    assert srcs == ["bc6h_encode.cu", "bc7_encode.cu", "bc7_hq_encode.cu", "bc_encode.cu"]
+    assert srcs == [
+        "bc6h_encode.cu", "bc7_encode.cu", "bc7_hq_encode.cu", "bc_encode.cu", "etc_encode.cu",
+    ]
     # One library per source, keyed by its own hash.
     digests = {_build._digest(p) for p in _build._sources()}
-    assert len(digests) == 4 and all(len(d) == 16 for d in digests)
+    assert len(digests) == 5 and all(len(d) == 16 for d in digests)
     assert [p.name for p in map(_build._target, _build._sources())] == [
         "libbc6h_encode.so", "libbc7_encode.so", "libbc7_hq_encode.so", "libbc_encode.so",
+        "libetc_encode.so",
     ]
 
 

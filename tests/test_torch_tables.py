@@ -1,5 +1,5 @@
-"""The port's BC7 and BC6H tables and constant operands equal the
-reference's."""
+"""The port's BC7, BC6H and ETC/EAC tables and constant operands equal
+the reference's."""
 
 import numpy as np
 import pytest
@@ -127,3 +127,63 @@ def test_bc7_constants_carry_the_3_subset_operands(perceptual):
     assert np.all(c.masks3[:, 0] & 1)
     for s in (1, 2):
         assert all((int(m) >> int(a)) & 1 for m, a in zip(c.masks3[:, s], c.anchors3[:, s - 1]))
+
+
+_ETC_TABLES = [
+    "_ETC1_MODS_NP", "_EAC_MODS_NP", "_COLMAJOR_NP", "_RASTER_OF_P_NP", "_ETC2_DIST_NP",
+]
+
+
+@pytest.mark.parametrize("name", _ETC_TABLES)
+def test_etc_table_equals_reference(name):
+    """The ETC/EAC spec tables the TPU kernels and decoders read
+    (kernels/etc.py:35-77, :374), dtype and value."""
+    from cuttlefish_tpu.kernels import etc as ref
+    from cuttlefish_tpu_torch.kernels import etc_tables as port
+
+    a, b = getattr(port, name), getattr(ref, name)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["_EAC_MULT_CANDS", "_ETC_OFFSETS"])
+def test_etc_quality_ladder_equals_reference(name):
+    from cuttlefish_tpu.kernels import etc as ref
+    from cuttlefish_tpu_torch.kernels import etc_tables as port
+
+    assert getattr(port, name) == getattr(ref, name)
+    assert port._offset_cube(-1, 1) == ref._offset_cube(-1, 1)
+
+
+def test_etc_planar_projection_equals_pallas_kernel():
+    """The float64 projection of etc_pallas.py:_planar_proj, which the
+    plain version multiplies by."""
+    from cuttlefish_tpu.kernels import etc_pallas
+    from cuttlefish_tpu_torch.kernels import etc
+
+    assert np.array_equal(etc._planar_proj(), etc_pallas._planar_proj())
+
+
+def test_etc_kernel_tables_equal_reference():
+    """The constant tables written into csrc/etc_encode.cu hold the spec
+    tables' values: ETC1 and EAC modifiers, T/H distances, EAC multiplier
+    candidates, and the planar projection rounded once to float32."""
+    from pathlib import Path
+
+    from cuttlefish_tpu.kernels import etc as ref
+    from cuttlefish_tpu.kernels import etc_pallas
+
+    src = (Path(__file__).resolve().parent.parent / "cuttlefish_tpu_torch/csrc/etc_encode.cu").read_text()
+
+    def table(name, kind="int", parse=int):
+        body = src.split(f"__constant__ {kind} {name}")[1].split("};")[0].split("= {", 1)[1]
+        return [parse(v) for v in body.replace("{", " ").replace("}", " ").replace(",", " ").split()]
+
+    assert table("c_etc1_mods") == ref._ETC1_MODS_NP.reshape(-1).tolist()
+    assert table("c_eac_mods") == ref._EAC_MODS_NP.reshape(-1).tolist()
+    assert table("c_dist") == ref._ETC2_DIST_NP.tolist()
+    assert table("c_eac_ncand") == [ref._EAC_MULT_CANDS[q] for q in range(5)]
+    proj = table("c_planar_proj", "float", lambda v: float.fromhex(v.rstrip("f")))
+    assert proj == etc_pallas._planar_proj().astype(np.float32).reshape(-1).tolist()
+    # Column 7 is each table's largest positive modifier, the kernel's max_pos.
+    assert np.array_equal(ref._EAC_MODS_NP[:, 7], ref._EAC_MODS_NP[:, 4:].max(1))
