@@ -25,7 +25,12 @@ exits non-zero:
    on the HDR surfaces through the f16 wire; ETC1 q0, q1, q2, q4, ETC2 q2,
    q4 and q2 with the Rec.709 x 3 sRGB weights, ETC2 RGBA8 q2 and q4 on the
    alpha surface, EAC A8 q2, R11 q0, q2, q4 and RG11 q2 through the f16
-   wire, R11 and RG11 signed q2 on 2x-1 through the f16 wire.
+   wire, R11 and RG11 signed q2 on 2x-1 through the f16 wire; ASTC LDR
+   (the four entries merged) through the u8 wire: 4x4 q0, q2, q4 on the
+   colour surface, q2 and q4 on the alpha surface, on a near-gray surface
+   (R = G = B of the test surface) and on its alpha variant; 6x6 and 10x5
+   q2 on the alpha surface, 8x8 and 12x12 q2 on the colour surface, 8x8 q4
+   on the near-gray alpha surface (decoded with the port's decode_astc).
 4. paths: Texture(device=cuda).convert(...) then save, load_texture and a
    payload check, each with every launch counter set to 0 just before and
    read just after (the kernel must have launched, no plain version may
@@ -37,20 +42,28 @@ exits non-zero:
    slice's main paths ETC2 RGB 512^2 x 4 layers -> KTX (BASELINE config 3),
    ETC2 RGB 2048^2 + mips -> KTX, ETC2 RGB Highest 2048^2 -> KTX and ETC2
    RGBA8 2048^2 + mips -> KTX, with ETC1 2048^2 -> KTX, EAC R11 2048^2 +
-   mips -> KTX and EAC RG11 SNorm 2048^2 + mips -> KTX.  Level-0 sample
-   blocks must equal the plain version on the same wire input.
-5. times: CUDA events, one warm-up, median of 7: each kernel alone and its
-   plain version alone on the 262,144 blocks (BC7 q3-4 and BC6H at q4, the
-   main paths' quality, and at q3 and q2; ETC RGB and RGBA8 at q2 and q4,
-   EAC at q2); each main-path convert (host clock, synchronised) median of
-   5 with its phases.
+   mips -> KTX and EAC RG11 SNorm 2048^2 + mips -> KTX; and this slice's
+   ASTC_4x4 Normal 2048^2 + mips -> KTX (its main path), BASELINE config 5
+   (a 256^2 sRGB cube of a normal map + mips, ASTC_4x4 -> KTX), ASTC_8x8
+   and ASTC_12x12 Normal 2048^2 -> KTX and ASTC_4x4 Highest 2048^2 on the
+   near-gray alpha surface -> KTX (all four ASTC entries); ASTC_4x4 UFloat
+   must raise NotImplementedError.  Level-0 sample blocks must equal the
+   plain version on the same wire input.
+5. times: CUDA events, one warm-up, median of 7 (of 3 where the warm-up
+   took over a second): each kernel alone and its plain version alone on
+   the 262,144 blocks (BC7 q3-4 and BC6H at q4, the main paths' quality,
+   and at q3 and q2; ETC RGB and RGBA8 at q2 and q4, EAC at q2; ASTC
+   entries A and B at 4x4 q2 on the colour surface and at 8x8 q2, C and D
+   at 4x4 q4 on the near-gray alpha surface); each main-path convert (host
+   clock, synchronised) median of 5 with its phases.
 
 Then one JSON line of kernels (launches from the paths of phase 4; bound_ms
 from this run's inputs: the larger of the bytes the function must move over
 3.35 TB/s and its operations over 67 TFLOP/s: for BC the plain version's
 elementwise operations, counted per block by a dispatch hook, for ETC/EAC
-the float operations the function needs, etc_rgb_ops and eac_ops), and as
-the last line
+the float operations the function needs, etc_rgb_ops and eac_ops, for
+ASTC those of its device code on a sample of the blocks, astc_op_counter),
+and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -84,8 +97,11 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase} +{time.perf_counter() - _T0:.1f}s] {msg}", flush=True)
 
 
 def test_surface(size: int) -> np.ndarray:
@@ -165,8 +181,13 @@ def to_bytes(words: np.ndarray) -> np.ndarray:
 
 
 def event_ms(torch, fn, reps: int) -> float:
+    """Median of `reps` timed calls after one warm-up; of 3 where the
+    warm-up took more than a second."""
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    if time.perf_counter() - t0 > 1.0:
+        reps = min(reps, 3)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -274,6 +295,90 @@ def eac_ops(quality: int, r11: bool) -> int:
     return (55 if r11 else 37) + search + pal + 16 * 23
 
 
+# Float operations of the ASTC entries: a g++ build of csrc/astc_encode.cu
+# with a counting float type runs the device code on a sample of the run's
+# blocks and counts what it computes there.  Every float operation counts
+# one (a comparison, min, max, rint, sqrt and abs too), except a product
+# with an exact 0 or 1 operand and a sum with an exact 0 operand: those are
+# the kernel's partition-mask products and the sums of their zeros, which
+# the function does not need.  Integer work and the packing of the words
+# are not counted; the loads count 3 per input value (a clamp and a scale).
+ASTC_COUNT_SRC = r"""
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+#define __device__
+#define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
+#define __constant__
+#define __launch_bounds__(x)
+#define __restrict__
+static inline int __popc(unsigned x) { return __builtin_popcount(x); }
+static unsigned long long g_ops = 0;
+struct CF {
+  float v;
+  CF() = default;
+  constexpr CF(float x) : v(x) {}
+  constexpr CF(double x) : v((float)x) {}
+  constexpr CF(int x) : v((float)x) {}
+  explicit operator int() const { return (int)v; }
+};
+static inline bool unit(float a) { return a == 0.0f || a == 1.0f; }
+static inline CF operator+(CF a, CF b) { g_ops += a.v != 0.0f && b.v != 0.0f; return CF(a.v + b.v); }
+static inline CF operator-(CF a, CF b) { g_ops += b.v != 0.0f; return CF(a.v - b.v); }
+static inline CF operator*(CF a, CF b) { g_ops += !unit(a.v) && !unit(b.v); return CF(a.v * b.v); }
+static inline CF operator/(CF a, CF b) { ++g_ops; return CF(a.v / b.v); }
+static inline bool operator<(CF a, CF b) { ++g_ops; return a.v < b.v; }
+static inline bool operator>(CF a, CF b) { ++g_ops; return a.v > b.v; }
+static inline CF fminf(CF a, CF b) { ++g_ops; return CF(fminf(a.v, b.v)); }
+static inline CF fmaxf(CF a, CF b) { ++g_ops; return CF(fmaxf(a.v, b.v)); }
+static inline CF rintf(CF a) { ++g_ops; return CF(rintf(a.v)); }
+static inline CF sqrtf(CF a) { ++g_ops; return CF(sqrtf(a.v)); }
+static inline CF fabsf(CF a) { ++g_ops; return CF(fabsf(a.v)); }
+#define float CF
+#include "astc_encode.cu"
+#undef float
+extern "C" unsigned long long astc_count(int stage, const float* blocks, const int* desc, int n,
+                                         uint32_t* words) {
+  g_ops = 0;
+  const int T = desc[astcx::H_T];
+  for (int i = 0; i < n; ++i) {
+    CF e;
+    astcx::encode_stage(stage, desc, (const CF*)(blocks + (size_t)i * T * 4), words + 4 * i, e);
+  }
+  return g_ops;
+}
+"""
+
+
+def astc_op_counter(csrc: str, tmp: str):
+    """-> count(stage, host blocks [n,T,4] f32, bw, bh, q, gray, alpha):
+    (float operations per block, the device code's words [n,4])."""
+    import ctypes
+
+    from cuttlefish_tpu_torch.kernels import astc_cuda
+
+    src, lib_path = os.path.join(tmp, "astc_count.cpp"), os.path.join(tmp, "libastc_count.so")
+    with open(src, "w") as f:
+        f.write(ASTC_COUNT_SRC)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-I", csrc, "-o", lib_path, src], check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(lib_path)
+    lib.astc_count.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int,
+                                                                       ctypes.c_void_p]
+    lib.astc_count.restype = ctypes.c_ulonglong
+
+    def count(stage, blocks, bw, bh, q, gray, alpha):
+        b = np.ascontiguousarray(blocks, np.float32)
+        desc = np.ascontiguousarray(astc_cuda.descriptor(bw, bh, q, gray, alpha))
+        words = np.zeros((b.shape[0], 4), np.uint32)
+        ops = lib.astc_count("abcd".index(stage), b.ctypes.data, desc.ctypes.data, b.shape[0],
+                             words.ctypes.data)
+        return ops / b.shape[0], words
+
+    return count
+
+
 def ptxas_lines(log_text: str) -> list[str]:
     keep = ("Compiling entry", "registers", "spill")
     return [ln.strip() for ln in log_text.splitlines() if any(k in ln for k in keep)]
@@ -290,14 +395,15 @@ def main() -> int:
     from cuttlefish_tpu_torch import native
     from cuttlefish_tpu_torch.convert.blocks import extract_blocks
     from cuttlefish_tpu_torch.convert.device import dequant, wire
+    from cuttlefish_tpu_torch.convert.astc import AstcConverter
     from cuttlefish_tpu_torch.decode import (
-        decode_bc1, decode_bc2, decode_bc3, decode_bc4, decode_bc5, decode_bc6h_f32,
-        decode_bc7, decode_eac_alpha, decode_eac_r11, decode_eac_rg11, decode_etc2_rgba,
-        decode_etc_rgb,
+        decode_astc, decode_bc1, decode_bc2, decode_bc3, decode_bc4, decode_bc5,
+        decode_bc6h_f32, decode_bc7, decode_eac_alpha, decode_eac_r11, decode_eac_rg11,
+        decode_etc2_rgba, decode_etc_rgb,
     )
     from cuttlefish_tpu_torch.kernels import (
-        _build, bc, bc6h, bc6h_cuda, bc7, bc7_cuda, bc7_hq_cuda, bc_cuda, etc, etc_cuda,
-        launch_counts,
+        _build, astc, astc_cuda, astc_tables, bc, bc6h, bc6h_cuda, bc7, bc7_cuda, bc7_hq_cuda,
+        bc_cuda, etc, etc_cuda, launch_counts,
     )
     from cuttlefish_tpu_torch.kernels.bc7 import _constants, encode_bc7, encode_bc7_plain
 
@@ -315,7 +421,8 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    for name in ("bc7_encode", "bc7_hq_encode", "bc_encode", "bc6h_encode", "etc_encode"):
+    for name in ("bc7_encode", "bc7_hq_encode", "bc_encode", "bc6h_encode", "etc_encode",
+                 "astc_encode"):
         _build.load(name)
     build_s = time.perf_counter() - t0
     for name, info in sorted(_build.build_info.items()):
@@ -509,6 +616,63 @@ def main() -> int:
         check(abs(pk - pp) <= MAX_DPSNR, f"{name}: kernel and plain PSNR differ")
         check(np.isfinite(pk), f"{name}: PSNR not finite")
 
+    # This slice: ASTC LDR, the four entries merged as the converter merges
+    # them.  Inputs go through the u8 wire as AstcConverter hands them on,
+    # with the gates its content scans set; near-gray surfaces: R = G = B
+    # from the test surface, opaque and with the alpha surface's alpha.
+    gsurf, gasurf = surf.copy(), asurf.copy()
+    for g in (gsurf, gasurf):
+        g[..., 1] = g[..., 0]
+        g[..., 2] = g[..., 0]
+    astc_surfaces = {"rgba": surf, "alpha": asurf, "gray": gsurf, "grayalpha": gasurf}
+    astc_in = {}
+
+    def astc_input(bw, bh, kind):
+        """(wire values on the host, on the card, gray gate, alpha gate)."""
+        if (bw, bh, kind) not in astc_in:
+            hb = extract_blocks(astc_surfaces[kind], bw, bh)[0]
+            x = dequant(wire(hb, "u8").to(dev))
+            astc_in[bw, bh, kind] = (x.cpu().numpy(), x, astc_tables.has_gray_blocks(hb),
+                                     astc_tables.has_alpha_blocks(hb))
+        return astc_in[bw, bh, kind]
+
+    # name -> (block width, block height, quality, surface)
+    astc_cases = {
+        "astc4_q0": (4, 4, 0, "rgba"), "astc4_q2": (4, 4, 2, "rgba"), "astc4_q4": (4, 4, 4, "rgba"),
+        "astc4_q2_alpha": (4, 4, 2, "alpha"), "astc4_q4_alpha": (4, 4, 4, "alpha"),
+        "astc4_q2_gray": (4, 4, 2, "gray"), "astc4_q4_gray": (4, 4, 4, "gray"),
+        "astc4_q2_grayalpha": (4, 4, 2, "grayalpha"), "astc4_q4_grayalpha": (4, 4, 4, "grayalpha"),
+        "astc6x6_q2": (6, 6, 2, "alpha"), "astc8x8_q2": (8, 8, 2, "rgba"),
+        "astc10x5_q2": (10, 5, 2, "alpha"), "astc12x12_q2": (12, 12, 2, "rgba"),
+        "astc8x8_q4": (8, 8, 4, "grayalpha"),
+    }
+    for name, (bw, bh, q, kind) in astc_cases.items():
+        hw, x, gray, alpha = astc_input(bw, bh, kind)
+        nb = x.shape[0]
+        k_np = astc.encode_astc(x, bw, bh, q, gray, alpha).cpu().numpy()
+        p_np = astc.encode_astc_plain(x, bw, bh, q, gray, alpha).cpu().numpy()
+        torch.cuda.synchronize()
+        same = float(np.all(k_np == p_np, axis=1).mean())
+        samp = np.arange(0, nb, max(1, nb // 4096))
+        # The decoder is a per-block Python loop: decode the kernel's
+        # sample, and the plain version's only where its words differ.
+        dk = decode_astc(to_bytes(k_np[samp]), bw, bh).astype(np.float64)
+        dp = dk.copy()
+        diff = np.where(~np.all(k_np[samp] == p_np[samp], axis=1))[0]
+        if diff.size:
+            dp[diff] = decode_astc(to_bytes(p_np[samp][diff]), bw, bh)
+        target = np.round(hw[samp].astype(np.float64) * 255)
+        pk, pp = psnr(dk, target, 255.0), psnr(dp, target, 255.0)
+        err = float(np.abs(dk - dp).max())
+        max_err[name] = err
+        log("kernel_vs_plain", f"{name}: {bw}x{bh} q{q} on {kind} (gray {gray}, alpha {alpha}), "
+            f"{nb} blocks identical {same * 100:.4f} % (bar {MIN_SAME * 100:.0f} %); sample "
+            f"{samp.size} PSNR kernel {pk:.4f} dB plain {pp:.4f} dB (|d| bar {MAX_DPSNR}); "
+            f"max |decoded kernel - plain| {err}")
+        check(same >= MIN_SAME, f"{name}: kernel and plain version disagree on too many blocks")
+        check(abs(pk - pp) <= MAX_DPSNR, f"{name}: kernel and plain PSNR differ")
+        check(np.isfinite(pk), f"{name}: PSNR not finite")
+
     # 4. the paths, each with every launch counter at 0 just before
     plain_calls = {"n": 0}
     plain_fns = [(bc, "encode_bc1_plain"), (bc, "encode_bc2_plain"), (bc, "encode_bc3_plain"),
@@ -516,7 +680,8 @@ def main() -> int:
                  (bc7, "encode_bc7_plain"), (bc6h, "encode_bc6h_plain"),
                  (etc, "encode_etc_rgb_plain"), (etc, "encode_etc2_rgba_plain"),
                  (etc, "encode_eac_alpha_plain"), (etc, "encode_eac_r11_plain"),
-                 (etc, "encode_eac_rg11_plain")]
+                 (etc, "encode_eac_rg11_plain"), (astc, "encode_astc_plain"),
+                 (astc, "run_stage")]
     originals = {nm: getattr(mod, nm) for mod, nm in plain_fns}
 
     def counting(fn):
@@ -614,30 +779,37 @@ def main() -> int:
 
     path_launches = {k: 0 for k in launch_counts()}
     path_stats = {}
+
+    def convert_counted(pname, tex, fmt, typ, quality):
+        """Texture.convert with every launch counter at 0 just before and
+        every plain version counting its calls -> (launches, convert stats)."""
+        for mod, nm in plain_fns:
+            setattr(mod, nm, counting(originals[nm]))
+        for wrapper in (bc7_cuda, bc7_hq_cuda, bc_cuda, bc6h_cuda, etc_cuda, astc_cuda):
+            wrapper.reset_launches()
+        plain_calls["n"] = 0
+        try:
+            ok = tex.convert(fmt, typ, quality)
+            torch.cuda.synchronize()
+        finally:
+            for mod, nm in plain_fns:
+                setattr(mod, nm, originals[nm])
+        counts = launch_counts()
+        check(ok, f"{pname}: Texture.convert returned False")
+        check(plain_calls["n"] == 0, f"{pname}: a plain version ran on the card's path")
+        stats = tex.last_convert_stats
+        check(stats["launches"] == {k: v for k, v in counts.items() if v},
+              f"{pname}: convert stats disagree with the counters")
+        for k, v in counts.items():
+            path_launches[k] += v
+        return counts, stats
+
     with tempfile.TemporaryDirectory() as tmp:
         for pname, (fmt, typ, quality, mips, nlayers, ext, img, kname, _) in paths.items():
             tex = make_texture(img, mips, nlayers)
             layers = max(tex.depth(), 1)
-            for mod, nm in plain_fns:
-                setattr(mod, nm, counting(originals[nm]))
-            for wrapper in (bc7_cuda, bc7_hq_cuda, bc_cuda, bc6h_cuda, etc_cuda):
-                wrapper.reset_launches()
-            plain_calls["n"] = 0
-            try:
-                ok = tex.convert(fmt, typ, quality)
-                torch.cuda.synchronize()
-            finally:
-                for mod, nm in plain_fns:
-                    setattr(mod, nm, originals[nm])
-            counts = launch_counts()
-            check(ok, f"{pname}: Texture.convert returned False")
+            counts, stats = convert_counted(pname, tex, fmt, typ, quality)
             check(counts[kname] > 0, f"{pname}: the path launched no {kname} kernel")
-            check(plain_calls["n"] == 0, f"{pname}: a plain version ran on the card's path")
-            stats = tex.last_convert_stats
-            check(stats["launches"] == {k: v for k, v in counts.items() if v},
-                  f"{pname}: convert stats disagree with the counters")
-            for k, v in counts.items():
-                path_launches[k] += v
             path = os.path.join(tmp, f"{pname}.{ext}")
             check(tex.save(path) is cp.SaveResult.Success, f"{pname}: save failed")
             size = os.path.getsize(path)
@@ -718,6 +890,100 @@ def main() -> int:
             check(np.isfinite(p0) and (fmt is TF.BC6H or p0 > 30.0), f"{pname}: PSNR too low")
             del tex, loaded
 
+        # This slice's paths: ASTC LDR -> KTX.  The main path at full size
+        # (4x4 Normal 2048^2 + mips), BASELINE config 5 as bench.py:220-241
+        # builds it (a 256^2 sRGB cube of a normal map, + mips), 8x8 and
+        # 12x12 Normal 2048^2, and 4x4 Highest 2048^2 on the near-gray
+        # alpha surface, which runs all four entries.
+        nm256 = cp.Image.from_array(test_surface(256), cp.ImageFormat.RGBAF).create_normal_map(
+            height=2.0)
+        gray_img = cp.Image.from_array(gasurf, cp.ImageFormat.RGBAF)
+        # name -> (format, quality, image, mips, sRGB cube, timed, entries it must launch)
+        astc_ab = ("astc_a", "astc_b")
+        astc_paths = {
+            "astc4_2048_mips_ktx": (TF.ASTC_4x4, QN, images["rgba"], True, False, True, astc_ab),
+            "astc4_cube_srgb_nm_ktx": (TF.ASTC_4x4, QN, nm256, True, True, True, astc_ab),
+            "astc8x8_2048_ktx": (TF.ASTC_8x8, QN, images["rgba"], False, False, False, astc_ab),
+            "astc12x12_2048_ktx": (TF.ASTC_12x12, QN, images["rgba"], False, False, False,
+                                   astc_ab),
+            "astc4_q4_grayalpha_2048_ktx": (TF.ASTC_4x4, QX, gray_img, False, False, True,
+                                            ("astc_a", "astc_b", "astc_c", "astc_d")),
+        }
+        refine = AstcConverter.refine_params
+        gates = {}
+
+        def spy_refine(self, host_blocks, params):
+            out = refine(self, host_blocks, params)
+            gates["last"] = (out.content_gray, out.content_alpha)
+            return out
+
+        def make_astc_texture(img, mips, cube):
+            if not cube:
+                return make_texture(img, mips, 0)
+            tex = cp.Texture(cp.Dimension.Cube, img.width, img.height, mip_levels=99 if mips else 1,
+                             color_space=cp.ColorSpace.sRGB)
+            for face in cp.CubeFace:
+                check(tex.set_image(img, face=face), "set_image failed")
+            if mips:
+                check(tex.generate_mipmaps(), "generate_mipmaps failed")
+            return tex
+
+        for pname, (fmt, quality, img, mips, cube, _, need) in astc_paths.items():
+            tex = make_astc_texture(img, mips, cube)
+            bw, bh = (int(v) for v in fmt.name[5:].split("x"))
+            faces = list(cp.CubeFace) if cube else [None]
+            src0 = tex.get_image(face=faces[0]).rgbaf()
+            AstcConverter.refine_params = spy_refine
+            try:
+                counts, stats = convert_counted(pname, tex, fmt, TT.UNorm, quality)
+            finally:
+                AstcConverter.refine_params = refine
+            for k in need:
+                check(counts[k] > 0, f"{pname}: the path launched no {k} kernel")
+            path = os.path.join(tmp, f"{pname}.ktx")
+            check(tex.save(path) is cp.SaveResult.Success, f"{pname}: save failed")
+            size = os.path.getsize(path)
+            loaded = cp.load_texture(path)
+            check(loaded.format is fmt and loaded.type is TT.UNorm
+                  and loaded.mip_levels == tex.mip_levels and loaded.faces == tex.faces,
+                  f"{pname}: loaded texture differs ({loaded.format}, {loaded.type})")
+            for m in range(tex.mip_levels):
+                for f in faces:
+                    check(loaded.data(face=f, mip_level=m) == tex.data(face=f, mip_level=m),
+                          f"{pname}: payload of mip {m} face {f} differs")
+            nblocks = sum(tex.data_size(face=f, mip_level=m) // 16
+                          for m in range(tex.mip_levels) for f in faces)
+            # Level-0 sample of the first face: equal to the plain version on
+            # the same wire input under the gates the converter's scan set.
+            b0 = extract_blocks(src0, bw, bh)[0]
+            idx = np.arange(0, b0.shape[0], max(1, b0.shape[0] // 4096))
+            x0 = dequant(wire(b0[idx], "u8").to(dev))
+            gray, alpha = gates["last"]
+            ref = originals["encode_astc_plain"](x0, bw, bh, int(quality), gray, alpha)
+            ref = to_bytes(ref.cpu().numpy()).reshape(-1, 16)
+            raw = np.frombuffer(loaded.data(face=faces[0]), np.uint8).reshape(-1, 16)[idx]
+            same = float(np.all(raw == ref, axis=1).mean())
+            dec = decode_astc(raw.reshape(-1), bw, bh) / 255.0
+            finite = bool(np.isfinite(dec).all()) and dec.shape == b0[idx].shape
+            p0 = psnr(dec, b0[idx], 1.0)
+            path_stats[pname] = {"launches": {k: v for k, v in counts.items() if v},
+                                 "bytes": size, "psnr": p0, "same": same}
+            log("paths", f"{pname}: {tex.mip_levels} mips x {len(faces)} faces, {nblocks} "
+                f"blocks, KTX {size} bytes read back; gates gray {gray} alpha {alpha}; launches "
+                f"{stats['launches']}, plain calls 0; level-0 sample PSNR {p0:.4f} dB; sample "
+                f"identical to plain {same * 100:.2f} %; phases {json.dumps(stats['phases'])}")
+            check(same >= MIN_SAME, f"{pname}: blocks disagree with the plain version")
+            check(finite, f"{pname}: decoded texels not finite or of the wrong shape")
+            # 0.89-8 bits a texel: above 25 dB on the noisy test surface.
+            check(np.isfinite(p0) and p0 > 25.0, f"{pname}: PSNR too low")
+            del tex, loaded
+        tex = make_texture(small, False, 0)
+        try:
+            tex.convert(TF.ASTC_4x4, TT.UFloat, QN)
+            check(False, "ASTC_4x4 UFloat did not raise")
+        except NotImplementedError as e:
+            log("paths", f"astc4_ufloat: raises NotImplementedError ({e})")
+
     # 5. times on the card
     # (row name, counter, case timed for the row, source, TPU kernel, input
     # bytes per block, other cases timed alongside)
@@ -784,6 +1050,56 @@ def main() -> int:
         for other in others:
             time_case(other, key, in_bytes)
 
+    # This slice: each ASTC entry alone, its plain version alone, and its
+    # bound from the operations it needs on a sample of the same blocks
+    # (astc_op_counter: the device code built with g++, which must also
+    # give the kernel's words there).
+    # (row name, entry, TPU kernel body, (block w, block h, quality, surface) timed for the
+    # row, then the other shapes timed alongside)
+    astc_rows = [
+        ("astc_a_encode", "a", ":792", [(4, 4, 2, "rgba"), (8, 8, 2, "rgba")]),
+        ("astc_b_encode", "b", ":1005", [(4, 4, 2, "rgba"), (8, 8, 2, "rgba")]),
+        ("astc_c_encode", "c", ":1151", [(4, 4, 4, "grayalpha")]),
+        ("astc_d_encode", "d", ":1269", [(4, 4, 4, "grayalpha")]),
+    ]
+    with tempfile.TemporaryDirectory() as tmp:
+        count_ops = astc_op_counter(str(_build.CSRC), tmp)
+        for name, stage, line, shapes in astc_rows:
+            for i, (bw, bh, q, kind) in enumerate(shapes):
+                hw, x, gray, alpha = astc_input(bw, bh, kind)
+                nb = x.shape[0]
+                kernel_ms = event_ms(
+                    torch, lambda: astc_cuda.stage_cuda(stage, x, bw, bh, q, gray, alpha), 7)
+                plain_ms = event_ms(
+                    torch, lambda: astc.stage_plain(stage, x, bw, bh, q, gray, alpha), 7)
+                samp = np.arange(0, nb, max(1, nb // (1024 if bw * bh == 16 else 256)))
+                t0 = time.perf_counter()
+                ops, words = count_ops(stage, hw[samp], bw, bh, q, gray, alpha)
+                count_s = time.perf_counter() - t0
+                xs = x[torch.from_numpy(samp).to(dev)].contiguous()
+                kw = astc_cuda.stage_cuda(stage, xs, bw, bh, q, gray, alpha)[0]
+                check(np.array_equal(words, kw.cpu().numpy()),
+                      f"{name}: the counting build's words differ from the kernel's")
+                bytes_ = nb * (bw * bh * 16 + 16 + 4)
+                t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, nb * ops / F32_OPS_PER_S * 1e3
+                bound_by = "bytes" if t_bytes >= t_ops else "operations"
+                log("times", f"{card}: astc_{stage} ({bw}x{bh} q{q} on {kind}, {nb} blocks): "
+                    f"kernel {kernel_ms:.4f} ms ({nb * bw * bh / kernel_ms / 1e3:.1f} "
+                    f"Mtexels/s); plain {plain_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
+                    f"({bound_by}: {bytes_ / 1e6:.1f} MB, {ops:.0f} needed ops/block, counted "
+                    f"on {samp.size} blocks in {count_s:.1f} s)")
+                if i == 0:
+                    rows.append({
+                        "name": name, "route": "cuda",
+                        "source": "cuttlefish_tpu_torch/csrc/astc_encode.cu",
+                        "replaces": "cuttlefish_tpu/kernels/astc_pallas.py" + line,
+                        "launches": path_launches[f"astc_{stage}"],
+                        "max_abs_err": max_err["astc4_q4_grayalpha" if q == 4 else "astc4_q2"],
+                        "ms": kernel_ms, "plain_ms": plain_ms,
+                        "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by,
+                        "library_ms": None,
+                    })
+
     for pname, (fmt, typ, quality, mips, nlayers, ext, img, kname, timed) in paths.items():
         if not timed:
             continue
@@ -793,6 +1109,20 @@ def main() -> int:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             check(t.convert(fmt, typ, quality), f"{pname}: timed convert failed")
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            phases = t.last_convert_stats["phases"]
+        log("times", f"{card}: convert {pname} median of 5 {statistics.median(secs):.4f} s "
+            f"{[round(s, 4) for s in secs]}; last phases {json.dumps(phases)}")
+    for pname, (fmt, quality, img, mips, cube, timed, _) in astc_paths.items():
+        if not timed:
+            continue
+        secs = []
+        for _ in range(5):
+            t = make_astc_texture(img, mips, cube)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(t.convert(fmt, TT.UNorm, quality), f"{pname}: timed convert failed")
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             phases = t.last_convert_stats["phases"]

@@ -3,10 +3,11 @@
 ``EncodeParams`` and ``Converter`` are copied from
 ``cuttlefish_tpu/convert/__init__.py`` unchanged; ``create_converter`` is
 the port's.  Uncompressed formats go to the copied host converters of
-``convert/standard.py``; BC1-BC7 (``convert/s3tc.py``) and ETC1, ETC2 and
-EAC (``convert/etc.py``) go to the port's block converters on a torch
-device.  ETC2_R8G8B8A1 and every other block format (ASTC, PVRTC) raise
-``NotImplementedError`` until their slice is ported.
+``convert/standard.py``; BC1-BC7 (``convert/s3tc.py``), ETC1, ETC2 and
+EAC (``convert/etc.py``) and ASTC LDR (``convert/astc.py``) go to the
+port's block converters on a torch device.  ETC2_R8G8B8A1, the ASTC HDR
+profile and PVRTC raise ``NotImplementedError`` until their slice is
+ported.
 """
 
 from __future__ import annotations
@@ -92,6 +93,10 @@ def create_converter(
         from cuttlefish_tpu_torch.convert import etc
 
         return etc.create_etc_converter(fmt, type_, device)
+    if fmt.name.startswith("ASTC_"):
+        from cuttlefish_tpu_torch.convert import astc
+
+        return astc.create_astc_converter(fmt, type_, device)
     raise NotImplementedError(
         f"{fmt.name} is not in the PyTorch port yet: ported in a later PR"
     )

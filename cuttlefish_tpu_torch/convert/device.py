@@ -72,6 +72,12 @@ class BlockConverter(Converter):
         """Hook for input-domain remaps (as in the JAX package)."""
         return surface
 
+    def refine_params(self, host_blocks: np.ndarray, params: EncodeParams) -> EncodeParams:
+        """Hook: inspect the host float blocks of the whole batch and return
+        params with content-derived flags filled in (as in the JAX
+        package; ASTC sets ``content_gray`` and ``content_alpha``)."""
+        return params
+
     def encode(self, surface: np.ndarray, params: EncodeParams) -> np.ndarray:
         return self.encode_many([surface], params)[0]
 
@@ -94,6 +100,7 @@ class BlockConverter(Converter):
             blocks = (
                 np.concatenate(all_blocks) if len(all_blocks) > 1 else all_blocks[0]
             )
+            params = self.refine_params(blocks, params)
             host = wire(blocks, self.transfer_dtype)
         with profiling.phase("upload"):
             blocks = dequant(host.to(self.device))

@@ -1,10 +1,11 @@
 """Reference block decoders of the port (host numpy, no JAX).
 
-BC1-BC5 (``s3tc.py``), BC6H (``bc6h.py``), BC7 (``bc7.py``) and ETC1/ETC2/
-EAC (``etc.py``), copies of the JAX package's decoders; ``surface.py``
-decodes whole surfaces of the ported formats.
+BC1-BC5 (``s3tc.py``), BC6H (``bc6h.py``), BC7 (``bc7.py``), ETC1/ETC2/
+EAC (``etc.py``) and ASTC (``astc.py``), copies of the JAX package's
+decoders; ``surface.py`` decodes whole surfaces of the ported formats.
 """
 
+from cuttlefish_tpu_torch.decode.astc import decode_astc  # noqa: F401
 from cuttlefish_tpu_torch.decode.bc6h import decode_bc6h, decode_bc6h_f32  # noqa: F401
 from cuttlefish_tpu_torch.decode.bc7 import decode_bc7  # noqa: F401
 from cuttlefish_tpu_torch.decode.etc import (  # noqa: F401

@@ -8,9 +8,9 @@ pipelines and by round-trip tests.  The reference has no decode path at
 all (it only writes containers), so this is an extension.
 
 Copied from ``cuttlefish_tpu/decode/surface.py`` with its imports pointed at
-the port.  The port decodes the uncompressed formats, BC1-BC7 and
-ETC1/ETC2/EAC; ASTC and PVRTC raise ``NotImplementedError`` until their
-decoders are ported (ROADMAP queue 1, item 13).
+the port.  The port decodes the uncompressed formats, BC1-BC7,
+ETC1/ETC2/EAC and ASTC; PVRTC raises ``NotImplementedError`` until its
+decoder is ported (ROADMAP queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -109,6 +109,14 @@ def _decode_blocks(data: np.ndarray, fmt: _F, type_: _T) -> np.ndarray:
     if fmt is _F.EAC_R11G11:
         rg = D.decode_eac_rg11(data, signed=signed).astype(np.float32)
         return _rgba(rg[..., 0], rg[..., 1], 0.0, 1.0)
+    if fmt.name.startswith("ASTC_"):
+        bw, bh = (int(x) for x in fmt.name[5:].split("x"))
+        if type_ is _T.UFloat:
+            from cuttlefish_tpu_torch.decode.astc import decode_astc_hdr
+
+            half = decode_astc_hdr(data, bw, bh)
+            return half_bits_to_f32(half).astype(np.float32)
+        return D.decode_astc(data, bw, bh).astype(np.float32) / 255.0
     raise NotImplementedError(_unported(fmt))
 
 

@@ -1,5 +1,5 @@
 """The hand-written kernels (BC7 q0-2 and q3-4, BC1-BC5, BC6H, ETC1/ETC2/
-EAC) against their plain versions.
+EAC, ASTC LDR) against their plain versions.
 
 Tests marked ``gpu`` need a CUDA card and skip without one; run them on
 the card with ``python -m pytest tests/test_torch_cuda.py -m gpu``.  The
@@ -13,7 +13,8 @@ import torch
 
 from cuttlefish_tpu_torch.decode import decode_bc7
 from cuttlefish_tpu_torch.kernels import (
-    _build, bc, bc6h, bc6h_cuda, bc7_cuda, bc7_hq_cuda, bc_cuda, etc, etc_cuda,
+    _build, astc, astc_cuda, astc_tables, bc, bc6h, bc6h_cuda, bc7_cuda, bc7_hq_cuda, bc_cuda, etc,
+    etc_cuda,
 )
 from cuttlefish_tpu_torch.kernels.bc7 import _constants, encode_bc7, encode_bc7_plain
 
@@ -275,6 +276,70 @@ def test_etc_kernels_reject_bad_input(cuda):
     assert tuple(etc.encode_eac_rg11(x[:0], 2).shape) == (0, 4)
 
 
+def _astc_input(bw, bh, kind, n):
+    """Seeded blocks through the u8 wire: opaque colour, colour with alpha,
+    near-gray (R = G = B up to a small spread) with alpha."""
+    rng = np.random.default_rng(8)
+    t = bw * bh
+    b = np.clip(rng.random((n, 1, 4)) + rng.normal(0, 0.15, (n, t, 4)), 0, 1)
+    b[::5] = b[::5, :1]  # flat
+    if kind == "gray_alpha":
+        b[..., 1] = np.clip(b[..., 0] + rng.normal(0, 0.01, (n, t)), 0, 1)
+        b[..., 2] = b[..., 0]
+    if kind == "color":
+        b[..., 3] = 1.0
+    return (np.round(b * 255) / 255).astype(np.float32)
+
+
+# (block width, block height, quality, input kind) on the card: every entry,
+# decimated grids and Gauss-Seidel (12x12).
+_ASTC_CASES = [
+    (4, 4, 0, "color"), (4, 4, 2, "alpha"), (4, 4, 4, "gray_alpha"), (6, 6, 2, "alpha"),
+    (8, 8, 4, "gray_alpha"), (10, 5, 2, "color"), (12, 12, 2, "alpha"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _ASTC_CASES, ids=lambda c: f"{c[0]}x{c[1]}_q{c[2]}_{c[3]}")
+def test_astc_kernel_matches_plain_on_card(cuda, case):
+    """Each ASTC entry that the case runs: one launch of its own counter,
+    >= 99 % blocks identical to the plain version's same stage (100 %
+    expected), and the merged words alike."""
+    bw, bh, q, kind = case
+    b = _astc_input(bw, bh, kind, 1024)
+    gray, alpha = astc_tables.has_gray_blocks(b), astc_tables.has_alpha_blocks(b)
+    assert alpha == (kind != "color") and (gray or kind != "gray_alpha")
+    x = torch.from_numpy(b).to(cuda)
+    for stage in astc.stages(bw, bh, q, gray, alpha):
+        before = dict(astc_cuda.launches)
+        wk, ek = astc_cuda.stage_cuda(stage, x, bw, bh, q, gray, alpha)
+        torch.cuda.synchronize()
+        name = f"astc_{stage}"
+        assert astc_cuda.launches == {**before, name: before[name] + 1}
+        wp, ep = astc.stage_plain(stage, x, bw, bh, q, gray, alpha)
+        wk, wp = wk.cpu().numpy(), wp.cpu().numpy()
+        assert wk.shape == wp.shape == (1024, 4) and wk.dtype == wp.dtype == np.uint32
+        assert np.all(wk == wp, axis=1).mean() >= 0.99, stage
+    k = astc.encode_astc(x, bw, bh, q, gray, alpha).cpu().numpy()
+    p = astc.encode_astc_plain(x, bw, bh, q, gray, alpha).cpu().numpy()
+    assert np.all(k == p, axis=1).mean() >= 0.99
+
+
+@pytest.mark.gpu
+def test_astc_kernels_reject_bad_input(cuda):
+    x = torch.zeros((8, 16, 4), device=cuda)
+    with pytest.raises(TypeError):
+        astc_cuda.stage_cuda("a", x.half(), 4, 4, 2)
+    with pytest.raises(ValueError):
+        astc_cuda.stage_cuda("b", x, 6, 6, 2)  # 16 texels, not 36
+    with pytest.raises(ValueError):
+        astc_cuda.stage_cuda("a", x.transpose(0, 1), 4, 4, 2)
+    with pytest.raises(ValueError):
+        astc_cuda.stage_cuda("a", x, 4, 4, 5)
+    assert tuple(astc.encode_astc(x[:0], 4, 4, 2).shape) == (0, 4)
+    assert tuple(astc_cuda.stage_cuda("d", x[:0], 4, 4, 4)[0].shape) == (0, 4)
+
+
 def test_cpu_tensor_never_reaches_the_launcher(monkeypatch):
     def no_build(name):
         raise AssertionError("the CPU path must not build or load the kernel")
@@ -322,6 +387,14 @@ def test_cpu_tensor_never_reaches_the_launcher(monkeypatch):
     etc.encode_eac_r11(x[..., 0], 2, True)
     etc.encode_eac_rg11(x, 2)
     assert etc_cuda.launches == counts
+    counts = dict(astc_cuda.launches)
+    for stage in "abcd":
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            astc_cuda.stage_cuda(stage, x, 4, 4, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        astc_cuda.encode_astc_cuda(x, 4, 4, 2)
+    astc.encode_astc(x, 4, 4, 4)
+    assert astc_cuda.launches == counts
 
 
 def test_build_flags_and_sources():
@@ -331,14 +404,15 @@ def test_build_flags_and_sources():
     assert "fast_math" not in flags and "fast-math" not in flags
     srcs = [p.name for p in _build._sources()]
     assert srcs == [
-        "bc6h_encode.cu", "bc7_encode.cu", "bc7_hq_encode.cu", "bc_encode.cu", "etc_encode.cu",
+        "astc_encode.cu", "bc6h_encode.cu", "bc7_encode.cu", "bc7_hq_encode.cu", "bc_encode.cu",
+        "etc_encode.cu",
     ]
     # One library per source, keyed by its own hash.
     digests = {_build._digest(p) for p in _build._sources()}
-    assert len(digests) == 5 and all(len(d) == 16 for d in digests)
+    assert len(digests) == 6 and all(len(d) == 16 for d in digests)
     assert [p.name for p in map(_build._target, _build._sources())] == [
-        "libbc6h_encode.so", "libbc7_encode.so", "libbc7_hq_encode.so", "libbc_encode.so",
-        "libetc_encode.so",
+        "libastc_encode.so", "libbc6h_encode.so", "libbc7_encode.so", "libbc7_hq_encode.so",
+        "libbc_encode.so", "libetc_encode.so",
     ]
 
 

@@ -2,8 +2,8 @@
 
 The test conftest imports jax, so the run-time check goes to a fresh
 interpreter: it converts BC7 + mips -> DDS, BC1 -> DDS, BC3 + mips -> KTX,
-HDR BC6H + mips -> DDS, ETC2 RGB and RGBA8 + mips -> KTX and EAC R11G11
-SNorm + mips -> KTX on the CPU, reads each file back, decodes it, and lists
+HDR BC6H + mips -> DDS, ETC2 RGB and RGBA8 + mips -> KTX, EAC R11G11
+SNorm + mips -> KTX and ASTC 4x4 + mips -> KTX on the CPU, reads each file back, decodes it, and lists
 the loaded modules.  A
 static check scans every module of the port and chip_smoke.py for an
 import of ``cuttlefish_tpu`` (other than ``cuttlefish_tpu_torch``), jax or
@@ -25,8 +25,8 @@ import os, sys, tempfile
 import numpy as np
 import cuttlefish_tpu_torch as cp
 from cuttlefish_tpu_torch.decode import (
-    decode_bc1, decode_bc3, decode_bc6h_f32, decode_bc7, decode_eac_rg11, decode_etc2_rgba,
-    decode_etc_rgb,
+    decode_astc, decode_bc1, decode_bc3, decode_bc6h_f32, decode_bc7, decode_eac_rg11,
+    decode_etc2_rgba, decode_etc_rgb,
 )
 
 arr = np.random.default_rng(0).random((12, 20, 4)).astype(np.float32)
@@ -42,6 +42,7 @@ cases = [
     (cp.TextureFormat.ETC2_R8G8B8A8, U, arr, 9, "e2a.ktx", decode_etc2_rgba),
     (cp.TextureFormat.EAC_R11G11, cp.TextureType.SNorm, arr * 2 - 1, 9, "rg.ktx",
      lambda raw: decode_eac_rg11(raw, True)),
+    (cp.TextureFormat.ASTC_4x4, U, arr, 9, "a4.ktx", lambda raw: decode_astc(raw, 4, 4)),
 ]
 for fmt, typ, src, mips, name, dec in cases:
     tex = cp.Texture(cp.Dimension.Dim2D, 20, 12, mip_levels=mips, device="cpu")

@@ -1,5 +1,5 @@
-"""The port's BC7, BC6H and ETC/EAC tables and constant operands equal
-the reference's."""
+"""The port's BC7, BC6H, ETC/EAC and ASTC tables and constant operands
+equal the reference's."""
 
 import numpy as np
 import pytest
@@ -187,3 +187,139 @@ def test_etc_kernel_tables_equal_reference():
     assert proj == etc_pallas._planar_proj().astype(np.float32).reshape(-1).tolist()
     # Column 7 is each table's largest positive modifier, the kernel's max_pos.
     assert np.array_equal(ref._EAC_MODS_NP[:, 7], ref._EAC_MODS_NP[:, 4:].max(1))
+
+
+def _astc_src():
+    from pathlib import Path
+
+    return (Path(__file__).resolve().parent.parent / "cuttlefish_tpu_torch/csrc/astc_encode.cu").read_text()
+
+
+def test_astc_kernel_constant_tables_equal_reference():
+    """csrc/astc_encode.cu's __constant__ trit/quint slots are the ISE bit
+    layout of the reference (astc_ise.py:_TRIT_SLOTS, _QUINT_SLOTS), and
+    its descriptor field enums name the wrapper's fields in its order."""
+    from cuttlefish_tpu.kernels import astc_ise as ref
+    from cuttlefish_tpu_torch.kernels import astc_cuda
+
+    src = _astc_src()
+
+    def table(name):
+        body = src.split(f"__constant__ int {name}")[1].split("};")[0].split("= {", 1)[1]
+        return [int(v) for v in body.replace(",", " ").split()]
+
+    assert list(zip(table("c_trit_lo"), table("c_trit_w"))) == list(ref._TRIT_SLOTS)
+    assert list(zip(table("c_quint_lo"), table("c_quint_w"))) == list(ref._QUINT_SLOTS)
+
+    def enum(name, prefix):
+        body = src.split(f"enum {name} {{")[1].split("};")[0]
+        return [v.strip()[len(prefix):] for v in body.replace("\n", " ").split(",") if v.strip()]
+
+    assert enum("Hdr", "H_") == list(astc_cuda.HDR)
+    assert enum("LayF", "L_") == list(astc_cuda.LAY)
+
+
+_ASTC_DESC_CASES = [(4, 4, 4, True, True), (4, 4, 2, False, False), (6, 6, 3, True, False),
+                    (8, 8, 4, True, True), (10, 5, 1, False, True), (12, 12, 4, True, True)]
+
+
+@pytest.mark.parametrize("case", _ASTC_DESC_CASES, ids=lambda c: "{}x{}_q{}_g{:d}a{:d}".format(*c))
+def test_astc_descriptor_holds_reference_tables(case):
+    """The descriptor that the ASTC kernel loops over (astc_cuda.descriptor)
+    holds the JAX package's plan, its kernels' task lists (layout fields,
+    ISE ranges, block modes), the colour and weight LUTs, each decimated
+    grid's infill, pseudo-inverse (float32 bits) and footprint, the
+    partition patterns as texel bitmasks with their seeds, and the trit
+    and quint pack tables."""
+    from cuttlefish_tpu.kernels import astc as jastc
+    from cuttlefish_tpu.kernels import astc_ise as jise
+    from cuttlefish_tpu.kernels import astc_pallas as jp
+    from cuttlefish_tpu.kernels.astc_partition import partition_table, unique_partition_seeds
+    from cuttlefish_tpu_torch.kernels import astc, astc_cuda
+
+    bw, bh, q, gray, alpha = case
+    d = astc_cuda.descriptor(bw, bh, q, gray, alpha)
+    assert d.dtype == np.int32
+    H, L = astc_cuda.H, astc_cuda.L
+    t = bw * bh
+    plan = jastc.plan_for(q, bw, bh)
+    assert (d[H["T"]], d[H["BW"]], d[H["BH"]]) == (t, bw, bh)
+    assert d[H["ITERS"]] == plan["iters"] and d[H["ITERS12"]] == plan.get("iters12", plan["iters"])
+    assert d[H["P2ITERS"]] == plan.get("p2_iters", plan["iters"])
+    assert d[H["TOPK2"]] == max(1, plan["seeds2"]) and d[H["TOPK4"]] == max(1, plan["seeds4"])
+    assert np.float32(jastc.GRAY_SPREAD * 255.0).view(np.int32) == d[H["GRAY255"]]
+    kinds = {"b": 0, "t": 1, "q": 2}
+
+    def check_layout(off, lay):
+        r = d[off:off + len(astc_cuda.LAY)]
+        assert (r[L["NPARTS"]], r[L["CEM"]], r[L["GW"]], r[L["GH"]], r[L["G"]]) == (
+            lay.nparts, lay.cem, lay.gw, lay.gh, lay.gw * lay.gh)
+        assert (r[L["WLEVELS"]], r[L["CLEVELS"]], r[L["DUAL"]], r[L["WBITS"]], r[L["HEADER"]]) == (
+            lay.wlevels, lay.clevels, int(lay.dual), lay.wbits, lay.header)
+        assert r[L["MODE"]] == jastc.block_mode_field(lay.gw, lay.gh, lay.wlevels, lay.dual)
+        ck, cb = jise.range_info(lay.clevels, False)
+        wk, wb = jise.range_info(lay.wlevels, True)
+        assert (r[L["CKIND"]], r[L["CB"]], r[L["WKIND"]], r[L["WB"]]) == (kinds[ck], cb, kinds[wk], wb)
+        if lay.clevels != 256:
+            cq, cd = jastc._color_qlut(lay.clevels)
+            assert np.array_equal(d[r[L["OFF_CQ"]]:r[L["OFF_CQ"]] + 256], cq)
+            assert np.array_equal(d[r[L["OFF_CD"]]:r[L["OFF_CD"]] + 256], cd)
+        wl = lay.wlevels
+        assert np.array_equal(d[r[L["OFF_UNQ"]]:r[L["OFF_UNQ"]] + wl], jise.weight_unquant(wl))
+        up, dn = jastc._weight_neighbors(wl)
+        assert np.array_equal(d[r[L["OFF_UP"]]:r[L["OFF_UP"]] + wl], up)
+        assert np.array_equal(d[r[L["OFF_DN"]]:r[L["OFF_DN"]] + wl], dn)
+        wq, wu = jastc._weight_qlut(wl)
+        assert np.array_equal(d[r[L["OFF_WQ"]]:r[L["OFF_WQ"]] + 65], wq)
+        assert np.array_equal(d[r[L["OFF_WU"]]:r[L["OFF_WU"]] + 65], wu)
+        grid = jp._prepared_grid(bw, bh, lay.gw, lay.gh)
+        assert (r[L["OFF_GRID"]] < 0) == (grid is None)
+        if grid is not None:
+            g, off = lay.gw * lay.gh, r[L["OFF_GRID"]]
+            a, pinv, foot = grid
+            assert np.array_equal(d[off:off + t * g], a.reshape(-1).astype(np.int32))
+            assert np.array_equal(d[off + t * g:off + 2 * t * g], pinv.reshape(-1).view(np.int32))
+            assert np.array_equal(d[off + 2 * t * g:off + 3 * t * g], foot.reshape(-1).astype(np.int32))
+
+    base, gray_t = jp._tasks_a(bw, bh, q, gray, alpha)
+    for key_n, key_off, tasks in (("NA", "OFF_A", base), ("NAG", "OFF_AG", gray_t)):
+        assert d[H[key_n]] == len(tasks)
+        for k, (lay, ccs) in enumerate(tasks):
+            off, c = d[d[H[key_off]] + 2 * k], d[d[H[key_off]] + 2 * k + 1]
+            assert c == (-1 if ccs is None else ccs)
+            check_layout(off, lay)
+    menu = jastc.layout_menu(bw, bh)
+    for key_n, key_off, lays in (("NB", "OFF_B", jp._layouts_b(bw, bh, q, alpha)),
+                                 ("NC", "OFF_C", menu[(8, 3)][:1]), ("ND", "OFF_D", jp._layouts_d(bw, bh))):
+        assert d[H[key_n]] == len(lays)
+        for k, lay in enumerate(lays):
+            check_layout(d[d[H[key_off]] + k], lay)
+    nw = (t + 31) // 32
+    assert d[H["NW"]] == nw
+
+    def bits(off, rows, parts):
+        m = d[off:off + rows * parts * nw].view(np.uint32).reshape(rows, parts, nw)
+        tt = np.arange(t)
+        return (m[:, :, tt // 32] >> (tt % 32).astype(np.uint32)) & 1  # [rows, parts, T]
+
+    st = astc.stages(bw, bh, q, gray, alpha)
+    if "b" in st:
+        us = unique_partition_seeds(bw, bh, 2)
+        assert d[H["U2"]] == len(us)
+        assert np.array_equal(d[d[H["OFF_S2"]]:d[H["OFF_S2"]] + len(us)], us)
+        assert np.array_equal(bits(d[H["OFF_P2"]], len(us), 1)[:, 0], partition_table(bw, bh, 2)[us] == 1)
+    if "c" in st:
+        us = unique_partition_seeds(bw, bh, 3)
+        assert d[H["U3"]] == len(us)
+        assert np.array_equal(d[d[H["OFF_S3"]]:d[H["OFF_S3"]] + len(us)], us)
+        m = bits(d[H["OFF_P3"]], len(us), 2)
+        tab = partition_table(bw, bh, 3)[us]
+        assert np.array_equal(m[:, 0], tab == 1) and np.array_equal(m[:, 1], tab == 2)
+    if "d" in st:
+        m = bits(d[H["OFF_P4"]], 1024, 3)
+        tab = partition_table(bw, bh, 4)
+        for j in range(3):
+            assert np.array_equal(m[:, j], tab == j + 1)
+    trit, quint = jise.trit_pack_table().reshape(-1), jise.quint_pack_table().reshape(-1)
+    assert np.array_equal(d[d[H["OFF_TRIT"]]:d[H["OFF_TRIT"]] + trit.size], trit)
+    assert np.array_equal(d[d[H["OFF_QUINT"]]:d[H["OFF_QUINT"]] + quint.size], quint)

@@ -145,7 +145,9 @@ def test_unported_formats_raise_and_invalid_combos_fail():
     tex = cp.Texture(cp.Dimension.Dim2D, 8, 8, device="cpu")
     tex.set_image(cp.Image.from_array(np.full((8, 8, 4), 0.5, np.float32), cp.ImageFormat.RGBAF))
     with pytest.raises(NotImplementedError, match="later PR"):
-        tex.convert(cp.TextureFormat.ASTC_4x4, cp.TextureType.UNorm)
+        tex.convert(cp.TextureFormat.PVRTC1_RGBA_4BPP, cp.TextureType.UNorm)
+    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+        tex.convert(cp.TextureFormat.ASTC_4x4, cp.TextureType.UFloat)
     assert tex.format is cp.TextureFormat.Unknown
     assert tex.convert(cp.TextureFormat.BC7, cp.TextureType.SNorm) is False
     assert tex.convert(cp.TextureFormat.BC6H, cp.TextureType.UNorm) is False
