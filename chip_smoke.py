@@ -14,7 +14,9 @@ exits non-zero:
    and power limit (nvidia-smi), torch and CUDA versions; TF32 off.
 2. build: one nvcc per csrc/*.cu for sm_90a, all started together, and the
    native codecs with g++; prints the seconds and what ptxas reports
-   (registers, spills) for every kernel entry.
+   (registers, spills) for every kernel entry, a line per ASTC entry
+   (registers, stack, spills, shared memory) and the dynamic shared memory
+   and blocks a warp of ASTC entries C and D.
 3. kernel vs plain: the 262,144 blocks of the surface through each kernel
    and through its plain PyTorch version on the card: >= 99 % identical
    blocks, |dPSNR| <= 0.05 dB on a decoded sample of 4,096 blocks.  BC7 q0,
@@ -54,15 +56,16 @@ exits non-zero:
    the 262,144 blocks (BC7 q3-4 and BC6H at q4, the main paths' quality,
    and at q3 and q2; ETC RGB and RGBA8 at q2 and q4, EAC at q2; ASTC
    entries A and B at 4x4 q2 on the colour surface and at 8x8 q2, C and D
-   at 4x4 q4 on the near-gray alpha surface); each main-path convert (host
-   clock, synchronised) median of 5 with its phases.
+   at 4x4 q4 and 8x8 q4 on the near-gray alpha surface); each main-path
+   convert (host clock, synchronised) median of 5, and each of its phases'
+   median over the same 5.
 
 Then one JSON line of kernels (launches from the paths of phase 4; bound_ms
 from this run's inputs: the larger of the bytes the function must move over
-3.35 TB/s and its operations over 67 TFLOP/s: for BC the plain version's
-elementwise operations, counted per block by a dispatch hook, for ETC/EAC
-the float operations the function needs, etc_rgb_ops and eac_ops, for
-ASTC those of its device code on a sample of the blocks, astc_op_counter),
+3.35 TB/s and its operations over 67 TFLOP/s: for ETC/EAC the float
+operations the function needs, etc_rgb_ops and eac_ops, for BC and ASTC
+those of its device code on a sample of the blocks, bc_op_counter and
+astc_op_counter),
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -200,42 +203,6 @@ def event_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def ops_per_block(torch, fn, blocks) -> float:
-    """Elementwise operations per block of a plain version: every aten op
-    other than views, copies and allocation counts the larger of its input
-    and output element counts (a reduction over 16 texels counts 16)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    skip = {
-        "view", "_unsafe_view", "select", "slice", "permute", "t", "transpose",
-        "expand", "unsqueeze", "squeeze", "alias", "detach", "clone", "copy_",
-        "contiguous", "empty", "empty_like", "zeros", "zeros_like", "ones",
-        "ones_like", "full", "full_like", "lift_fresh", "stack", "cat",
-        "scalar_tensor", "_local_scalar_dense", "new_empty", "empty_strided",
-        "_to_copy", "unbind",
-    }
-
-    def numel(x):
-        if isinstance(x, torch.Tensor):
-            return x.numel()
-        if isinstance(x, (list, tuple)):
-            return max([numel(v) for v in x] or [0])
-        return 0
-
-    class Counter(TorchDispatchMode):
-        ops = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if func.overloadpacket.__name__.rstrip("_") not in skip:
-                Counter.ops += max(numel(out), max([numel(a) for a in args] or [0]))
-            return out
-
-    with Counter():
-        fn(blocks)
-    return Counter.ops / blocks.shape[0]
-
-
 # Float operations per block that the ETC/EAC functions need, counted from
 # the loops of their hand kernel (csrc/etc_encode.cu) with every value that
 # is fixed for one palette entry (a clamped base + modifier, a planar
@@ -295,25 +262,26 @@ def eac_ops(quality: int, r11: bool) -> int:
     return (55 if r11 else 37) + search + pal + 16 * 23
 
 
-# Float operations of the ASTC entries: a g++ build of csrc/astc_encode.cu
-# with a counting float type runs the device code on a sample of the run's
-# blocks and counts what it computes there.  Every float operation counts
-# one (a comparison, min, max, rint, sqrt and abs too), except a product
-# with an exact 0 or 1 operand and a sum with an exact 0 operand: those are
-# the kernel's partition-mask products and the sums of their zeros, which
-# the function does not need.  Integer work and the packing of the words
-# are not counted; the loads count 3 per input value (a clamp and a scale).
-ASTC_COUNT_SRC = r"""
+# The counting float type and the shim that lets g++ build the device code
+# of a csrc/*.cu (the kernels and launchers sit under __CUDACC__).
+COUNT_PRELUDE = r"""
+#include <algorithm>
 #include <math.h>
 #include <stdint.h>
+#include <stdlib.h>
 #include <string.h>
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
 #define __constant__
 #define __launch_bounds__(x)
 #define __restrict__
+using std::abs;
+using std::max;
+using std::min;
 static inline int __popc(unsigned x) { return __builtin_popcount(x); }
+static inline float __int_as_float(int v) { float f; memcpy(&f, &v, 4); return f; }
 static unsigned long long g_ops = 0;
 struct CF {
   float v;
@@ -321,39 +289,73 @@ struct CF {
   constexpr CF(float x) : v(x) {}
   constexpr CF(double x) : v((float)x) {}
   constexpr CF(int x) : v((float)x) {}
+  constexpr CF(unsigned x) : v((float)x) {}
   explicit operator int() const { return (int)v; }
+  explicit operator unsigned() const { return (unsigned)v; }
+  explicit operator double() const { return v; }
 };
 static inline bool unit(float a) { return a == 0.0f || a == 1.0f; }
 static inline CF operator+(CF a, CF b) { g_ops += a.v != 0.0f && b.v != 0.0f; return CF(a.v + b.v); }
 static inline CF operator-(CF a, CF b) { g_ops += b.v != 0.0f; return CF(a.v - b.v); }
+static inline CF operator-(CF a) { ++g_ops; return CF(-a.v); }
 static inline CF operator*(CF a, CF b) { g_ops += !unit(a.v) && !unit(b.v); return CF(a.v * b.v); }
 static inline CF operator/(CF a, CF b) { ++g_ops; return CF(a.v / b.v); }
+static inline CF& operator+=(CF& a, CF b) { return a = a + b; }
+static inline CF& operator-=(CF& a, CF b) { return a = a - b; }
+static inline CF& operator*=(CF& a, CF b) { return a = a * b; }
+static inline CF& operator/=(CF& a, CF b) { return a = a / b; }
 static inline bool operator<(CF a, CF b) { ++g_ops; return a.v < b.v; }
 static inline bool operator>(CF a, CF b) { ++g_ops; return a.v > b.v; }
+static inline bool operator<=(CF a, CF b) { ++g_ops; return a.v <= b.v; }
+static inline bool operator>=(CF a, CF b) { ++g_ops; return a.v >= b.v; }
+static inline bool operator==(CF a, CF b) { ++g_ops; return a.v == b.v; }
+static inline bool operator!=(CF a, CF b) { ++g_ops; return a.v != b.v; }
 static inline CF fminf(CF a, CF b) { ++g_ops; return CF(fminf(a.v, b.v)); }
 static inline CF fmaxf(CF a, CF b) { ++g_ops; return CF(fmaxf(a.v, b.v)); }
 static inline CF rintf(CF a) { ++g_ops; return CF(rintf(a.v)); }
+static inline CF floorf(CF a) { ++g_ops; return CF(floorf(a.v)); }
+static inline CF ceilf(CF a) { ++g_ops; return CF(ceilf(a.v)); }
 static inline CF sqrtf(CF a) { ++g_ops; return CF(sqrtf(a.v)); }
 static inline CF fabsf(CF a) { ++g_ops; return CF(fabsf(a.v)); }
+"""
+
+# Float operations of the hand kernels, counted by a g++ build of their
+# device code with the counting float type above on a sample of the run's
+# blocks.  Every float operation counts one (a comparison, min, max, rint,
+# floor, sqrt, abs and a negation too), except a product with an exact 0 or
+# 1 operand and a sum with an exact 0 operand: those are the kernels'
+# mask products and the sums of their zeros, which the function does not
+# need.  Integer work and the packing of the words are not counted; loads
+# count what the kernel computes on them (ASTC and BC7: a clamp and a scale
+# per value).
+ASTC_COUNT_SRC = COUNT_PRELUDE + r"""
 #define float CF
 #include "astc_encode.cu"
 #undef float
 extern "C" unsigned long long astc_count(int stage, const float* blocks, const int* desc, int n,
-                                         uint32_t* words) {
+                                         uint32_t* words, float* err) {
   g_ops = 0;
-  const int T = desc[astcx::H_T];
-  for (int i = 0; i < n; ++i) {
-    CF e;
-    astcx::encode_stage(stage, desc, (const CF*)(blocks + (size_t)i * T * 4), words + 4 * i, e);
-  }
+  astcx::encode_stage(stage, desc, (const CF*)blocks, n, words, (CF*)err);
   return g_ops;
+}
+// The warp's top-k of estimates v[0..U) (C's and D's screens) beside the
+// sequential scan's: ids_warp, ids_seq get k pattern indices (-1: none).
+extern "C" void astc_topk(const float* v, int U, int k, int* ids_warp, int* ids_seq) {
+  uint64_t keys[32 * astcx::kMaxTopK];
+  int cnt[32];
+  CF vs[astcx::kMaxTopK];
+  int c = 0;
+  for (int i = 0; i < k; ++i) ids_warp[i] = ids_seq[i] = -1;
+  astcx::warp_topk([&](int u) { return CF(v[u]); }, U, k, keys, cnt, ids_warp);
+  for (int u = 0; u < U; ++u) astcx::topk_insert(vs, ids_seq, c, k, CF(v[u]), u);
 }
 """
 
 
 def astc_op_counter(csrc: str, tmp: str):
     """-> count(stage, host blocks [n,T,4] f32, bw, bh, q, gray, alpha):
-    (float operations per block, the device code's words [n,4])."""
+    (float operations per block, the device code's words [n,4], its errors
+    [n]); count.lib is the library (astc_topk)."""
     import ctypes
 
     from cuttlefish_tpu_torch.kernels import astc_cuda
@@ -364,17 +366,202 @@ def astc_op_counter(csrc: str, tmp: str):
     subprocess.run(["g++", "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
                     "-I", csrc, "-o", lib_path, src], check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(lib_path)
-    lib.astc_count.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int,
-                                                                       ctypes.c_void_p]
+    lib.astc_count.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [
+        ctypes.c_void_p] * 2
     lib.astc_count.restype = ctypes.c_ulonglong
+    lib.astc_topk.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2
 
     def count(stage, blocks, bw, bh, q, gray, alpha):
         b = np.ascontiguousarray(blocks, np.float32)
         desc = np.ascontiguousarray(astc_cuda.descriptor(bw, bh, q, gray, alpha))
         words = np.zeros((b.shape[0], 4), np.uint32)
+        err = np.zeros(b.shape[0], np.float32)
         ops = lib.astc_count("abcd".index(stage), b.ctypes.data, desc.ctypes.data, b.shape[0],
-                             words.ctypes.data)
-        return ops / b.shape[0], words
+                             words.ctypes.data, err.ctypes.data)
+        return ops / max(b.shape[0], 1), words, err
+
+    count.lib = lib
+    return count
+
+
+# The BC kernels' device code under the counting float, one library per
+# source; each count() does what its __global__ kernel does around the
+# device functions (loads, tables).  BC1/BC2/BC3 count the opaque q2
+# variants of the main paths, BC4 unsigned and BC5 signed at q2.
+BC_COUNT_SRC = {
+    "bc7_encode": r"""
+extern "C" void set_tables(const uint16_t* m2, const int* a2, const uint16_t*, const int*) {
+  memcpy(bc7::c_part2, m2, sizeof bc7::c_part2);
+  memcpy(bc7::c_anchor2, a2, sizeof bc7::c_anchor2);
+}
+extern "C" unsigned long long count(const float* blocks, int n, int q, const float* chw,
+                                    uint32_t* out) {
+  g_ops = 0;
+  const CF w[4] = {chw[0], chw[1], chw[2], chw[3]};
+  for (int i = 0; i < n; ++i) {
+    CF px[4][16];
+    for (int t = 0; t < 16; ++t)
+      for (int c = 0; c < 4; ++c)
+        px[c][t] = bc7::clampf(CF(blocks[(i * 16 + t) * 4 + c]), 0.0f, 1.0f) * 255.0f;
+    uint32_t words[4];
+    if (q == 0) bc7::encode_block<0>(px, w, words);
+    else if (q == 1) bc7::encode_block<1>(px, w, words);
+    else bc7::encode_block<2>(px, w, words);
+    memcpy(out + 4 * i, words, 16);
+  }
+  return g_ops;
+}
+""",
+    "bc7_hq_encode": r"""
+extern "C" void set_tables(const uint16_t* m2, const int* a2, const uint16_t* m3, const int* a3) {
+  memcpy(bc7::c_part2, m2, sizeof bc7::c_part2);
+  memcpy(bc7::c_anchor2, a2, sizeof bc7::c_anchor2);
+  memcpy(bc7::c_part3, m3, sizeof bc7::c_part3);
+  memcpy(bc7::c_anchor3, a3, sizeof bc7::c_anchor3);
+}
+extern "C" unsigned long long count(const float* blocks, int n, int q, const float* chw,
+                                    uint32_t* out) {
+  g_ops = 0;
+  const CF w[4] = {chw[0], chw[1], chw[2], chw[3]};
+  for (int i = 0; i < n; ++i) {
+    CF px[4][16];
+    for (int t = 0; t < 16; ++t)
+      for (int c = 0; c < 4; ++c)
+        px[c][t] = bc7::clampf(CF(blocks[(i * 16 + t) * 4 + c]), 0.0f, 1.0f) * 255.0f;
+    uint32_t words[4];
+    if (q == 3) bc7::encode_block_hq<3>(px, w, words);
+    else bc7::encode_block_hq<4>(px, w, words);
+    memcpy(out + 4 * i, words, 16);
+  }
+  return g_ops;
+}
+""",
+    "bc_encode": r"""
+// kind 1..5 = BC1 (opaque, black allowed), BC2, BC3, BC4 unsigned, BC5
+// signed, at quality 2; blocks [n,16,4] (BC4: [n,16]).
+extern "C" unsigned long long count(const float* blocks, int n, int kind, const float* chw,
+                                    uint32_t* out) {
+  g_ops = 0;
+  const CF w[3] = {chw[0], chw[1], chw[2]};
+  for (int i = 0; i < n; ++i) {
+    CF px[3][16], a[16], g[16];
+    for (int t = 0; t < 16; ++t) {
+      const float* v = kind == 4 ? blocks + i * 16 + t : blocks + (i * 16 + t) * 4;
+      for (int c = 0; c < 3; ++c) px[c][t] = CF(kind == 4 ? 0.0f : v[c]);
+      a[t] = CF(kind == 4 ? v[0] : v[3]);
+      g[t] = CF(kind == 4 ? 0.0f : v[1]);
+    }
+    uint32_t o[4] = {0u, 0u, 0u, 0u}, x[2], y[2];
+    if (kind == 1) {
+      bcx::bc1_block<2, false, true>(px, 0xFFFFu, w, x);
+      o[0] = x[0], o[1] = x[1];
+    } else if (kind == 2 || kind == 3) {
+      if (kind == 2) bcx::bc2_alpha(a, x);
+      else bcx::bc4_block<2, false>(a, x);
+      bcx::bc1_block<2, false, false>(px, 0xFFFFu, w, y);
+      o[0] = x[0], o[1] = x[1], o[2] = y[0], o[3] = y[1];
+    } else if (kind == 4) {
+      bcx::bc4_block<2, false>(a, x);
+      o[0] = x[0], o[1] = x[1];
+    } else {
+      CF r[16];
+      for (int t = 0; t < 16; ++t) r[t] = px[0][t];
+      bcx::bc4_block<2, true>(r, x);
+      bcx::bc4_block<2, true>(g, y);
+      o[0] = x[0], o[1] = x[1], o[2] = y[0], o[3] = y[1];
+    }
+    memcpy(out + 4 * i, o, 16);
+  }
+  return g_ops;
+}
+""",
+    "bc6h_encode": r"""
+extern "C" void set_tables(const uint16_t* m, const int* a, const int* modes, const int* layout) {
+  memcpy(bc6h::c_part32, m, sizeof bc6h::c_part32);
+  memcpy(bc6h::c_anchor32, a, sizeof bc6h::c_anchor32);
+  memcpy(bc6h::c_modes, modes, sizeof bc6h::c_modes);
+  memcpy(bc6h::c_layout, layout, sizeof bc6h::c_layout);
+}
+// proxy: [n,48] as bc6h_cuda hands it to the kernel; unsigned, value metric.
+extern "C" unsigned long long count(const float* proxy, int n, int q, const float*,
+                                    uint32_t* out) {
+  g_ops = 0;
+  for (int i = 0; i < n; ++i) {
+    bc6h::Texels x;
+    bc6h::load_texels((const CF*)(proxy + (size_t)i * 48), false, x);
+    uint32_t words[4];
+    bc6h::encode_block<false>(x, q, false, words);
+    memcpy(out + 4 * i, words, 16);
+  }
+  return g_ops;
+}
+""",
+}
+
+
+def bc_op_counter(csrc: str, tmp: str):
+    """-> count(row, host input, **): (float operations per block, the
+    device code's words [n, 4]) for the rows bc7_q2, bc7_q3, bc7_q4, bc1_q2,
+    bc2_q2, bc3_q2, bc4_q2, bc5s_q2, bc6h_q2, bc6h_q4 (BC4: [n,16] values;
+    BC6H: [n,16,3] RGB through the f16 wire; the others [n,16,4] RGBA)."""
+    import ctypes
+
+    import torch
+
+    from cuttlefish_tpu_torch.kernels import bc, bc6h, bc7
+    from cuttlefish_tpu_torch.kernels.bc7_tables import ANCHOR2, PARTITION2
+
+    procs = {}
+    for name, glue in BC_COUNT_SRC.items():
+        src, so = os.path.join(tmp, f"{name}_count.cpp"), os.path.join(tmp, f"lib{name}_count.so")
+        with open(src, "w") as f:
+            f.write(COUNT_PRELUDE + '#define float CF\n#include "' + name + '.cu"\n#undef float\n'
+                    + glue)
+        procs[name] = (subprocess.Popen(
+            ["g++", "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC", "-I", csrc,
+             "-o", so, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"g++ {name}_count.cpp failed:\n{err[-3000:]}")
+        lib = ctypes.CDLL(so)
+        lib.count.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                              ctypes.c_void_p]
+        lib.count.restype = ctypes.c_ulonglong
+        if name != "bc_encode":
+            lib.set_tables.argtypes = [ctypes.c_void_p] * 4
+            lib.set_tables.restype = None
+        libs[name] = lib
+    consts = bc7._constants(False, "cpu")
+    tabs = [np.ascontiguousarray(consts.masks, np.uint16), np.ascontiguousarray(consts.anchors,
+            np.int32), np.ascontiguousarray(consts.masks3, np.uint16),
+            np.ascontiguousarray(consts.anchors3, np.int32)]
+    for name in ("bc7_encode", "bc7_hq_encode"):
+        libs[name].set_tables(*(t.ctypes.data for t in tabs))
+    modes, layout = bc6h.layout_table()
+    tabs6 = [np.ascontiguousarray(bc7._texel_bits(PARTITION2[:32]), np.uint16),
+             np.ascontiguousarray(ANCHOR2[:32], np.int32),
+             np.ascontiguousarray(modes, np.int32), np.ascontiguousarray(layout, np.int32)]
+    libs["bc6h_encode"].set_tables(*(t.ctypes.data for t in tabs6))
+    chw7 = np.ascontiguousarray(consts.chw, np.float32)
+    chw1 = np.ascontiguousarray(bc.channel_weights(None), np.float32)
+    rows = {"bc7_q2": ("bc7_encode", 2, chw7), "bc7_q3": ("bc7_hq_encode", 3, chw7),
+            "bc7_q4": ("bc7_hq_encode", 4, chw7), "bc1_q2": ("bc_encode", 1, chw1),
+            "bc2_q2": ("bc_encode", 2, chw1), "bc3_q2": ("bc_encode", 3, chw1),
+            "bc4_q2": ("bc_encode", 4, chw1), "bc5s_q2": ("bc_encode", 5, chw1),
+            "bc6h_q2": ("bc6h_encode", 2, chw1), "bc6h_q4": ("bc6h_encode", 4, chw1)}
+
+    def count(row, blocks):
+        name, arg, chw = rows[row]
+        x = np.ascontiguousarray(blocks, np.float32)
+        if name == "bc6h_encode":
+            x = np.ascontiguousarray(bc6h._to_proxy(torch.from_numpy(x), False).numpy(),
+                                     np.float32)
+        words = np.zeros((x.shape[0], 4), np.uint32)
+        ops = libs[name].count(x.ctypes.data, x.shape[0], arg, chw.ctypes.data, words.ctypes.data)
+        nw = 2 if row in ("bc1_q2", "bc4_q2") else 4
+        return ops / max(x.shape[0], 1), words[:, :nw]
 
     return count
 
@@ -382,6 +569,24 @@ def astc_op_counter(csrc: str, tmp: str):
 def ptxas_lines(log_text: str) -> list[str]:
     keep = ("Compiling entry", "registers", "spill")
     return [ln.strip() for ln in log_text.splitlines() if any(k in ln for k in keep)]
+
+
+def ptxas_entries(log_text: str) -> list[str]:
+    """One line per kernel entry of an nvcc -Xptxas -v log: its registers,
+    stack frame, spills and static shared memory."""
+    out, name, frame = [], None, None
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            name, frame = ln.split("'")[1], None
+        elif name and frame is None and "bytes stack frame" in ln:
+            frame = ln.split(":")[-1].strip()
+        elif name and "Used" in ln and "registers" in ln:
+            used = ln.split("Used", 1)[1].strip()
+            smem = [p.strip() for p in used.split(",") if "smem" in p]
+            out.append(f"{name}: {used.split(',')[0]}; {frame}; static shared memory "
+                       f"{smem[0] if smem else '0 bytes smem'}")
+            name = None
+    return out
 
 
 def main() -> int:
@@ -431,6 +636,14 @@ def main() -> int:
             f"{info['seconds']:.2f} s)")
         for line in ptxas_lines(info["log"]):
             log("build", f"ptxas {name}: {line}")
+    for line in ptxas_entries(_build.build_info["astc_encode"]["log"]):
+        log("build", f"ptxas astc_encode entry {line}")
+    for bw, bh in ((4, 4), (8, 8), (12, 12)):
+        for stage in ("c", "d"):
+            plan = astc_cuda.warp_plan(stage, bw, bh, 4, True, True)
+            log("build", f"astc_{stage} {bw}x{bh} q4 gray alpha: {plan['group']} blocks a warp, "
+                f"4 warps a CTA, {plan['smem_bytes']} bytes of dynamic shared memory a CTA "
+                f"({plan['mask_bytes']} of pattern masks)")
     log("build", f"nvcc {' '.join(_build.NVCC_FLAGS)}: {build_s:.2f} s for "
         f"{[p.name for p in _build._sources()]}, one nvcc each, in parallel")
     t0 = time.perf_counter()
@@ -1020,6 +1233,14 @@ def main() -> int:
     out_bytes = {"bc1": 8, "bc4": 8, "etc_rgb": 8, "eac_alpha": 8, "eac_r11": 8}
     rows = []
 
+    # BC: the float operations of the device code (bc_op_counter) on 1,024
+    # of the run's blocks, whose words must be the plain version's there.
+    bc_samp = torch.arange(0, n, n // 1024, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        count_bc = bc_op_counter(str(_build.CSRC), tmp)
+        log("times", f"BC counting builds (g++) in {time.perf_counter() - t0:.1f} s")
+
     def time_case(case, key, in_bytes):
         """(kernel ms, plain ms, bound ms, bound_by) of one case."""
         kernel, plain, kind, *_ = cases[case]
@@ -1029,7 +1250,11 @@ def main() -> int:
         if case in needed_ops:
             ops, counted = needed_ops[case], "needed"
         else:
-            ops, counted = ops_per_block(torch, plain, x[:1024].cpu()), "plain version's"
+            xs = x[bc_samp].contiguous()
+            ops, words = count_bc(case, xs.cpu().numpy())
+            check(np.array_equal(words, plain(xs).cpu().numpy()),
+                  f"{case}: the counting build's words differ from the plain version's")
+            counted = f"device code's, counted on {bc_samp.numel()} blocks"
         bytes_ = n * (in_bytes + out_bytes.get(key, 16))
         t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, n * ops / F32_OPS_PER_S * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
@@ -1059,8 +1284,8 @@ def main() -> int:
     astc_rows = [
         ("astc_a_encode", "a", ":792", [(4, 4, 2, "rgba"), (8, 8, 2, "rgba")]),
         ("astc_b_encode", "b", ":1005", [(4, 4, 2, "rgba"), (8, 8, 2, "rgba")]),
-        ("astc_c_encode", "c", ":1151", [(4, 4, 4, "grayalpha")]),
-        ("astc_d_encode", "d", ":1269", [(4, 4, 4, "grayalpha")]),
+        ("astc_c_encode", "c", ":1151", [(4, 4, 4, "grayalpha"), (8, 8, 4, "grayalpha")]),
+        ("astc_d_encode", "d", ":1269", [(4, 4, 4, "grayalpha"), (8, 8, 4, "grayalpha")]),
     ]
     with tempfile.TemporaryDirectory() as tmp:
         count_ops = astc_op_counter(str(_build.CSRC), tmp)
@@ -1074,7 +1299,7 @@ def main() -> int:
                     torch, lambda: astc.stage_plain(stage, x, bw, bh, q, gray, alpha), 7)
                 samp = np.arange(0, nb, max(1, nb // (1024 if bw * bh == 16 else 256)))
                 t0 = time.perf_counter()
-                ops, words = count_ops(stage, hw[samp], bw, bh, q, gray, alpha)
+                ops, words, _ = count_ops(stage, hw[samp], bw, bh, q, gray, alpha)
                 count_s = time.perf_counter() - t0
                 xs = x[torch.from_numpy(samp).to(dev)].contiguous()
                 kw = astc_cuda.stage_cuda(stage, xs, bw, bh, q, gray, alpha)[0]
@@ -1100,34 +1325,29 @@ def main() -> int:
                         "library_ms": None,
                     })
 
-    for pname, (fmt, typ, quality, mips, nlayers, ext, img, kname, timed) in paths.items():
-        if not timed:
-            continue
-        secs = []
+    def time_convert(pname, make, fmt, typ, quality):
+        secs, phases = [], []
         for _ in range(5):
-            t = make_texture(img, mips, nlayers)
+            t = make()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             check(t.convert(fmt, typ, quality), f"{pname}: timed convert failed")
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
-            phases = t.last_convert_stats["phases"]
+            phases.append(t.last_convert_stats["phases"])
+        median = {k: round(statistics.median(p.get(k, 0.0) for p in phases), 6)
+                  for k in phases[-1]}
         log("times", f"{card}: convert {pname} median of 5 {statistics.median(secs):.4f} s "
-            f"{[round(s, 4) for s in secs]}; last phases {json.dumps(phases)}")
+            f"{[round(s, 4) for s in secs]}; phases, each its median of the 5 "
+            f"{json.dumps(median)}")
+
+    for pname, (fmt, typ, quality, mips, nlayers, ext, img, kname, timed) in paths.items():
+        if timed:
+            time_convert(pname, lambda: make_texture(img, mips, nlayers), fmt, typ, quality)
     for pname, (fmt, quality, img, mips, cube, timed, _) in astc_paths.items():
-        if not timed:
-            continue
-        secs = []
-        for _ in range(5):
-            t = make_astc_texture(img, mips, cube)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            check(t.convert(fmt, TT.UNorm, quality), f"{pname}: timed convert failed")
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            phases = t.last_convert_stats["phases"]
-        log("times", f"{card}: convert {pname} median of 5 {statistics.median(secs):.4f} s "
-            f"{[round(s, 4) for s in secs]}; last phases {json.dumps(phases)}")
+        if timed:
+            time_convert(pname, lambda: make_astc_texture(img, mips, cube), fmt, TT.UNorm,
+                         quality)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

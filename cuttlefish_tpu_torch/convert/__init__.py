@@ -98,5 +98,6 @@ def create_converter(
 
         return astc.create_astc_converter(fmt, type_, device)
     raise NotImplementedError(
-        f"{fmt.name} is not in the PyTorch port yet: ported in a later PR"
+        f"{fmt.name} is not in the PyTorch port yet: ported in a later PR "
+        "(ROADMAP queue 1, item 12)"
     )

@@ -13,16 +13,33 @@
 // algorithms is cuttlefish_tpu_torch/kernels/astc.py; the two are compared
 // on the card.
 //
-// Design: one thread per ASTC block, 64 threads per CTA.  Pallas unrolled a
-// Python loop over static layouts; here each entry loops over a descriptor
-// table built on the host (astc_cuda.py:descriptor): layout records with
-// their ISE ranges, the colour/weight LUTs, trit/quint pack tables, each
-// decimated grid's infill, pseudo-inverse and footprint, and the partition
-// patterns as texel bitmasks.  The TPU's one-hot matmul "gathers" are table
-// loads; the partition screens are masked sums over the bitmask rows, the
-// same rows for every thread of a warp at the same time.  The texels
-// (4 x 144 floats at 12x12) and the per-texel weights live in the thread's
-// local memory: a warp per block and shared-memory staging are later work.
+// Design.  Pallas unrolled a Python loop over static layouts; here each
+// entry loops over a descriptor table built on the host
+// (astc_cuda.py:descriptor): layout records with their ISE ranges, the
+// colour/weight LUTs, trit/quint pack tables, each decimated grid's
+// infill, pseudo-inverse and footprint, and the partition patterns as
+// texel bitmasks.  The TPU's one-hot matmul "gathers" are table loads; a
+// fit reads its pattern's masks into a 2-bit partition id per texel, held
+// in registers.  Every per-block array is sized by the block's texel class
+// (MT = 16 for 4x4, 64 up to 8x8, 144 up to 12x12), one template instance
+// per class, with per-texel weights and endpoints as bytes.
+//
+// Entries A and B: one thread per ASTC block, 64 threads per CTA, the
+// block's texels in the thread's local memory; B's screen uses the warp
+// entries' masked sums (lane_sums_n) on one pattern at a time.
+//
+// Entries C and D, whose pattern screens took most of their time: a warp
+// per group of G blocks, 4 warps per CTA.  The entry's pattern masks are
+// staged once per CTA in dynamic shared memory (D: 12 KB at 4x4, 60 KB at
+// 12x12), each block's texels once per warp as [4][T] floats.  For each
+// block the 32 lanes share its patterns (lane j takes j, j + 32, ...),
+// reading each texel as a shared-memory broadcast for all of a pattern's
+// masks at once, and keep their own top-k; five levels of pairwise merges
+// by (estimate, pattern) give the list of the sequential scan.  The rerank
+// and final fits of the G blocks then run a fit per lane, and a lane per
+// block takes the winner in candidate order.  G fills the lanes in the
+// final fits: 10 blocks for C and 16 for D at 4x4 q4.  In a CPU build the
+// 32 lanes of each phase run one after another (FOR_LANES).
 //
 // What bounds it: operations.  A block reads 64-576 bytes and writes 20,
 // but a 4x4 block at quality 2 runs some twenty layout fits of several
@@ -45,17 +62,36 @@
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+
+#include <mutex>
 #endif
 #include <math.h>
 #include <stdint.h>
+#include <stdlib.h>
 #include <string.h>
 
 namespace astcx {
 
-constexpr int kThreads = 64;
-constexpr int kMaxT = 144;  // 12x12
-constexpr int kMaxG = 64;   // weights of a grid (both planes of a dual one)
+constexpr int kThreads = 64;  // entries A and B: threads per CTA
+constexpr int kMaxT = 144;    // 12x12
 constexpr int kMaxTopK = 16;
+
+// The texel classes: per-block arrays are sized for 16 (4x4), 64 (up to
+// 8x8) or kMaxT texels.  by_texel_class(T, f) calls f with the tag of T's
+// class, so f instantiates its template at TexelClass<MT>::value.
+template <int MT>
+struct TexelClass {
+  static constexpr int value = MT;
+};
+template <class F>
+__host__ inline auto by_texel_class(int T, F f) {
+  if (T <= 16) return f(TexelClass<16>());
+  if (T <= 64) return f(TexelClass<64>());
+  return f(TexelClass<kMaxT>());
+}
+
+// Weights of a grid of texel class MT (both planes of a dual one).
+__host__ __device__ constexpr int max_grid(int MT) { return MT >= 32 ? 64 : 2 * MT; }
 constexpr float kInf = INFINITY;
 constexpr float kThird = (float)(1.0f / 3.0f);
 
@@ -138,14 +174,57 @@ __device__ inline Lay load_lay(const int* d, int off) {
   return L;
 }
 
-// The block: texels clip(x, 0, 1) * 255, channel-major.
-struct Blk {
-  float px[4][kMaxT];
+// The block: texels clip(x, 0, 1) * 255, channel-major, sized by the
+// texel class MT (16 B a texel and 16 B more, so that arrays of blocks in
+// shared memory stay 16-byte aligned).
+template <int MT>
+struct alignas(16) Blk {
+  float px[4][MT];
   int T;
+  int pad[3];
 };
 
+// A block's partitions, read from the bitmasks of partitions 1..np (texels
+// in none of them are in partition 0) into a 2-bit id per texel, 16 texels
+// a word, small enough to pass in registers; np = 0: one partition, every
+// texel in it.
+template <int MT>
+struct Part {
+  int np;
+  uint32_t id[(MT + 15) / 16];
+};
+
+template <int MT>
+__device__ inline Part<MT> whole_part() {
+  Part<MT> P = {};
+  return P;
+}
+
+// Partitions of a row of a mask table (np masks of nw words each): a
+// texel's id is the last mask that holds it, else 0.
+template <int MT>
+__device__ inline Part<MT> make_part(const int* row, int np, int nw) {
+  Part<MT> P = {};
+  P.np = np;
+  for (int j = 0; j < np; ++j)
+    for (int k = 0; k < nw; ++k) {
+      const uint32_t m = (uint32_t)row[j * nw + k];
+      for (int b = 0; b < 32; ++b) {
+        const int t = 32 * k + b, s = 2 * (t & 15);
+        if (t < MT && ((m >> b) & 1u)) P.id[t >> 4] = (P.id[t >> 4] & ~(3u << s)) | ((uint32_t)(j + 1) << s);
+      }
+    }
+  return P;
+}
+
+template <int MT>
+__device__ __forceinline__ int part_of(const Part<MT>& P, int t) {
+  return (int)((P.id[t >> 4] >> (2 * (t & 15))) & 3u);
+}
+
 // Fit-space channel c of texel t (CEM 0/4: luma, then alpha).
-__device__ __forceinline__ float pxf(const Blk& B, int cem, int c, int t) {
+template <int MT>
+__device__ __forceinline__ float pxf(const Blk<MT>& B, int cem, int c, int t) {
   if (cem == 0 || cem == 4) {
     if (c == 0) return ((B.px[0][t] + B.px[1][t]) + B.px[2][t]) * kThird;
     return B.px[3][t];
@@ -157,9 +236,10 @@ __device__ __forceinline__ int fit_nch(int cem) {
   return cem == 0 ? 1 : cem == 4 ? 2 : cem == 12 ? 4 : 3;
 }
 
-// Membership mask of texel t in partition p (pid null: one partition).
-__device__ __forceinline__ float memb(const uint8_t* pid, int p, int t) {
-  return pid == nullptr ? 1.0f : (pid[t] == p ? 1.0f : 0.0f);
+// Membership mask of texel t in partition p (np = 0: one partition).
+template <int MT>
+__device__ __forceinline__ float memb(const Part<MT>& P, int p, int t) {
+  return P.np == 0 ? 1.0f : (part_of(P, t) == p ? 1.0f : 0.0f);
 }
 
 // Decoded byte of the exact decoder model (16-bit endpoint expansion,
@@ -175,10 +255,11 @@ __device__ __forceinline__ float sq(float x) { return x * x; }
 // PCA seed, endpoint order, colour quantisation, least squares
 // ---------------------------------------------------------------------------
 
-__device__ float count_of(const Blk& B, const uint8_t* pid, int p) {
-  if (pid == nullptr) return (float)B.T + 1e-6f;
-  float s = memb(pid, p, 0);
-  for (int t = 1; t < B.T; ++t) s = s + memb(pid, p, t);
+template <int MT>
+__device__ float count_of(const Blk<MT>& B, const Part<MT> P, int p) {
+  if (P.np == 0) return (float)B.T + 1e-6f;
+  float s = memb(P, p, 0);
+  for (int t = 1; t < B.T; ++t) s = s + memb(P, p, t);
   return s + 1e-6f;
 }
 
@@ -209,19 +290,21 @@ struct Chans {
   int idx[4];  // -1: fit-space channel k; else a raw channel
 };
 
-__device__ __forceinline__ float chv(const Blk& B, const Chans& C, int k, int t) {
+template <int MT>
+__device__ __forceinline__ float chv(const Blk<MT>& B, const Chans& C, int k, int t) {
   return C.idx[k] < 0 ? pxf(B, C.cem, k, t) : B.px[C.idx[k]][t];
 }
 
-__device__ __noinline__ void pca_seed(const Blk& B, const Chans& C, const uint8_t* pid, int p, float e0[4],
-                         float e1[4]) {
+template <int MT>
+__device__ __noinline__ void pca_seed(const Blk<MT>& B, const Chans& C, const Part<MT> P, int p,
+                                      float e0[4], float e1[4]) {
   const int T = B.T, chn = C.n;
-  const float cnt = count_of(B, pid, p);
+  const float cnt = count_of(B, P, p);
   float mean[4];
   for (int c = 0; c < chn; ++c) {
-    float s = chv(B, C, c, 0) * memb(pid, p, 0);
-    if (pid == nullptr) s = chv(B, C, c, 0);
-    for (int t = 1; t < T; ++t) s = s + (pid == nullptr ? chv(B, C, c, t) : chv(B, C, c, t) * memb(pid, p, t));
+    float s = chv(B, C, c, 0) * memb(P, p, 0);
+    if (P.np == 0) s = chv(B, C, c, 0);
+    for (int t = 1; t < T; ++t) s = s + (P.np == 0 ? chv(B, C, c, t) : chv(B, C, c, t) * memb(P, p, t));
     mean[c] = s / cnt;
   }
   float cov[4][4];
@@ -229,9 +312,9 @@ __device__ __noinline__ void pca_seed(const Blk& B, const Chans& C, const uint8_
     for (int d = c; d < chn; ++d) {
       float s = 0.0f;
       for (int t = 0; t < T; ++t) {
-        const float m = memb(pid, p, t);
-        const float a = pid == nullptr ? chv(B, C, c, t) - mean[c] : (chv(B, C, c, t) - mean[c]) * m;
-        const float b = pid == nullptr ? chv(B, C, d, t) - mean[d] : (chv(B, C, d, t) - mean[d]) * m;
+        const float m = memb(P, p, t);
+        const float a = P.np == 0 ? chv(B, C, c, t) - mean[c] : (chv(B, C, c, t) - mean[c]) * m;
+        const float b = P.np == 0 ? chv(B, C, d, t) - mean[d] : (chv(B, C, d, t) - mean[d]) * m;
         s = t == 0 ? a * b : s + a * b;
       }
       cov[c][d] = cov[d][c] = s;
@@ -240,10 +323,10 @@ __device__ __noinline__ void pca_seed(const Blk& B, const Chans& C, const uint8_
   power3(cov, chn, v);
   float tmax = -1e30f, tmin = 1e30f;
   for (int t = 0; t < T; ++t) {
-    const float m = memb(pid, p, t);
+    const float m = memb(P, p, t);
     float tt = 0.0f;
     for (int c = 0; c < chn; ++c) {
-      const float a = pid == nullptr ? chv(B, C, c, t) - mean[c] : (chv(B, C, c, t) - mean[c]) * m;
+      const float a = P.np == 0 ? chv(B, C, c, t) - mean[c] : (chv(B, C, c, t) - mean[c]) * m;
       tt = c == 0 ? a * v[c] : tt + a * v[c];
     }
     if (m > 0.0f) {
@@ -267,7 +350,7 @@ __device__ __forceinline__ void orient(float e0[4], float e1[4], int chn) {
     }
 }
 
-__device__ __forceinline__ void quant_color(const Lay& L, float e, int& q, int& d) {
+__device__ __forceinline__ void quant_color(const Lay& L, float e, uint8_t& q, uint8_t& d) {
   const int v = (int)clampf(rintf(e), 0.0f, 255.0f);
   if (L.cq == nullptr) {
     q = d = v;
@@ -278,21 +361,22 @@ __device__ __forceinline__ void quant_color(const Lay& L, float e, int& q, int& 
 }
 
 // Least-squares endpoints for per-texel weights w (w = 1 -> e1).
-__device__ __noinline__ void lsq(const Blk& B, const Chans& C, const float* w, const uint8_t* pid, int p,
-                    float e0[4], float e1[4]) {
+template <int MT>
+__device__ __noinline__ void lsq(const Blk<MT>& B, const Chans& C, const float* w, const Part<MT> P,
+                                 int p, float e0[4], float e1[4]) {
   const int T = B.T, chn = C.n;
   float a11 = 0, a12 = 0, a22 = 0, b1[4], b0[4], ms[4];
   for (int t = 0; t < T; ++t) {
-    const float m = memb(pid, p, t);
-    const float wv = pid == nullptr ? w[t] : w[t] * m;
-    const float uv = pid == nullptr ? 1.0f - w[t] : (1.0f - w[t]) * m;
+    const float m = memb(P, p, t);
+    const float wv = P.np == 0 ? w[t] : w[t] * m;
+    const float uv = P.np == 0 ? 1.0f - w[t] : (1.0f - w[t]) * m;
     const float x11 = wv * w[t], x12 = wv * (1.0f - w[t]), x22 = uv * (1.0f - w[t]);
     a11 = t == 0 ? x11 : a11 + x11;
     a12 = t == 0 ? x12 : a12 + x12;
     a22 = t == 0 ? x22 : a22 + x22;
     for (int c = 0; c < chn; ++c) {
       const float x = chv(B, C, c, t);
-      const float y1 = wv * x, y0 = uv * x, ym = pid == nullptr ? x : x * m;
+      const float y1 = wv * x, y0 = uv * x, ym = P.np == 0 ? x : x * m;
       b1[c] = t == 0 ? y1 : b1[c] + y1;
       b0[c] = t == 0 ? y0 : b0[c] + y0;
       ms[c] = t == 0 ? ym : ms[c] + ym;
@@ -301,7 +385,7 @@ __device__ __noinline__ void lsq(const Blk& B, const Chans& C, const float* w, c
   const float det = a11 * a22 - a12 * a12;
   const bool ok = fabsf(det) > 1e-6f;
   const float safe = ok ? det : 1.0f;
-  const float cnt = count_of(B, pid, p);
+  const float cnt = count_of(B, P, p);
   for (int c = 0; c < chn; ++c) {
     const float mean = ms[c] / cnt;
     const float x1 = ok ? (a22 * b1[c] - a12 * b0[c]) / safe : mean;
@@ -318,42 +402,69 @@ __device__ __noinline__ void lsq(const Blk& B, const Chans& C, const float* w, c
 // Endpoints per partition, expanded to 4 channels (CEM 0: L L L, alpha 255;
 // CEM 4: L L L A), with the number of channels that carry endpoints.
 struct Ends {
-  int d0[4][4], d1[4][4];  // [partition][channel]
+  uint8_t d0[4][4], d1[4][4];  // [partition][channel], 0..255
   int nche;
 };
 
-__device__ __forceinline__ int part_of(const uint8_t* pid, int t) { return pid == nullptr ? 0 : pid[t]; }
-
-__device__ __forceinline__ int e0c(const Ends& E, const uint8_t* pid, int c, int t) {
-  return c < E.nche ? E.d0[part_of(pid, t)][c] : 255;
+template <int MT>
+__device__ __forceinline__ int e0c(const Ends& E, const Part<MT> P, int c, int t) {
+  return c < E.nche ? E.d0[part_of(P, t)][c] : 255;
 }
-__device__ __forceinline__ int e1c(const Ends& E, const uint8_t* pid, int c, int t) {
-  return c < E.nche ? E.d1[part_of(pid, t)][c] : 255;
+template <int MT>
+__device__ __forceinline__ int e1c(const Ends& E, const Part<MT> P, int c, int t) {
+  return c < E.nche ? E.d1[part_of(P, t)][c] : 255;
 }
 
-// Texel error for weight w64 over the channels list chs[0..nc).
-__device__ __forceinline__ float texel_werr(const Blk& B, const Ends& E, const uint8_t* pid,
-                                            const int* chs, int nc, int t, int w64) {
+// One texel's endpoints and values over the channels chs[0..nc), nc <= 4,
+// read once for all the weights a search tries.
+struct TexelEnds {
+  int d0[4], d1[4];
+  float x[4];
+  int nc;
+};
+
+template <int MT>
+__device__ __forceinline__ TexelEnds texel_ends(const Blk<MT>& B, const Ends& E, const Part<MT> P,
+                                                const int* chs, int nc, int t) {
+  TexelEnds R;
+  R.nc = nc;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k < nc) {
+      const int c = chs[k];
+      R.d0[k] = e0c(E, P, c, t);
+      R.d1[k] = e1c(E, P, c, t);
+      R.x[k] = B.px[c][t];
+    }
+  return R;
+}
+
+// Texel error for weight w64 over those channels.
+__device__ __forceinline__ float texel_werr(const TexelEnds& R, int w64) {
   float e = 0.0f;
-  for (int k = 0; k < nc; ++k) {
-    const int c = chs[k];
-    const float x = sq(dec8(e0c(E, pid, c, t), e1c(E, pid, c, t), w64) - B.px[c][t]);
-    e = k == 0 ? x : e + x;
-  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k < R.nc) {
+      const float x = sq(dec8(R.d0[k], R.d1[k], w64) - R.x[k]);
+      e = k == 0 ? x : e + x;
+    }
   return e;
 }
 
 // Per-texel weight by exact decode error (full grids).
-__device__ __noinline__ void wquant_exact(const Blk& B, const Ends& E, const uint8_t* pid, const int* chs,
-                             int nc, const Lay& L, int* gq, int* unq) {
+template <int MT>
+__device__ __noinline__ void wquant_exact(const Blk<MT>& B, const Ends& E, const Part<MT> P,
+                                          const int* chs, int nc, const Lay& L, uint8_t* gq,
+                                          uint8_t* unq) {
   const int T = B.T, levels = L.wlevels;
   for (int t = 0; t < T; ++t) {
+    const TexelEnds R = texel_ends(B, E, P, chs, nc, t);
     if (levels <= 8) {
       int bq = 0, bu = L.unq[0];
-      float be = texel_werr(B, E, pid, chs, nc, t, bu);
+      float be = texel_werr(R, bu);
       for (int q = 1; q < levels; ++q) {
         const int w = L.unq[q];
-        const float e = texel_werr(B, E, pid, chs, nc, t, w);
+        const float e = texel_werr(R, w);
         if (e < be) {
           bq = q;
           bu = w;
@@ -365,24 +476,24 @@ __device__ __noinline__ void wquant_exact(const Blk& B, const Ends& E, const uin
       continue;
     }
     float denom = 0.0f, proj = 0.0f;
-    for (int k = 0; k < nc; ++k) {
-      const int c = chs[k];
-      const int d0 = e0c(E, pid, c, t), d1 = e1c(E, pid, c, t);
-      const float df = (float)(d1 - d0);
-      denom = k == 0 ? df * df : denom + df * df;
-      const float pr = (B.px[c][t] - (float)d0) * df;
-      proj = k == 0 ? pr : proj + pr;
-    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k < nc) {
+        const float df = (float)(R.d1[k] - R.d0[k]);
+        denom = k == 0 ? df * df : denom + df * df;
+        const float pr = (R.x[k] - (float)R.d0[k]) * df;
+        proj = k == 0 ? pr : proj + pr;
+      }
     denom = denom + 1e-6f;
     const float tt = clampf(proj / denom, 0.0f, 1.0f);
     const int w64 = (int)clampf(rintf(tt * 64.0f), 0.0f, 64.0f);
     int bq = L.wq[w64], bu = L.wu[w64];
-    float be = texel_werr(B, E, pid, chs, nc, t, bu);
+    float be = texel_werr(R, bu);
     const int g0 = bq;
     for (int dir = 0; dir < 2; ++dir) {
       const int cq = (dir == 0 ? L.up : L.dn)[g0];
       const int cu = L.unq[cq];
-      const float e = texel_werr(B, E, pid, chs, nc, t, cu);
+      const float e = texel_werr(R, cu);
       if (e < be) {
         bq = cq;
         bu = cu;
@@ -395,7 +506,7 @@ __device__ __noinline__ void wquant_exact(const Blk& B, const Ends& E, const uin
 }
 
 // C.2.18 infill of grid values gv (ISE values) -> per-texel w64.
-__device__ void infill(const Lay& L, int T, const int* gv, int* w64) {
+__device__ void infill(const Lay& L, int T, const uint8_t* gv, uint8_t* w64) {
   for (int t = 0; t < T; ++t) {
     int s = 0;
     const int* row = L.a + t * L.g;
@@ -405,7 +516,8 @@ __device__ void infill(const Lay& L, int T, const int* gv, int* w64) {
 }
 
 // Ideal texel weights tw -> grid ISE values gq[G] and texel weights w64[T].
-__device__ __noinline__ void grid_quant(const Lay& L, int T, const float* tw, int* gq, int* w64) {
+__device__ __noinline__ void grid_quant(const Lay& L, int T, const float* tw, uint8_t* gq,
+                                        uint8_t* w64) {
   if (L.a == nullptr) {
     for (int t = 0; t < T; ++t) {
       const int w = (int)clampf(rintf(tw[t] * 64.0f), 0.0f, 64.0f);
@@ -426,16 +538,17 @@ __device__ __noinline__ void grid_quant(const Lay& L, int T, const float* tw, in
 
 // Footprint scores of grid values g: per grid point, the exact error over
 // its footprint texels (a left fold in texel order).
-__device__ __noinline__ void gs_scores(const Blk& B, const Ends& E, const uint8_t* pid, const Lay& L,
-                          const int* g, float* sc) {
+template <int MT>
+__device__ __noinline__ void gs_scores(const Blk<MT>& B, const Ends& E, const Part<MT> P, const Lay& L,
+                                       const uint8_t* g, float* sc) {
   const int T = B.T;
-  int w64[kMaxT];
-  float err[kMaxT];
+  uint8_t w64[MT];
+  float err[MT];
   infill(L, T, g, w64);
   for (int t = 0; t < T; ++t) {
     float e = 0.0f;
     for (int c = 0; c < 4; ++c) {
-      const float x = sq(dec8(e0c(E, pid, c, t), e1c(E, pid, c, t), w64[t]) - B.px[c][t]);
+      const float x = sq(dec8(e0c(E, P, c, t), e1c(E, P, c, t), w64[t]) - B.px[c][t]);
       e = c == 0 ? x : e + x;
     }
     err[t] = e;
@@ -449,10 +562,12 @@ __device__ __noinline__ void gs_scores(const Blk& B, const Ends& E, const uint8_
 }
 
 // One Gauss-Seidel pass over the four (gx%2, gy%2) checkerboard classes.
-__device__ __noinline__ void gs_refine(const Blk& B, const Ends& E, const uint8_t* pid, const Lay& L, int* gq) {
-  float cur[kMaxG], sc[kMaxG];
-  int cand[kMaxG];
-  gs_scores(B, E, pid, L, gq, cur);
+template <int MT>
+__device__ __noinline__ void gs_refine(const Blk<MT>& B, const Ends& E, const Part<MT> P, const Lay& L,
+                                       uint8_t* gq) {
+  float cur[max_grid(MT)], sc[max_grid(MT)];
+  uint8_t cand[max_grid(MT)];
+  gs_scores(B, E, P, L, gq, cur);
   for (int cc = 0; cc < 4; ++cc)
     for (int dir = 0; dir < 2; ++dir) {
       const int* tab = dir == 0 ? L.up : L.dn;
@@ -460,23 +575,25 @@ __device__ __noinline__ void gs_refine(const Blk& B, const Ends& E, const uint8_
         const int cls = ((j / L.gw) % 2) * 2 + (j % L.gw) % 2;
         cand[j] = cls == cc ? tab[gq[j]] : gq[j];
       }
-      gs_scores(B, E, pid, L, cand, sc);
+      gs_scores(B, E, P, L, cand, sc);
       for (int j = 0; j < L.g; ++j) {
         const int cls = ((j / L.gw) % 2) * 2 + (j % L.gw) % 2;
         if (cls == cc && sc[j] < cur[j]) gq[j] = cand[j];
       }
-      gs_scores(B, E, pid, L, gq, cur);
+      gs_scores(B, E, P, L, gq, cur);
     }
 }
 
 // Block error of texel weights w64 (all 4 channels, per channel a fold
 // over texels, then over channels).
-__device__ __noinline__ float eval_exact(const Blk& B, const Ends& E, const uint8_t* pid, const int* w64) {
+template <int MT>
+__device__ __noinline__ float eval_exact(const Blk<MT>& B, const Ends& E, const Part<MT> P,
+                                         const uint8_t* w64) {
   float err = 0.0f;
   for (int c = 0; c < 4; ++c) {
     float s = 0.0f;
     for (int t = 0; t < B.T; ++t) {
-      const float x = sq(dec8(e0c(E, pid, c, t), e1c(E, pid, c, t), w64[t]) - B.px[c][t]);
+      const float x = sq(dec8(e0c(E, P, c, t), e1c(E, P, c, t), w64[t]) - B.px[c][t]);
       s = t == 0 ? x : s + x;
     }
     err = c == 0 ? s : err + s;
@@ -488,15 +605,17 @@ __device__ __noinline__ float eval_exact(const Blk& B, const Ends& E, const uint
 // Fits
 // ---------------------------------------------------------------------------
 
+template <int MT>
 struct Fit {
-  int q0[4][4], q1[4][4];  // [partition][channel] ISE colour values
-  int gq[kMaxG];           // grid weights (plane-interleaved when dual)
+  uint8_t q0[4][4], q1[4][4];  // [partition][channel] ISE colour values
+  uint8_t gq[max_grid(MT)];    // grid weights (plane-interleaved when dual)
   float err;
 };
 
 // Single- or multi-partition fit of layout L (_fit_1part / _fit_2part).
-__device__ __noinline__ void fit_parts(const Blk& B, const Lay& L, const uint8_t* pid, int nparts, int iters,
-                          Fit& best) {
+template <int MT>
+__device__ __noinline__ void fit_parts(const Blk<MT>& B, const Lay& L, const Part<MT> P, int nparts,
+                                       int iters, Fit<MT>& best) {
   const int T = B.T;
   const bool luma = L.cem == 0 || L.cem == 4;
   Chans C;
@@ -506,17 +625,17 @@ __device__ __noinline__ void fit_parts(const Blk& B, const Lay& L, const uint8_t
   const int nch = C.n;
   float s0[4][4], s1[4][4];
   for (int p = 0; p < nparts; ++p) {
-    pca_seed(B, C, pid, p, s0[p], s1[p]);
+    pca_seed(B, C, P, p, s0[p], s1[p]);
     if (!luma) orient(s0[p], s1[p], nch);
   }
-  int gq[kMaxT], unq[kMaxT], best_unq[kMaxT];
-  float tw[kMaxT];
+  uint8_t gq[MT], unq[MT], best_unq[MT];
+  float tw[MT];
   int all_ch[4] = {0, 1, 2, 3};
   const int n_it = iters < 1 ? 1 : iters;
   for (int it = 0; it < n_it; ++it) {
-    Fit cand;
+    Fit<MT> cand;
     Ends E;
-    int dq0[4][4], dq1[4][4];
+    uint8_t dq0[4][4], dq1[4][4];
     for (int p = 0; p < nparts; ++p) {
       for (int c = 0; c < nch; ++c) {
         quant_color(L, s0[p][c], cand.q0[p][c], dq0[p][c]);
@@ -548,10 +667,10 @@ __device__ __noinline__ void fit_parts(const Blk& B, const Lay& L, const uint8_t
     }
     E.nche = (L.cem == 0 || L.cem == 8) ? 3 : 4;
     if (L.a == nullptr) {
-      wquant_exact(B, E, pid, all_ch, E.nche, L, gq, unq);
+      wquant_exact(B, E, P, all_ch, E.nche, L, gq, unq);
     } else {
       for (int t = 0; t < T; ++t) {
-        const int p = part_of(pid, t);
+        const int p = part_of(P, t);
         float denom = 0.0f, proj = 0.0f;
         for (int c = 0; c < nch; ++c) {
           const float d0 = (float)dq0[p][c];
@@ -564,12 +683,14 @@ __device__ __noinline__ void fit_parts(const Blk& B, const Lay& L, const uint8_t
         tw[t] = clampf(proj / denom, 0.0f, 1.0f);
       }
       grid_quant(L, T, tw, gq, unq);
-      if (T > 64) {
-        gs_refine(B, E, pid, L, gq);
-        infill(L, T, gq, unq);
+      if constexpr (MT > 64) {
+        if (T > 64) {
+          gs_refine(B, E, P, L, gq);
+          infill(L, T, gq, unq);
+        }
       }
     }
-    cand.err = eval_exact(B, E, pid, unq);
+    cand.err = eval_exact(B, E, P, unq);
     const int ng = L.a == nullptr ? T : L.g;
     if (it == 0 || cand.err < best.err) {
       for (int p = 0; p < nparts; ++p)
@@ -584,7 +705,7 @@ __device__ __noinline__ void fit_parts(const Blk& B, const Lay& L, const uint8_t
     if (it + 1 < n_it) {
       for (int t = 0; t < T; ++t) tw[t] = (float)best_unq[t] / 64.0f;
       for (int p = 0; p < nparts; ++p) {
-        lsq(B, C, tw, pid, p, s0[p], s1[p]);
+        lsq(B, C, tw, P, p, s0[p], s1[p]);
         if (!luma) orient(s0[p], s1[p], nch);
       }
     }
@@ -593,8 +714,10 @@ __device__ __noinline__ void fit_parts(const Blk& B, const Lay& L, const uint8_t
 
 // Single-partition dual-plane fit: plane 0 drives the channels other than
 // ccs, plane 1 drives ccs (_fit_dual).
-__device__ __noinline__ void fit_dual(const Blk& B, const Lay& L, int ccs, int iters, Fit& best) {
+template <int MT>
+__device__ __noinline__ void fit_dual(const Blk<MT>& B, const Lay& L, int ccs, int iters, Fit<MT>& best) {
   const int T = B.T;
+  const Part<MT> whole = whole_part<MT>();
   const int nch = L.cem == 12 ? 4 : 3;
   Chans R, A;
   R.cem = A.cem = L.cem;
@@ -604,7 +727,7 @@ __device__ __noinline__ void fit_dual(const Blk& B, const Lay& L, int ccs, int i
   A.n = 1;
   A.idx[0] = ccs;
   float r0[4], r1[4];
-  pca_seed(B, R, nullptr, 0, r0, r1);
+  pca_seed(B, R, whole, 0, r0, r1);
   float lo = B.px[ccs][0], hi = B.px[ccs][0];
   for (int t = 1; t < T; ++t) {
     lo = fminf(lo, B.px[ccs][t]);
@@ -618,11 +741,11 @@ __device__ __noinline__ void fit_dual(const Blk& B, const Lay& L, int ccs, int i
   e0[ccs] = lo;
   e1[ccs] = hi;
   orient(e0, e1, nch);
-  int gq0[kMaxT], unq0[kMaxT], gq1[kMaxT], unq1[kMaxT], b0[kMaxT], b1[kMaxT];
-  float tw[kMaxT];
+  uint8_t gq0[MT], unq0[MT], gq1[MT], unq1[MT], b0[MT], b1[MT];
+  float tw[MT];
   const int n_it = iters < 1 ? 1 : iters;
   for (int it = 0; it < n_it; ++it) {
-    Fit cand;
+    Fit<MT> cand;
     Ends E;
     for (int c = 0; c < nch; ++c) {
       quant_color(L, e0[c], cand.q0[0][c], E.d0[0][c]);
@@ -641,8 +764,8 @@ __device__ __noinline__ void fit_dual(const Blk& B, const Lay& L, int ccs, int i
     for (int c = nch; c < 4; ++c) E.d0[0][c] = E.d1[0][c] = 255;
     E.nche = nch;
     if (L.a == nullptr) {
-      wquant_exact(B, E, nullptr, R.idx, R.n, L, gq0, unq0);
-      wquant_exact(B, E, nullptr, A.idx, 1, L, gq1, unq1);
+      wquant_exact(B, E, whole, R.idx, R.n, L, gq0, unq0);
+      wquant_exact(B, E, whole, A.idx, 1, L, gq1, unq1);
     } else {
       for (int t = 0; t < T; ++t) {
         float denom = 0.0f, proj = 0.0f;
@@ -665,7 +788,7 @@ __device__ __noinline__ void fit_dual(const Blk& B, const Lay& L, int ccs, int i
     }
     float err = 0.0f;
     for (int c = 0; c < 4; ++c) {
-      const int* w = c == ccs ? unq1 : unq0;
+      const uint8_t* w = c == ccs ? unq1 : unq0;
       float s = 0.0f;
       for (int t = 0; t < T; ++t) {
         const float x = sq(dec8(E.d0[0][c], E.d1[0][c], w[t]) - B.px[c][t]);
@@ -690,14 +813,14 @@ __device__ __noinline__ void fit_dual(const Blk& B, const Lay& L, int ccs, int i
       best.err = err;
     }
     if (it + 1 < n_it) {
-      float w0[kMaxT];
+      float w0[MT];
       for (int t = 0; t < T; ++t) {
         w0[t] = (float)b0[t] / 64.0f;
         tw[t] = (float)b1[t] / 64.0f;
       }
       float x0[4], x1[4], a0[4], a1[4];
-      lsq(B, R, w0, nullptr, 0, x0, x1);
-      lsq(B, A, tw, nullptr, 0, a0, a1);
+      lsq(B, R, w0, whole, 0, x0, x1);
+      lsq(B, A, tw, whole, 0, a0, a1);
       for (int k = 0; k < R.n; ++k) {
         e0[R.idx[k]] = x0[k];
         e1[R.idx[k]] = x1[k];
@@ -729,7 +852,7 @@ struct Bits {
 };
 
 // ISE of vals[0..n) (kind 0 bits / 1 trits / 2 quints, b plain bits).
-__device__ __noinline__ void pack_ise(const int* d, uint32_t words[4], const int* vals, int n, int kind, int b,
+__device__ __noinline__ void pack_ise(const int* d, uint32_t words[4], const uint8_t* vals, int n, int kind, int b,
                          int start, bool reverse) {
   Bits S;
   S.w[0] = S.w[1] = S.w[2] = S.w[3] = 0u;
@@ -765,11 +888,12 @@ __device__ __noinline__ void pack_ise(const int* d, uint32_t words[4], const int
 
 // Words of a fit: 1 partition (with the dual plane's CCS) or several
 // (same CEM, partition seed `seed`).
-__device__ __noinline__ void pack_fit(const int* d, const Lay& L, const Fit& F, int ccs, int seed,
-                         uint32_t words[4]) {
+template <int MT>
+__device__ __noinline__ void pack_fit(const int* d, const Lay& L, const Fit<MT>& F, int ccs, int seed,
+                                      uint32_t words[4]) {
   words[0] = words[1] = words[2] = words[3] = 0u;
   const int vpe = (L.cem >> 2) + 1;  // values per endpoint
-  int cols[18];
+  uint8_t cols[18];
   int n = 0;
   if (L.nparts == 1) {
     words[0] |= (uint32_t)(L.mode | (L.cem << 13));
@@ -794,16 +918,18 @@ __device__ __noinline__ void pack_fit(const int* d, const Lay& L, const Fit& F, 
 }
 
 // ---------------------------------------------------------------------------
-// The four kernel bodies
+// The kernel bodies
 // ---------------------------------------------------------------------------
 
-__device__ void load_block(const float* src, int T, Blk& B) {
+template <int MT>
+__device__ void load_block(const float* src, int T, Blk<MT>& B) {
   B.T = T;
   for (int t = 0; t < T; ++t)
     for (int c = 0; c < 4; ++c) B.px[c][t] = clampf(src[t * 4 + c], 0.0f, 1.0f) * 255.0f;
 }
 
-__device__ bool is_gray(const int* d, const Blk& B) {
+template <int MT>
+__device__ bool is_gray(const int* d, const Blk<MT>& B) {
   float m = 0.0f;
   for (int t = 0; t < B.T; ++t) {
     const float hi = fmaxf(fmaxf(B.px[0][t], B.px[1][t]), B.px[2][t]);
@@ -822,7 +948,8 @@ __device__ __forceinline__ void take_if(uint32_t w[4], float& e, const uint32_t 
 
 // Kernel A: void extent, then the 1-partition tasks (and CEM 0/4 for a
 // near-gray block).
-__device__ __noinline__ void body_a(const int* d, const Blk& B, uint32_t w[4], float& e) {
+template <int MT>
+__device__ __noinline__ void body_a(const int* d, const Blk<MT>& B, uint32_t w[4], float& e) {
   const int T = B.T;
   const float inv = 1.0f / (float)T;
   int v16[4];
@@ -844,6 +971,7 @@ __device__ __noinline__ void body_a(const int* d, const Blk& B, uint32_t w[4], f
   w[2] = (uint32_t)(v16[0] | (v16[1] << 16));
   w[3] = (uint32_t)(v16[2] | (v16[3] << 16));
   const bool gray = d[H_NAG] > 0 && is_gray(d, B);
+  const Part<MT> whole = whole_part<MT>();
   for (int pass = 0; pass < 2; ++pass) {
     const int n = pass == 0 ? d[H_NA] : (gray ? d[H_NAG] : 0);
     const int* tasks = d + (pass == 0 ? d[H_OFF_A] : d[H_OFF_AG]);
@@ -851,9 +979,9 @@ __device__ __noinline__ void body_a(const int* d, const Blk& B, uint32_t w[4], f
       const Lay L = load_lay(d, tasks[2 * k]);
       const int ccs = tasks[2 * k + 1];
       const int iters = L.cem == 12 ? d[H_ITERS12] : d[H_ITERS];
-      Fit F;
+      Fit<MT> F;
       if (ccs < 0)
-        fit_parts(B, L, nullptr, 1, iters, F);
+        fit_parts(B, L, whole, 1, iters, F);
       else
         fit_dual(B, L, ccs, iters, F);
       uint32_t lw[4];
@@ -863,18 +991,45 @@ __device__ __noinline__ void body_a(const int* d, const Blk& B, uint32_t w[4], f
   }
 }
 
-// Masked sums of a screen row: four texel lanes (t mod 4), added pairwise.
-__device__ __forceinline__ void lane_sums(const Blk& B, const int* mask, float s[4]) {
-  for (int c = 0; c < 4; ++c) {
-    float l[4];
-    for (int k = 0; k < 4; ++k) {
-      float a = 0.0f;
-      for (int t = k; t < B.T; t += 4)
-        if ((mask[t >> 5] >> (t & 31)) & 1) a = a + B.px[c][t];
-      l[k] = a;
+// Masked sums of NP screen rows of nw words (rows m, m + nw, ...): per
+// channel, four texel lanes (t mod 4) each folded in texel order from 0,
+// added pairwise as (l0 + l1) + (l2 + l3).  Every texel is tested, so the
+// lanes of a warp, each on its own rows, read the same texel at the same
+// step (a shared-memory broadcast, four texels a load), once for all NP
+// rows.
+template <int MT, int NP>
+__device__ __forceinline__ void lane_sums_n(const Blk<MT>& B, const int* m, int nw, float s[NP][4]) {
+  const int T = MT == 16 ? 16 : B.T;
+  float l[NP][4][4];
+  for (int j = 0; j < NP; ++j)
+    for (int c = 0; c < 4; ++c)
+      for (int k = 0; k < 4; ++k) l[j][c][k] = 0.0f;
+  for (int t0 = 0; t0 < T; t0 += 4) {
+    uint32_t word[NP];
+    for (int j = 0; j < NP; ++j) word[j] = (uint32_t)m[j * nw + (t0 >> 5)];
+    float x[4][4];  // [channel][texel t0 + k]; past T: never added
+    for (int c = 0; c < 4; ++c) {
+#ifdef __CUDACC__
+      const float4 v = *reinterpret_cast<const float4*>(&B.px[c][t0]);  // MT % 4 == 0
+      x[c][0] = v.x;
+      x[c][1] = v.y;
+      x[c][2] = v.z;
+      x[c][3] = v.w;
+#else
+      for (int k = 0; k < 4; ++k) x[c][k] = t0 + k < T ? B.px[c][t0 + k] : 0.0f;
+#endif
     }
-    s[c] = (l[0] + l[1]) + (l[2] + l[3]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int t = t0 + k;
+      if (t < T)
+        for (int j = 0; j < NP; ++j)
+          if ((word[j] >> (t & 31)) & 1u)
+            for (int c = 0; c < 4; ++c) l[j][c][k] = l[j][c][k] + x[c][k];
+    }
   }
+  for (int j = 0; j < NP; ++j)
+    for (int c = 0; c < 4; ++c) s[j][c] = (l[j][c][0] + l[j][c][1]) + (l[j][c][2] + l[j][c][3]);
 }
 
 __device__ __forceinline__ float popf(const int* mask, int nw) {
@@ -897,29 +1052,19 @@ __device__ __forceinline__ void topk_insert(float* vs, int* ids, int& cnt, int k
   if (cnt < k) ++cnt;
 }
 
-// Partition ids of row `row` of a table with np masks per row.
-__device__ void pids_of(const int* masks, int row, int np, int nw, int T, uint8_t* pid) {
-  const int* r = masks + row * np * nw;
-  for (int t = 0; t < T; ++t) {
-    int p = 0;
-    for (int j = 0; j < np; ++j)
-      if ((r[j * nw + (t >> 5)] >> (t & 31)) & 1) p = j + 1;
-    pid[t] = (uint8_t)p;
-  }
-}
-
 // Continuous-SSE estimate of a 2-partition split (subset 0, then 1).
-__device__ __noinline__ float cont_sse(const Blk& B, const uint8_t* pid) {
+template <int MT>
+__device__ __noinline__ float cont_sse(const Blk<MT>& B, const Part<MT> P) {
   const int T = B.T;
   float tot = 0.0f;
   for (int p = 0; p < 2; ++p) {
-    float cnt = memb(pid, p, 0);
-    for (int t = 1; t < T; ++t) cnt = cnt + memb(pid, p, t);
+    float cnt = memb(P, p, 0);
+    for (int t = 1; t < T; ++t) cnt = cnt + memb(P, p, t);
     cnt = cnt + 1e-6f;
     float mean[4];
     for (int c = 0; c < 4; ++c) {
-      float s = B.px[c][0] * memb(pid, p, 0);
-      for (int t = 1; t < T; ++t) s = s + B.px[c][t] * memb(pid, p, t);
+      float s = B.px[c][0] * memb(P, p, 0);
+      for (int t = 1; t < T; ++t) s = s + B.px[c][t] * memb(P, p, t);
       mean[c] = s / cnt;
     }
     float cov[4][4];
@@ -927,7 +1072,7 @@ __device__ __noinline__ float cont_sse(const Blk& B, const uint8_t* pid) {
       for (int b = a; b < 4; ++b) {
         float s = 0.0f;
         for (int t = 0; t < T; ++t) {
-          const float m = memb(pid, p, t);
+          const float m = memb(P, p, t);
           const float x = ((B.px[a][t] - mean[a]) * m) * ((B.px[b][t] - mean[b]) * m);
           s = t == 0 ? x : s + x;
         }
@@ -937,7 +1082,7 @@ __device__ __noinline__ float cont_sse(const Blk& B, const uint8_t* pid) {
     power3(cov, 4, v);
     float e1 = 0.0f, e2 = 0.0f;
     for (int t = 0; t < T; ++t) {
-      const float m = memb(pid, p, t);
+      const float m = memb(P, p, t);
       float cc = 0.0f, pr = 0.0f;
       for (int c = 0; c < 4; ++c) {
         const float x = (B.px[c][t] - mean[c]) * m;
@@ -971,7 +1116,8 @@ __device__ void rank_keep(const int* seeds, const float* ests, int k, int keep, 
   }
 }
 
-__device__ void screen_totals(const Blk& B, float& sq_all, float s_all[4]) {
+template <int MT>
+__device__ void screen_totals(const Blk<MT>& B, float& sq_all, float s_all[4]) {
   for (int t = 0; t < B.T; ++t) {
     const float x = ((B.px[0][t] * B.px[0][t] + B.px[1][t] * B.px[1][t]) + B.px[2][t] * B.px[2][t]) +
                     B.px[3][t] * B.px[3][t];
@@ -985,7 +1131,8 @@ __device__ void screen_totals(const Blk& B, float& sq_all, float s_all[4]) {
 }
 
 // Kernel B: 2-partition screen, top-k, rerank, CEM 8 (12) fits.
-__device__ __noinline__ void body_b(const int* d, const Blk& B, uint32_t w[4], float& e) {
+template <int MT>
+__device__ __noinline__ void body_b(const int* d, const Blk<MT>& B, uint32_t w[4], float& e) {
   const int T = B.T, nw = d[H_NW], U = d[H_U2];
   const float tf = (float)T;
   const int* masks = d + d[H_OFF_P2];
@@ -998,8 +1145,9 @@ __device__ __noinline__ void body_b(const int* d, const Blk& B, uint32_t w[4], f
   for (int u = 0; u < U; ++u) {
     const int* m = masks + u * nw;
     const float ns = popf(m, nw);
-    float s1[4];
-    lane_sums(B, m, s1);
+    float sp[1][4];
+    lane_sums_n<MT, 1>(B, m, nw, sp);
+    const float* s1 = sp[0];
     const float n1 = ns + 1e-6f, n0 = (tf - ns) + 1e-6f;
     float a = s1[0] * s1[0], b = sq(s_all[0] - s1[0]);
     for (int c = 1; c < 4; ++c) {
@@ -1012,13 +1160,9 @@ __device__ __noinline__ void body_b(const int* d, const Blk& B, uint32_t w[4], f
   }
   int seeds[kMaxTopK];
   int nseeds = topk;
-  uint8_t pid[kMaxT];
   if (topk > keep) {
     float ests[kMaxTopK];
-    for (int i = 0; i < topk; ++i) {
-      pids_of(masks, ids[i], 1, nw, T, pid);
-      ests[i] = cont_sse(B, pid);
-    }
+    for (int i = 0; i < topk; ++i) ests[i] = cont_sse(B, make_part<MT>(masks + ids[i] * nw, 1, nw));
     rank_keep(ids, ests, topk, keep, seeds);
     nseeds = keep;
   } else {
@@ -1028,11 +1172,11 @@ __device__ __noinline__ void body_b(const int* d, const Blk& B, uint32_t w[4], f
   const int* lays = d + d[H_OFF_B];
   bool first = true;
   for (int i = 0; i < nseeds; ++i) {
-    pids_of(masks, seeds[i], 1, nw, T, pid);
+    const Part<MT> P = make_part<MT>(masks + seeds[i] * nw, 1, nw);
     for (int li = 0; li < d[H_NB]; ++li) {
       const Lay L = load_lay(d, lays[li]);
-      Fit F;
-      fit_parts(B, L, pid, 2, iters, F);
+      Fit<MT> F;
+      fit_parts(B, L, P, 2, iters, F);
       uint32_t lw[4];
       pack_fit(d, L, F, 0, smap[seeds[i]], lw);
       if (first) {
@@ -1046,174 +1190,503 @@ __device__ __noinline__ void body_b(const int* d, const Blk& B, uint32_t w[4], f
   }
 }
 
-// Kernel C: 3-partition screen, top-k, unrefined-fit rerank, CEM 8 fit.
-__device__ __noinline__ void body_c(const int* d, const Blk& B, uint32_t w[4], float& e) {
-  const int T = B.T, nw = d[H_NW], U = d[H_U3];
-  const float tf = (float)T;
-  const int* masks = d + d[H_OFF_P3];
-  const int* smap = d + d[H_OFF_S3];
-  float sq_all, s_all[4];
-  screen_totals(B, sq_all, s_all);
-  const int topk = d[H_TOPK3], keep = d[H_KEEP3];
-  float vs[kMaxTopK];
-  int ids[kMaxTopK], cnt = 0;
-  for (int u = 0; u < U; ++u) {
-    const int* m1 = masks + u * 2 * nw;
-    const int* m2 = m1 + nw;
-    const float n1 = popf(m1, nw), n2 = popf(m2, nw);
-    float s1[4], s2[4];
-    lane_sums(B, m1, s1);
-    lane_sums(B, m2, s2);
-    const float n0 = (tf - n1) - n2;
-    float a = sq((s_all[0] - s1[0]) - s2[0]), b = s1[0] * s1[0], c2 = s2[0] * s2[0];
-    for (int c = 1; c < 4; ++c) {
-      a = a + sq((s_all[c] - s1[c]) - s2[c]);
-      b = b + s1[c] * s1[c];
-      c2 = c2 + s2[c] * s2[c];
-    }
-    float sse = sq_all - ((a / fmaxf(n0, 1.0f) + b / fmaxf(n1, 1.0f)) + c2 / fmaxf(n2, 1.0f));
-    if (n0 < 1.0f || n1 < 1.0f || n2 < 1.0f) sse = kInf;
-    topk_insert(vs, ids, cnt, topk, sse, u);
+// ---------------------------------------------------------------------------
+// Kernels C and D: a warp per group of blocks
+// ---------------------------------------------------------------------------
+
+// Estimate of kernel C's screen for the 3-partition pattern row m (two
+// masks: partitions 1 and 2).
+template <int MT>
+__device__ __forceinline__ float screen_c(const Blk<MT>& B, const int* m, int nw, float sq_all,
+                                          const float s_all[4]) {
+  const float tf = (float)B.T;
+  const float n1 = popf(m, nw), n2 = popf(m + nw, nw);
+  float sp[2][4];
+  lane_sums_n<MT, 2>(B, m, nw, sp);
+  const float* s1 = sp[0];
+  const float* s2 = sp[1];
+  const float n0 = (tf - n1) - n2;
+  float a = sq((s_all[0] - s1[0]) - s2[0]), b = s1[0] * s1[0], c2 = s2[0] * s2[0];
+  for (int c = 1; c < 4; ++c) {
+    a = a + sq((s_all[c] - s1[c]) - s2[c]);
+    b = b + s1[c] * s1[c];
+    c2 = c2 + s2[c] * s2[c];
   }
-  const Lay L = load_lay(d, d[d[H_OFF_C]]);
-  int seeds[kMaxTopK];
-  int nseeds = topk;
-  uint8_t pid[kMaxT];
-  if (topk > keep) {
-    float ests[kMaxTopK];
-    for (int i = 0; i < topk; ++i) {
-      pids_of(masks, ids[i], 2, nw, T, pid);
-      Fit F;
-      fit_parts(B, L, pid, 3, 1, F);
-      ests[i] = F.err;
-    }
-    rank_keep(ids, ests, topk, keep, seeds);
-    nseeds = keep;
-  } else {
-    for (int i = 0; i < topk; ++i) seeds[i] = ids[i];
-  }
-  for (int i = 0; i < nseeds; ++i) {
-    pids_of(masks, seeds[i], 2, nw, T, pid);
-    Fit F;
-    fit_parts(B, L, pid, 3, d[H_ITERS], F);
-    uint32_t lw[4];
-    pack_fit(d, L, F, 0, smap[seeds[i]], lw);
-    if (i == 0) {
-      for (int k = 0; k < 4; ++k) w[k] = lw[k];
-      e = F.err;
-    } else {
-      take_if(w, e, lw, F.err);
-    }
-  }
+  float sse = sq_all - ((a / fmaxf(n0, 1.0f) + b / fmaxf(n1, 1.0f)) + c2 / fmaxf(n2, 1.0f));
+  if (n0 < 1.0f || n1 < 1.0f || n2 < 1.0f) sse = kInf;
+  return sse;
 }
 
-// Kernel D: 4-partition luminance screen over all 1024 seeds and CEM 0/4
-// fits, for a near-gray block only (other blocks: zero words, error inf).
-__device__ __noinline__ void body_d(const int* d, const Blk& B, uint32_t w[4], float& e) {
-  w[0] = w[1] = w[2] = w[3] = 0u;
-  e = kInf;
-  if (!is_gray(d, B)) return;
-  const int T = B.T, nw = d[H_NW];
-  const float tf = (float)T;
-  const int* masks = d + d[H_OFF_P4];
-  float sq_all, s_all[4];
-  screen_totals(B, sq_all, s_all);
-  const int topk = d[H_TOPK4];
-  float vs[kMaxTopK];
-  int ids[kMaxTopK], cnt = 0;
-  for (int u = 0; u < 1024; ++u) {
-    const int* m = masks + u * 3 * nw;
-    float ns[3], sp[3][4];
-    for (int j = 0; j < 3; ++j) {
-      ns[j] = popf(m + j * nw, nw);
-      lane_sums(B, m + j * nw, sp[j]);
-    }
-    const float n0 = ((tf - ns[0]) - ns[1]) - ns[2];
-    float a = 0.0f;
-    for (int c = 0; c < 4; ++c) {
-      const float x = sq(((s_all[c] - sp[0][c]) - sp[1][c]) - sp[2][c]);
-      a = c == 0 ? x : a + x;
-    }
-    float ex = a / fmaxf(n0, 1.0f);
-    for (int j = 0; j < 3; ++j) {
-      float s = sp[j][0] * sp[j][0];
-      for (int c = 1; c < 4; ++c) s = s + sp[j][c] * sp[j][c];
-      ex = ex + s / fmaxf(ns[j], 1.0f);
-    }
-    float sse = sq_all - ex;
-    if (n0 < 1.0f || ns[0] < 1.0f || ns[1] < 1.0f || ns[2] < 1.0f) sse = kInf;
-    topk_insert(vs, ids, cnt, topk, sse, u);
+// Estimate of kernel D's luminance screen for the 4-partition seed row m
+// (three masks: partitions 1..3).
+template <int MT>
+__device__ __forceinline__ float screen_d(const Blk<MT>& B, const int* m, int nw, float sq_all,
+                                          const float s_all[4]) {
+  const float tf = (float)B.T;
+  float ns[3], sp[3][4];
+  for (int j = 0; j < 3; ++j) ns[j] = popf(m + j * nw, nw);
+  lane_sums_n<MT, 3>(B, m, nw, sp);
+  const float n0 = ((tf - ns[0]) - ns[1]) - ns[2];
+  float a = 0.0f;
+  for (int c = 0; c < 4; ++c) {
+    const float x = sq(((s_all[c] - sp[0][c]) - sp[1][c]) - sp[2][c]);
+    a = c == 0 ? x : a + x;
   }
-  const int* lays = d + d[H_OFF_D];
-  uint8_t pid[kMaxT];
-  int seed = ids[0];
-  if (topk > 1) {
-    const Lay L0 = load_lay(d, lays[0]);
-    float be = 0.0f;
-    for (int i = 0; i < topk; ++i) {
-      pids_of(masks, ids[i], 3, nw, T, pid);
-      Fit F;
-      fit_parts(B, L0, pid, 4, 1, F);
-      if (i == 0 || F.err < be) {
-        seed = ids[i];
-        be = F.err;
+  float ex = a / fmaxf(n0, 1.0f);
+  for (int j = 0; j < 3; ++j) {
+    float s = sp[j][0] * sp[j][0];
+    for (int c = 1; c < 4; ++c) s = s + sp[j][c] * sp[j][c];
+    ex = ex + s / fmaxf(ns[j], 1.0f);
+  }
+  float sse = sq_all - ex;
+  if (n0 < 1.0f || ns[0] < 1.0f || ns[1] < 1.0f || ns[2] < 1.0f) sse = kInf;
+  return sse;
+}
+
+__device__ __forceinline__ uint32_t f_bits(float v) {
+#ifdef __CUDACC__
+  return __float_as_uint(v);
+#else
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  return u;
+#endif
+}
+
+// A screen entry as one integer that orders as (estimate, pattern): the
+// float's bits made monotone (-0 folded into +0 first, so that equal
+// estimates tie), then the pattern index.
+__device__ __forceinline__ uint64_t sort_key(float v, int idx) {
+  const uint32_t b = f_bits(v + 0.0f);
+  const uint32_t o = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((uint64_t)o << 32) | (uint32_t)idx;
+}
+
+// topk_insert on keys: the same list (the k least (estimate, pattern)
+// pairs, ascending); a float compare only against the k-th estimate, the
+// place found by key.
+__device__ __forceinline__ void topk_insert_key(uint64_t* keys, float* vs, int& cnt, int k, float v,
+                                                int idx) {
+  if (cnt == k && !(v < vs[k - 1])) return;
+  const uint64_t key = sort_key(v, idx);
+  int pos = cnt < k ? cnt : k - 1;
+  while (pos > 0 && key < keys[pos - 1]) {
+    keys[pos] = keys[pos - 1];
+    vs[pos] = vs[pos - 1];
+    --pos;
+  }
+  keys[pos] = key;
+  vs[pos] = v;
+  if (cnt < k) ++cnt;
+}
+
+// Merge the ascending key list b[0..nb) into a[0..na), keeping the k least.
+__device__ inline void merge_keys(uint64_t* a, int& na, const uint64_t* b, int nb, int k) {
+  uint64_t out[kMaxTopK];
+  int i = 0, j = 0, n = 0;
+  while (n < k && (i < na || j < nb)) {
+    if (j >= nb || (i < na && a[i] < b[j]))
+      out[n++] = a[i++];
+    else
+      out[n++] = b[j++];
+  }
+  for (int x = 0; x < n; ++x) a[x] = out[x];
+  na = n;
+}
+
+constexpr int kWarps = 4;           // warps per CTA of kernels C and D
+constexpr int kGroupTexels = 512;   // at most this many texels of blocks per warp
+
+__host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
+
+// Per-block values of the warp body (32 bytes).
+struct Head {
+  float sq_all, s_all[4];
+  int gray, pad[2];
+};
+
+// How a warp of kernel C (stage 2) or D (3) splits its work, and where its
+// shared memory goes, from the descriptor header.  G blocks a warp: as many
+// as fill the 32 lanes with the final fits (C: its kept seeds, D: its
+// layouts), at most kGroupTexels texels.
+struct WarpPlan {
+  int topk, keep, rerank, nfin, group, slots, mask_words, masks_bytes;
+  int blk_off, head_off, ids_off, ests_off, seeds_off, errs_off, words_off, keys_off, cnt_off;
+  int warp_bytes, smem_bytes;
+};
+
+template <int MT>
+__host__ __device__ inline WarpPlan warp_plan(int stage, const int* h) {
+  WarpPlan P;
+  const int nw = h[H_NW];
+  if (stage == 2) {
+    P.topk = h[H_TOPK3];
+    P.keep = h[H_KEEP3];
+    P.rerank = P.topk > P.keep;
+    P.nfin = P.rerank ? P.keep : P.topk;
+    P.mask_words = h[H_U3] * 2 * nw;
+  } else {
+    P.topk = h[H_TOPK4];
+    P.keep = 1;
+    P.rerank = P.topk > 1;
+    P.nfin = h[H_ND];
+    P.mask_words = 1024 * 3 * nw;
+  }
+  int g = 32 / (P.nfin > 1 ? P.nfin : 1);
+  if (g > kGroupTexels / MT) g = kGroupTexels / MT;
+  P.group = g > 1 ? g : 1;
+  P.slots = P.topk > P.nfin ? P.topk : P.nfin;
+  const int gs = P.group * P.slots;
+  int off = 0;
+  P.blk_off = off;
+  off += P.group * (int)sizeof(Blk<MT>);
+  P.head_off = off;
+  off += align16(P.group * (int)sizeof(Head));
+  P.ids_off = off;
+  off += align16(gs * 4);
+  P.ests_off = off;
+  off += align16(gs * 4);
+  P.seeds_off = off;
+  off += align16(gs * 4);
+  P.errs_off = off;
+  off += align16(gs * 4);
+  P.words_off = off;
+  off += gs * 16;
+  P.keys_off = off;
+  off += 32 * P.topk * 8;
+  P.cnt_off = off;
+  off += 32 * 4;
+  P.warp_bytes = align16(off);
+  P.masks_bytes = align16(P.mask_words * 4);
+  P.smem_bytes = P.masks_bytes + kWarps * P.warp_bytes;
+  return P;
+}
+
+// One warp's shared memory.
+template <int MT>
+struct WarpMem {
+  Blk<MT>* blk;
+  Head* head;
+  int *ids, *seeds, *cnt;
+  float *ests, *errs;
+  uint32_t* words;
+  uint64_t* keys;
+};
+
+template <int MT>
+__device__ inline WarpMem<MT> warp_mem(unsigned char* base, const WarpPlan& P) {
+  WarpMem<MT> M;
+  M.blk = (Blk<MT>*)(base + P.blk_off);
+  M.head = (Head*)(base + P.head_off);
+  M.ids = (int*)(base + P.ids_off);
+  M.ests = (float*)(base + P.ests_off);
+  M.seeds = (int*)(base + P.seeds_off);
+  M.errs = (float*)(base + P.errs_off);
+  M.words = (uint32_t*)(base + P.words_off);
+  M.keys = (uint64_t*)(base + P.keys_off);
+  M.cnt = (int*)(base + P.cnt_off);
+  return M;
+}
+
+// The lanes of a warp.  On the card each lane runs the body once, and
+// WARP_SYNC orders the warp's shared memory between phases; in a CPU build
+// the 32 lanes run one after another.  A phase's lanes share nothing but
+// the warp's shared memory.
+#ifdef __CUDACC__
+#define FOR_LANES(lane) for (int lane = (int)(threadIdx.x & 31u), lane##_once = 1; lane##_once; lane##_once = 0)
+#define WARP_SYNC() __syncwarp()
+#else
+#define FOR_LANES(lane) for (int lane = 0; lane < 32; ++lane)
+#define WARP_SYNC()
+#endif
+
+// The k least (estimate, pattern) pairs of patterns 0 .. U-1, est(u) the
+// estimate of pattern u, by one warp: lane j scores patterns j, j + 32, ...
+// into its own ascending top-k (keys[j * k ..], cnt[j]), five levels of
+// pairwise merges leave the k least in lane 0's list, and ids gets their
+// patterns: the list the sequential scan of topk_insert gives (ties to the
+// lowest pattern, infinite estimates ordered by pattern, fewer than k when
+// U < k).
+template <class Est>
+__device__ void warp_topk(const Est& est, int U, int k, uint64_t* keys, int* cnt, int* ids) {
+  FOR_LANES(lane) {
+    uint64_t* mine = keys + lane * k;
+    float vs[kMaxTopK];
+    int c = 0;
+    for (int u = lane; u < U; u += 32) topk_insert_key(mine, vs, c, k, est(u), u);
+    cnt[lane] = c;
+  }
+  WARP_SYNC();
+  for (int s = 1; s < 32; s *= 2) {
+    FOR_LANES(lane) {
+      if ((lane & (2 * s - 1)) == 0) merge_keys(keys + lane * k, cnt[lane], keys + (lane + s) * k, cnt[lane + s], k);
+    }
+    WARP_SYNC();
+  }
+  FOR_LANES(lane) {
+    if (lane < cnt[0]) ids[lane] = (int)(uint32_t)keys[lane];
+  }
+  WARP_SYNC();
+}
+
+// Kernel C (S = 2: 3-partition screen, top-k, unrefined-fit rerank, CEM 8
+// fits) or D (S = 3: 4-partition luminance screen over all 1024 seeds and
+// CEM 0/4 fits, near-gray blocks only; other blocks get zero words, error
+// inf) on blocks i0 .. i0 + ng - 1 by one warp.  masks: the entry's pattern
+// masks, staged; ws: the warp's shared memory (WarpPlan).
+template <int S, int MT>
+__device__ void encode_group(const int* d, const int* masks, const WarpPlan& P, const float* blocks,
+                             long long i0, int ng, unsigned char* ws, uint32_t* out_w, float* out_e) {
+  const WarpMem<MT> M = warp_mem<MT>(ws, P);
+  const int T = d[H_T], nw = d[H_NW];
+  const int np = S == 2 ? 2 : 3;
+  const int U = S == 2 ? d[H_U3] : 1024;
+  const int K = P.slots, k = P.topk;
+  const int* lays = d + (S == 2 ? d[H_OFF_C] : d[H_OFF_D]);
+
+  // Texels, read coalesced and scaled as load_block does; then each
+  // block's gate and screen totals, a lane per block.
+  FOR_LANES(lane) {
+    const float* src = blocks + i0 * T * 4;
+    for (int x = lane; x < ng * T * 4; x += 32) {
+      const int b = x / (T * 4), r = x - b * (T * 4);
+      M.blk[b].px[r & 3][r >> 2] = clampf(src[x], 0.0f, 1.0f) * 255.0f;
+    }
+    if (lane < ng) M.blk[lane].T = T;
+  }
+  WARP_SYNC();
+  FOR_LANES(lane) {
+    for (int b = lane; b < ng; b += 32) {
+      Head& h = M.head[b];
+      h.gray = S == 2 ? 1 : (is_gray(d, M.blk[b]) ? 1 : 0);
+      if (h.gray) screen_totals(M.blk[b], h.sq_all, h.s_all);
+    }
+  }
+  WARP_SYNC();
+
+  // The screen, block by block.
+  for (int b = 0; b < ng; ++b) {
+    if (!M.head[b].gray) continue;
+    const Blk<MT>& B = M.blk[b];
+    const Head& h = M.head[b];
+    warp_topk(
+        [&](int u) {
+          const int* m = masks + u * np * nw;
+          return S == 2 ? screen_c(B, m, nw, h.sq_all, h.s_all) : screen_d(B, m, nw, h.sq_all, h.s_all);
+        },
+        U, k, M.keys, M.cnt, M.ids + b * K);
+  }
+
+  // The rerank: a one-iteration fit of each (block, candidate), a lane each.
+  if (P.rerank) {
+    FOR_LANES(lane) {
+      for (int task = lane; task < ng * k; task += 32) {
+        const int b = task / k, i = task - b * k;
+        if (!M.head[b].gray) continue;
+        const Lay L = load_lay(d, lays[0]);
+        Fit<MT> F;
+        fit_parts(M.blk[b], L, make_part<MT>(masks + M.ids[b * K + i] * np * nw, np, nw), np + 1, 1, F);
+        M.ests[b * K + i] = F.err;
+      }
+    }
+    WARP_SYNC();
+  }
+
+  // The seeds, a lane per block: C keeps `keep` by rerank estimate, D the
+  // first of least error.
+  FOR_LANES(lane) {
+    for (int b = lane; b < ng; b += 32) {
+      if (!M.head[b].gray) continue;
+      const int* ids = M.ids + b * K;
+      const float* ests = M.ests + b * K;
+      int* seeds = M.seeds + b * K;
+      if (S == 2) {
+        if (P.rerank) {
+          rank_keep(ids, ests, k, P.keep, seeds);
+        } else {
+          for (int i = 0; i < k; ++i) seeds[i] = ids[i];
+        }
+      } else {
+        int seed = ids[0];
+        if (P.rerank) {
+          float be = 0.0f;
+          for (int i = 0; i < k; ++i)
+            if (i == 0 || ests[i] < be) {
+              seed = ids[i];
+              be = ests[i];
+            }
+        }
+        seeds[0] = seed;
       }
     }
   }
-  pids_of(masks, seed, 3, nw, T, pid);
-  for (int li = 0; li < d[H_ND]; ++li) {
-    const Lay L = load_lay(d, lays[li]);
-    Fit F;
-    fit_parts(B, L, pid, 4, d[H_ITERS], F);
-    uint32_t lw[4];
-    pack_fit(d, L, F, 0, seed, lw);
-    if (li == 0) {
-      for (int k = 0; k < 4; ++k) w[k] = lw[k];
-      e = F.err;
-    } else {
-      take_if(w, e, lw, F.err);
+  WARP_SYNC();
+
+  // The final fits, a lane each: C one per kept seed, D one per layout on
+  // the block's seed.
+  FOR_LANES(lane) {
+    for (int task = lane; task < ng * P.nfin; task += 32) {
+      const int b = task / P.nfin, j = task - b * P.nfin;
+      if (!M.head[b].gray) continue;
+      const int seed = M.seeds[b * K + (S == 2 ? j : 0)];
+      const Lay L = load_lay(d, lays[S == 2 ? 0 : j]);
+      Fit<MT> F;
+      fit_parts(M.blk[b], L, make_part<MT>(masks + seed * np * nw, np, nw), np + 1, d[H_ITERS], F);
+      pack_fit(d, L, F, 0, S == 2 ? d[d[H_OFF_S3] + seed] : seed, M.words + (b * K + j) * 4);
+      M.errs[b * K + j] = F.err;
     }
   }
+  WARP_SYNC();
+
+  // The winner, a lane per block: the candidates in order, strict <.
+  FOR_LANES(lane) {
+    for (int b = lane; b < ng; b += 32) {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      float e = kInf;
+      if (M.head[b].gray && P.nfin > 0) {
+        for (int x = 0; x < 4; ++x) w[x] = M.words[b * K * 4 + x];
+        e = M.errs[b * K];
+        for (int j = 1; j < P.nfin; ++j) take_if(w, e, M.words + (b * K + j) * 4, M.errs[b * K + j]);
+      }
+      for (int x = 0; x < 4; ++x) out_w[(i0 + b) * 4 + x] = w[x];
+      out_e[i0 + b] = e;
+    }
+  }
+  WARP_SYNC();
 }
 
-// One block through one entry (0..3 = a..d).
-__device__ void encode_stage(int stage, const int* d, const float* src, uint32_t w[4], float& e) {
-  Blk B;
-  load_block(src, d[H_T], B);
-  if (stage == 0)
-    body_a(d, B, w, e);
-  else if (stage == 1)
-    body_b(d, B, w, e);
-  else if (stage == 2)
-    body_c(d, B, w, e);
-  else
-    body_d(d, B, w, e);
+#ifndef __CUDACC__
+
+// Entry `stage` (0..3 = a..d) on n blocks on the CPU, arrays sized by the
+// texel class MT: A and B block by block, C and D through the warp body
+// (its lanes one after another), groups of WarpPlan::group blocks.
+template <int MT>
+inline void encode_stage_t(int stage, const int* d, const float* blocks, int n, uint32_t* words,
+                           float* err) {
+  const int T = d[H_T];
+  if (stage < 2) {
+    for (int i = 0; i < n; ++i) {
+      Blk<MT> B;
+      load_block(blocks + (size_t)i * T * 4, T, B);
+      if (stage == 0)
+        body_a(d, B, words + 4 * i, err[i]);
+      else
+        body_b(d, B, words + 4 * i, err[i]);
+    }
+    return;
+  }
+  const WarpPlan P = warp_plan<MT>(stage, d);
+  unsigned char* smem = (unsigned char*)aligned_alloc(16, P.masks_bytes + P.warp_bytes);
+  memcpy(smem, d + d[stage == 2 ? H_OFF_P3 : H_OFF_P4], (size_t)P.mask_words * 4);
+  for (int i0 = 0; i0 < n; i0 += P.group) {
+    const int ng = n - i0 < P.group ? n - i0 : P.group;
+    if (stage == 2)
+      encode_group<2, MT>(d, (const int*)smem, P, blocks, i0, ng, smem + P.masks_bytes, words, err);
+    else
+      encode_group<3, MT>(d, (const int*)smem, P, blocks, i0, ng, smem + P.masks_bytes, words, err);
+  }
+  free(smem);
 }
+
+// Entry `stage` on n blocks [n, T, 4] -> words [n, 4], errors [n].
+inline void encode_stage(int stage, const int* d, const float* blocks, int n, uint32_t* words, float* err) {
+  by_texel_class(d[H_T], [&](auto c) {
+    encode_stage_t<decltype(c)::value>(stage, d, blocks, n, words, err);
+  });
+}
+
+#endif  // !__CUDACC__
 
 #ifdef __CUDACC__
 
-template <int S>
+// Entries A (S = 0) and B (S = 1): one thread per block.
+template <int S, int MT>
 __global__ void __launch_bounds__(kThreads)
     astc_kernel(const float* __restrict__ blocks, const int* __restrict__ desc,
                 uint4* __restrict__ words, float* __restrict__ err, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int T = desc[H_T];
+  Blk<MT> B;
+  load_block(blocks + (size_t)i * T * 4, T, B);
   uint32_t w[4];
   float e;
-  encode_stage(S, desc, blocks + (size_t)i * T * 4, w, e);
+  if (S == 0)
+    body_a(desc, B, w, e);
+  else
+    body_b(desc, B, w, e);
   words[i] = make_uint4(w[0], w[1], w[2], w[3]);
   err[i] = e;
 }
 
-inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
+// Entries C (S = 2) and D (S = 3): kWarps warps a CTA, a warp per group of
+// blocks; the masks are staged once per CTA.
+template <int S, int MT>
+__global__ void __launch_bounds__(kWarps * 32)
+    astc_warp_kernel(const float* __restrict__ blocks, const int* __restrict__ desc,
+                     uint32_t* __restrict__ words, float* __restrict__ err, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WarpPlan P = warp_plan<MT>(S, desc);
+  int* masks = (int*)smem;
+  const int* src = desc + desc[S == 2 ? H_OFF_P3 : H_OFF_P4];
+  for (int i = threadIdx.x; i < P.mask_words; i += blockDim.x) masks[i] = src[i];
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const long long i0 = ((long long)blockIdx.x * kWarps + warp) * P.group;
+  if (i0 >= n) return;
+  const int ng = n - i0 < P.group ? (int)(n - i0) : P.group;
+  encode_group<S, MT>(desc, masks, P, blocks, i0, ng, smem + P.masks_bytes + warp * P.warp_bytes,
+                      words, err);
+}
 
-template <int S>
-int launch(const void* blocks, const void* desc, void* words, void* err, int n, void* stream) {
-  if (n <= 0) return 0;
-  astc_kernel<S><<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)blocks, (const int*)desc, (uint4*)words, (float*)err, n);
+// Raises the dynamic shared memory limit of astc_warp_kernel<S, MT> to
+// `bytes` where it is above the default 48 KB: once per instance, device
+// and size, since the limit stays set for later launches.
+template <int S, int MT>
+cudaError_t allow_smem(int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  static std::mutex mu;
+  static int allowed[64] = {};  // per device
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  std::lock_guard<std::mutex> lock(mu);
+  if (dev < 64 && bytes <= allowed[dev]) return cudaSuccess;
+  rc = cudaFuncSetAttribute(astc_warp_kernel<S, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            bytes);
+  if (rc == cudaSuccess && dev < 64) allowed[dev] = bytes;
+  return rc;
+}
+
+template <int S, int MT>
+int launch_mt(const void* blocks, const void* desc, const int* hdr, void* words, void* err, int n,
+              cudaStream_t stream) {
+  if constexpr (S < 2) {
+    astc_kernel<S, MT><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+        (const float*)blocks, (const int*)desc, (uint4*)words, (float*)err, n);
+  } else {
+    const WarpPlan P = warp_plan<MT>(S, hdr);
+    const long long per_cta = (long long)kWarps * P.group;
+    const cudaError_t rc = allow_smem<S, MT>(P.smem_bytes);
+    if (rc != cudaSuccess) return (int)rc;
+    astc_warp_kernel<S, MT><<<(unsigned)((n + per_cta - 1) / per_cta), kWarps * 32, P.smem_bytes,
+                              stream>>>((const float*)blocks, (const int*)desc, (uint32_t*)words,
+                                        (float*)err, n);
+  }
   return (int)cudaGetLastError();
+}
+
+// The template instance of the block's texel class.
+template <int S>
+int launch(const void* blocks, const void* desc, const void* hdr, void* words, void* err, int n,
+           void* stream) {
+  if (n <= 0) return 0;
+  const int T = ((const int*)hdr)[H_T];
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (T < 16 || T > kMaxT) return (int)cudaErrorInvalidValue;
+  return by_texel_class(T, [&](auto c) {
+    return launch_mt<S, decltype(c)::value>(blocks, desc, (const int*)hdr, words, err, n, s);
+  });
 }
 
 #endif  // __CUDACC__
@@ -1224,23 +1697,36 @@ int launch(const void* blocks, const void* desc, void* words, void* err, int n, 
 
 // Each launcher launches on `stream` and returns cudaGetLastError() (the
 // launch is not synchronised).  blocks: [n, T, 4] float32; desc: the int32
-// descriptor of astc_cuda.py:descriptor; words: [n, 4] uint32; err: [n]
+// descriptor of astc_cuda.py:descriptor on the device, hdr: the same on
+// the host (the launch reads its header); words: [n, 4] uint32; err: [n]
 // float32.
-extern "C" int astc_a_launch(const void* blocks, const void* desc, void* words, void* err, int n,
-                             void* stream) {
-  return astcx::launch<0>(blocks, desc, words, err, n, stream);
+extern "C" int astc_a_launch(const void* blocks, const void* desc, const void* hdr, void* words,
+                             void* err, int n, void* stream) {
+  return astcx::launch<0>(blocks, desc, hdr, words, err, n, stream);
 }
-extern "C" int astc_b_launch(const void* blocks, const void* desc, void* words, void* err, int n,
-                             void* stream) {
-  return astcx::launch<1>(blocks, desc, words, err, n, stream);
+extern "C" int astc_b_launch(const void* blocks, const void* desc, const void* hdr, void* words,
+                             void* err, int n, void* stream) {
+  return astcx::launch<1>(blocks, desc, hdr, words, err, n, stream);
 }
-extern "C" int astc_c_launch(const void* blocks, const void* desc, void* words, void* err, int n,
-                             void* stream) {
-  return astcx::launch<2>(blocks, desc, words, err, n, stream);
+extern "C" int astc_c_launch(const void* blocks, const void* desc, const void* hdr, void* words,
+                             void* err, int n, void* stream) {
+  return astcx::launch<2>(blocks, desc, hdr, words, err, n, stream);
 }
-extern "C" int astc_d_launch(const void* blocks, const void* desc, void* words, void* err, int n,
-                             void* stream) {
-  return astcx::launch<3>(blocks, desc, words, err, n, stream);
+extern "C" int astc_d_launch(const void* blocks, const void* desc, const void* hdr, void* words,
+                             void* err, int n, void* stream) {
+  return astcx::launch<3>(blocks, desc, hdr, words, err, n, stream);
+}
+
+// The warp plan of entry C (stage 2) or D (3) for the host descriptor hdr:
+// out = {blocks a warp, dynamic shared memory bytes a CTA, of it the
+// staged masks}.
+extern "C" void astc_warp_plan(int stage, const void* hdr, int* out) {
+  const int* h = (const int*)hdr;
+  const astcx::WarpPlan P = astcx::by_texel_class(
+      h[astcx::H_T], [&](auto c) { return astcx::warp_plan<decltype(c)::value>(stage, h); });
+  out[0] = P.group;
+  out[1] = P.smem_bytes;
+  out[2] = P.masks_bytes;
 }
 
 #endif  // __CUDACC__

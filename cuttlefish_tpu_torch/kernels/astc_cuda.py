@@ -14,9 +14,13 @@ It is uploaded once per device and configuration.
 Four entries, one per TPU kernel: ``astc_a`` .. ``astc_d``.  Each checks
 device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, launches on the current stream, raises on a non-zero
-launch status and counts its launches in ``launches``.  ``encode_astc_cuda``
-runs the entries that ``encode_astc_pallas`` runs and merges their words as
-it does.  The library is built on first use (``kernels/_build.py``).
+launch status and counts its launches in ``launches``.  The launcher also
+reads the host copy of the descriptor's header: it picks the template
+instance of the block's texel class and, for ``astc_c`` and ``astc_d`` (a
+warp per group of blocks), the group size and the dynamic shared memory.
+``encode_astc_cuda`` runs the entries that ``encode_astc_pallas`` runs and
+merges their words as it does.  The library is built on first use
+(``kernels/_build.py``).
 """
 
 from __future__ import annotations
@@ -219,10 +223,24 @@ def _lib() -> ctypes.CDLL:
     if not _bound:
         for name in launches:
             fn = getattr(lib, f"{name}_launch")
-            fn.argtypes = [_P, _P, _P, _P, _I, _P]
+            fn.argtypes = [_P, _P, _P, _P, _P, _I, _P]
             fn.restype = ctypes.c_int
+        lib.astc_warp_plan.argtypes = [_I, _P, _P]
+        lib.astc_warp_plan.restype = None
         _bound = True
     return lib
+
+
+def warp_plan(stage, bw, bh, quality, gray=True, alpha=True) -> dict:
+    """How entry ``"c"`` or ``"d"`` launches for this configuration:
+    blocks a warp (``group``), dynamic shared memory a CTA (``smem_bytes``)
+    and of it the staged pattern masks (``mask_bytes``)."""
+    if stage not in ("c", "d"):
+        raise ValueError(f"only entries c and d run a warp per group, not {stage!r}")
+    out = (ctypes.c_int * 3)()
+    host = descriptor(int(bw), int(bh), int(quality), bool(gray), bool(alpha))
+    _lib().astc_warp_plan("abcd".index(stage), host.ctypes.data, out)
+    return {"group": out[0], "smem_bytes": out[1], "mask_bytes": out[2]}
 
 
 def _check(blocks: torch.Tensor, t_count: int) -> None:
@@ -250,13 +268,16 @@ def stage_cuda(stage, blocks, bw, bh, quality, gray=True, alpha=True):
     err = torch.empty((n,), dtype=torch.float32, device=blocks.device)
     if n == 0:
         return words, err
-    desc = _desc_on(blocks.device, (bw, bh, quality, bool(gray), bool(alpha)))
+    key = (bw, bh, quality, bool(gray), bool(alpha))
+    desc = _desc_on(blocks.device, key)
+    host = descriptor(*key)  # cached: the pointer stays valid
     name = f"astc_{stage}"
     lib = _lib()
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream(blocks.device).cuda_stream
         rc = getattr(lib, f"{name}_launch")(
-            blocks.data_ptr(), desc.data_ptr(), words.data_ptr(), err.data_ptr(), n, stream
+            blocks.data_ptr(), desc.data_ptr(), host.ctypes.data, words.data_ptr(),
+            err.data_ptr(), n, stream
         )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")

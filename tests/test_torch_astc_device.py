@@ -6,6 +6,11 @@ with g++ and a counting float type to count the operations of each entry
 (``astc_op_counter``).  That build must give the plain version's words, bit
 for bit, on every entry: here on seeded blocks at 4x4 q4 (near-gray with
 alpha: all four entries) and at 12x12 q2 (decimated grids, Gauss-Seidel).
+Entries C and D run there as the card runs them, a warp per group of
+blocks, with the warp's 32 lanes simulated one after another: their words
+and errors must equal the plain version's at 4x4 and 8x8 q4 (block counts
+that leave the last group short), on blocks whose screen estimates tie,
+and the warp's merged top-k must be the sequential scan's.
 """
 
 import shutil
@@ -39,7 +44,79 @@ def test_device_code_equals_plain_version(count_ops, case):
     stages = astc.stages(bw, bh, q, gray, alpha)
     assert stages == (["a", "b", "c", "d"] if q == 4 else ["a", "b"])
     for stage in stages:
-        ops, words = count_ops(stage, b, bw, bh, q, gray, alpha)
+        ops, words, _ = count_ops(stage, b, bw, bh, q, gray, alpha)
         want = astc.stage_plain(stage, torch.from_numpy(b), bw, bh, q, gray, alpha)[0].numpy()
         assert np.array_equal(words, want), stage
         assert ops > 100 * bw * bh, stage
+
+
+def _same_as_plain(count_ops, stage, b, bw, bh, q):
+    gray, alpha = astc_tables.has_gray_blocks(b), astc_tables.has_alpha_blocks(b)
+    assert stage in astc.stages(bw, bh, q, gray, alpha)
+    _, words, err = count_ops(stage, b, bw, bh, q, gray, alpha)
+    want_w, want_e = astc.stage_plain(stage, torch.from_numpy(b), bw, bh, q, gray, alpha)
+    assert np.array_equal(words, want_w.numpy()), stage
+    assert np.array_equal(err.view(np.uint32), want_e.numpy().view(np.uint32)), stage
+
+
+# Near-gray alpha blocks; 37 and 21 blocks leave the last group of the
+# warp (C: 10 blocks at 4x4, D: 16; 8 at 8x8) short.
+@pytest.mark.parametrize("stage", ["c", "d"])
+@pytest.mark.parametrize("case", [(4, 4, 37), (8, 8, 21)], ids=["4x4_q4", "8x8_q4"])
+def test_warp_entries_equal_plain_version(count_ops, case, stage):
+    bw, bh, n = case
+    _same_as_plain(count_ops, stage, astc_blocks(n, bw * bh, "gray_alpha", seed=11), bw, bh, 4)
+
+
+def _tie_blocks(t: int) -> np.ndarray:
+    """Near-gray alpha blocks whose screen estimates tie: flat blocks (every
+    valid pattern scores the same), two- and three-level blocks in stripes
+    and checkerboards, one odd texel in a flat block, and a random block
+    of repeated texels."""
+    rng = np.random.default_rng(5)
+    side = int(round(t ** 0.5))
+    idx = np.arange(t)
+    x, y = idx % side, idx // side
+    levels = [0.0, 0.5, 1.0, 0.25]
+    out = []
+    for v in levels:
+        out.append(np.full((t, 4), v))
+        out.append(np.full((t, 4), v) * np.array([1, 1, 1, 0.5]))
+    for mask in ((x + y) % 2, x % 2, (x >= side // 2).astype(int), (idx % 3)):
+        lv = np.array([0.2, 0.8, 0.5])[mask]
+        blk = np.repeat(lv[:, None], 4, axis=1)
+        blk[:, 3] = 1.0 - lv
+        out.append(blk)
+    odd = np.full((t, 4), 0.4)
+    odd[t // 2] = 0.9
+    out.append(odd)
+    rep = rng.choice([0.1, 0.6], size=(t,))
+    out.append(np.repeat(rep[:, None], 4, axis=1))
+    b = np.stack(out).astype(np.float32)
+    return np.round(b * 255).astype(np.uint8).astype(np.float32) * np.float32(1 / 255)
+
+
+@pytest.mark.parametrize("stage", ["c", "d"])
+@pytest.mark.parametrize("bw", [4, 8], ids=["4x4_q4", "8x8_q4"])
+def test_warp_entries_on_tied_estimates(count_ops, bw, stage):
+    _same_as_plain(count_ops, stage, _tie_blocks(bw * bw), bw, bw, 4)
+
+
+# (patterns, k, estimates drawn from): many ties, infinities (invalid
+# patterns), -0.0 beside 0.0, fewer finite estimates than k, fewer
+# patterns than k.
+@pytest.mark.parametrize("case", [
+    (632, 6, [1.5, 2.0, 2.0, np.inf]), (1024, 2, [0.0, -0.0, 3.0]),
+    (1024, 16, [np.inf] * 30 + [7.0]), (812, 1, [4.0, 4.0, 9.0]),
+    (40, 16, [np.inf]), (5, 6, [1.0, 2.0]), (924, 6, None),
+], ids=["c_4x4", "zeros", "few_finite", "k1", "all_inf", "short", "distinct"])
+def test_warp_topk_equals_sequential_scan(count_ops, case):
+    u, k, pool = case
+    rng = np.random.default_rng(u + k)
+    v = (rng.standard_normal(u) if pool is None else rng.choice(pool, size=u)).astype(np.float32)
+    got = np.zeros(k, np.int32)
+    want = np.zeros(k, np.int32)
+    count_ops.lib.astc_topk(v.ctypes.data, u, k, got.ctypes.data, want.ctypes.data)
+    assert np.array_equal(got, want), (got, want)
+    finite = [i for i in np.argsort(v, kind="stable")][:k]
+    assert list(want[:min(k, u)]) == finite[:min(k, u)]

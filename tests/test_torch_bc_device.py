@@ -1,0 +1,85 @@
+"""The BC kernels' device code against the plain versions on the CPU.
+
+``chip_smoke.py`` bounds PERF rows 1-8 by the float operations of the
+device code of ``csrc/bc7_encode.cu``, ``bc7_hq_encode.cu``,
+``bc_encode.cu`` and ``bc6h_encode.cu``, counted by a g++ build with a
+counting float type (``bc_op_counter``).  That build must give the plain
+version's words bit for bit: here on seeded blocks (flat, two-tone,
+gradients, random) through the wire each converter uses, for every row
+the smoke run counts.
+"""
+
+import shutil
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from cuttlefish_tpu_torch.convert.device import dequant, wire
+from cuttlefish_tpu_torch.kernels import _build, bc, bc6h, bc7
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def count_bc(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    return chip_smoke.bc_op_counter(str(_build.CSRC), str(tmp_path_factory.mktemp("bc")))
+
+
+def _blocks(n: int, scale: float = 1.0) -> np.ndarray:
+    rng = np.random.default_rng(3)
+    b = np.clip(rng.random((n, 1, 4)) + rng.normal(0, 0.15, (n, 16, 4)), 0, 1)
+    k = n // 4
+    b[:k] = b[:k, :1]  # flat
+    b[k:2 * k, 8:] = b[k:2 * k, :1]  # two-tone
+    b[k:2 * k, :8] = b[k:2 * k, 15:]
+    ramp = np.linspace(0, 1, 16)[None, :, None]
+    b[2 * k:3 * k] = b[2 * k:3 * k, :1] * (1 - ramp) + b[2 * k:3 * k, 15:] * ramp  # gradients
+    return (b * scale).astype(np.float32)
+
+
+def _input(kind: str) -> torch.Tensor:
+    if kind == "rgba":
+        b = _blocks(40)
+        b[..., 3] = 1.0
+        return dequant(wire(b, "u8"))
+    if kind == "alpha":
+        return dequant(wire(_blocks(40), "u8"))
+    if kind == "alpha1":
+        return dequant(wire(_blocks(40), "u8"))[..., 3].contiguous()
+    if kind == "signed":
+        return dequant(wire(_blocks(40) * 2 - 1, "f16"))
+    hdr = _blocks(24) * np.exp2(np.linspace(-12, 10, 24, dtype=np.float32))[:, None, None]
+    return dequant(wire(hdr, "f16"))[..., :3].contiguous()
+
+
+_CONSTS = bc7._constants(False, "cpu")
+# row -> (input kind, plain version)
+_ROWS = {
+    "bc7_q2": ("rgba", lambda x: bc7.encode_bc7_plain(x, 2, _CONSTS)),
+    "bc7_q3": ("rgba", lambda x: bc7.encode_bc7_plain(x, 3, _CONSTS)),
+    "bc7_q4": ("alpha", lambda x: bc7.encode_bc7_plain(x, 4, _CONSTS)),
+    "bc1_q2": ("rgba", lambda x: bc.encode_bc1_plain(x, 2)),
+    "bc2_q2": ("alpha", lambda x: bc.encode_bc2_plain(x, 2)),
+    "bc3_q2": ("alpha", lambda x: bc.encode_bc3_plain(x, 2)),
+    "bc4_q2": ("alpha1", lambda x: bc.encode_bc4_plain(x, 2)),
+    "bc5s_q2": ("signed", lambda x: bc.encode_bc5_plain(x, 2, True)),
+    "bc6h_q2": ("hdr", lambda x: bc6h.encode_bc6h_plain(x, 2, False, "value")),
+    "bc6h_q4": ("hdr", lambda x: bc6h.encode_bc6h_plain(x, 4, False, "value")),
+}
+
+
+@pytest.mark.parametrize("row", list(_ROWS))
+def test_counting_build_equals_plain_version(count_bc, row):
+    kind, plain = _ROWS[row]
+    x = _input(kind)
+    ops, words = count_bc(row, x.numpy())
+    want = plain(x).numpy()
+    assert words.dtype == want.dtype == np.uint32
+    assert np.array_equal(words, want), row
+    assert ops > 1000, row

@@ -326,6 +326,33 @@ def test_astc_kernel_matches_plain_on_card(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bw", [4, 8, 12], ids=["4x4_q4", "8x8_q4", "12x12_q4"])
+def test_astc_warp_entries_launch_shapes(cuda, bw):
+    """Entries C and D run a warp per group of blocks, 4 warps a CTA, with
+    the pattern masks staged in dynamic shared memory (D at 12x12: above
+    48 KB).  A block count that leaves the last CTA part-filled, one block
+    and none: words and errors equal the plain version's."""
+    b = _astc_input(bw, bw, "gray_alpha", 600)
+    gray, alpha = astc_tables.has_gray_blocks(b), astc_tables.has_alpha_blocks(b)
+    assert astc.stages(bw, bw, 4, gray, alpha) == ["a", "b", "c", "d"]
+    x = torch.from_numpy(b).to(cuda)
+    for stage in ("c", "d"):
+        plan = astc_cuda.warp_plan(stage, bw, bw, 4, gray, alpha)
+        assert 1 <= plan["group"] <= 32 and plan["smem_bytes"] > plan["mask_bytes"] > 0
+        if bw == 12 and stage == "d":
+            assert plan["smem_bytes"] > 48 * 1024
+        n = 4 * plan["group"] * 2 + 3
+        for m in (n, 1):
+            wk, ek = astc_cuda.stage_cuda(stage, x[:m], bw, bw, 4, gray, alpha)
+            torch.cuda.synchronize()
+            wp, ep = astc.stage_plain(stage, x[:m], bw, bw, 4, gray, alpha)
+            assert torch.equal(wk.view(torch.int32).cpu(), wp.view(torch.int32).cpu()), (stage, m)
+            assert torch.equal(ek.cpu(), ep.cpu()), (stage, m)
+        wk, ek = astc_cuda.stage_cuda(stage, x[:0], bw, bw, 4, gray, alpha)
+        assert tuple(wk.shape) == (0, 4) and tuple(ek.shape) == (0,)
+
+
+@pytest.mark.gpu
 def test_astc_kernels_reject_bad_input(cuda):
     x = torch.zeros((8, 16, 4), device=cuda)
     with pytest.raises(TypeError):
