@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (cuttlefish_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent SRC ...]
 
 Drives the port's paths once at the bench size, on 2048x2048 RGBA
 surfaces made from a seed (the formula of bench.py:_test_surface, seed 0,
@@ -14,9 +14,12 @@ exits non-zero:
    and power limit (nvidia-smi), torch and CUDA versions; TF32 off.
 2. build: one nvcc per csrc/*.cu for sm_90a, all started together, and the
    native codecs with g++; prints the seconds and what ptxas reports
-   (registers, spills) for every kernel entry, a line per ASTC entry
-   (registers, stack, spills, shared memory) and the dynamic shared memory
-   and blocks a warp of ASTC entries C and D.
+   (registers, spills) for every kernel entry, a line per ASTC and ETC
+   entry (registers, stack, spills, shared memory), the dynamic shared
+   memory and blocks a warp of ASTC entries C and D and the shared memory a
+   CTA of the ETC RGB and RGBA8 entries.  With --parent SRC, also that
+   earlier copy of a BC or ETC csrc/*.cu (kept outside the tree, its
+   headers beside it, its launchers this tree's) for phase 5.
 3. kernel vs plain: the 262,144 blocks of the surface through each kernel
    and through its plain PyTorch version on the card: >= 99 % identical
    blocks, |dPSNR| <= 0.05 dB on a decoded sample of 4,096 blocks.  BC7 q0,
@@ -58,12 +61,18 @@ exits non-zero:
    entries A and B at 4x4 q2 on the colour surface and at 8x8 q2, C and D
    at 4x4 q4 and 8x8 q4 on the near-gray alpha surface); each main-path
    convert (host clock, synchronised) median of 5, and each of its phases'
-   median over the same 5.
+   median over the same 5.  The unit-weight ETC RGB and RGBA8 cases also
+   print the bound with the products by the weights counted, which a
+   product by 1 does not need.  With --parent, every case of the rows whose source it
+   names goes through the earlier build too (a second instance of the
+   source's wrapper module, kernels/<name>_cuda.py, bound to it), timed in
+   turns with this tree's (earlier, this, this, earlier), words identical.
 
 Then one JSON line of kernels (launches from the paths of phase 4; bound_ms
 from this run's inputs: the larger of the bytes the function must move over
 3.35 TB/s and its operations over 67 TFLOP/s: for ETC/EAC the float
-operations the function needs, etc_rgb_ops and eac_ops, for BC and ASTC
+operations the function needs on those inputs, etc_rgb_ops (no products
+by unit channel weights) and eac_ops, for BC and ASTC
 those of its device code on a sample of the blocks, bc_op_counter and
 astc_op_counter),
 and as the last line
@@ -72,6 +81,7 @@ and as the last line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -210,27 +220,30 @@ def event_ms(torch, fn, reps: int) -> float:
 # its sub-block and builds the 2-bit indices of its winner alone; the plain
 # version computes every texel under a sub-block mask and the indices of
 # every candidate, about twice this.  A clamp counts 2 (max, min); integer
-# work and the packing of the words are not counted.
-ETC_PIX = 11  # sum_c w_c * (x_c - p_c)^2 at one texel: 3 sub, 6 mul, 2 add
+# work and the packing of the words are not counted.  With unit channel
+# weights (every linear texture) a product by a weight is exact and not
+# needed: 3 fewer at each texel-entry error, 1 fewer at each planar texel.
 ETC_ENTRY = 9  # p_c = clamp(base_c + modifier): 3 add, 3 clamps
-PLANAR_TEXEL = 12  # w * (x - clamp(floor((a*x + b*y + 4*o + 2) * 0.25)))^2
-TH_TEXEL = 4 * ETC_PIX + 3 + 1  # 4 entries, 3 compares, 1 add
 
 
-def _nearest_sum(entries: int, texels: int) -> int:
-    """Each texel's least error over `entries` palette entries, summed:
-    the entries, then per texel one error per entry, the mins, one add."""
-    return entries * ETC_ENTRY + texels * entries * (ETC_PIX + 1)
+def etc_rgb_ops(quality: int, etc2: bool, weighted: bool) -> int:
+    """Float operations of one block's ETC1 (ETC2) RGB sweep (rgb_words);
+    weighted: the channel weights are not all 1."""
+    pix = 11 if weighted else 8  # sum_c w_c * (x_c - p_c)^2: 3 sub, 3 squares, 3 w, 2 add
+    planar_texel = 12 if weighted else 11  # w * (x - clamp(floor((a*x + b*y + 4*o + 2) * 0.25)))^2
+    th_texel = 4 * pix + 3 + 1  # 4 entries, 3 compares, 1 add
 
+    def nearest_sum(entries: int, texels: int) -> int:
+        """Each texel's least error over `entries` palette entries, summed:
+        the entries, then per texel one error per entry, the mins, one add."""
+        return entries * ETC_ENTRY + texels * entries * (pix + 1)
 
-def etc_rgb_ops(quality: int, etc2: bool) -> int:
-    """Float operations of one block's ETC1 (ETC2) RGB sweep (rgb_words)."""
     others = (1 if quality < 2 else 27 if quality < 4 else 31) - 1
     keep = 0 if quality < 2 else 4 if quality < 4 else 8
-    fit = 8 * _nearest_sum(4, 8) + 7  # 8 tables of 8 members, first least
+    fit = 8 * nearest_sum(4, 8) + 7  # 8 tables of 8 members, first least
     centre = fit + 7  # and the runner-up table
-    restricted = _nearest_sum(8, 8)  # the estimate of one offset
-    bits = 4 * ETC_ENTRY + 8 * (4 * ETC_PIX + 3)  # the winner's indices
+    restricted = nearest_sum(8, 8)  # the estimate of one offset
+    bits = 4 * ETC_ENTRY + 8 * (4 * pix + 3)  # the winner's indices
     topk = keep * (others - 1)
     if keep:
         diff = (24 + 2 * centre + 1 + others * (9 + 2 * restricted + 1) + topk
@@ -244,11 +257,11 @@ def etc_rgb_ops(quality: int, etc2: bool) -> int:
     ops = 2 * flip - 1  # the first offer compares nothing
     if etc2:
         refine = quality >= 4
-        chan = 3 + 16 * (PLANAR_TEXEL + 1)
-        ops += 315 + (3 * (27 * chan + 26) if refine else 0) + 9 + 16 * (3 * PLANAR_TEXEL + 3)
+        chan = 3 + 16 * (planar_texel + 1)
+        ops += 315 + (3 * (27 * chan + 26) if refine else 0) + 9 + 16 * (3 * planar_texel + 3)
         ops += 724  # the principal-axis split of T and H
         for pal, h in ((18, 0), (36, 1)):  # T, H
-            cand = pal + 16 * TH_TEXEL + h
+            cand = pal + 16 * th_texel + h
             ops += 48 + 16 * cand + 15 + (2 * 44 * (cand + 1) if refine else 0)
         ops += 3  # the planar, T and H offers
     return ops
@@ -275,6 +288,7 @@ COUNT_PRELUDE = r"""
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
 #define __constant__
+#define __shared__
 #define __launch_bounds__(x)
 #define __restrict__
 using std::abs;
@@ -382,6 +396,59 @@ def astc_op_counter(csrc: str, tmp: str):
 
     count.lib = lib
     return count
+
+
+def build_earlier(src: str, out_dir: str):
+    """nvcc of an earlier copy of a csrc/<name>.cu (its headers beside it,
+    its launchers those of this tree's) with this package's flags -> (a
+    second instance of the wrapper module of <name>, with its own binding,
+    tables and launch counts, whose launches go to that build; the ptxas
+    log)."""
+    import ctypes
+    import importlib.util
+    import types
+
+    from cuttlefish_tpu_torch.kernels import _build
+
+    name = os.path.basename(src).removesuffix(".cu")
+    so = os.path.join(out_dir, f"lib{name}_earlier.so")
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
+                          capture_output=True, text=True, timeout=600)
+    check(done.returncode == 0, f"nvcc {src} failed:\n{done.stderr[-3000:]}")
+    lib = ctypes.CDLL(so)
+    spec = importlib.util.find_spec(
+        f"cuttlefish_tpu_torch.kernels.{name.replace('_encode', '_cuda')}")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    twin._build = types.SimpleNamespace(load=lambda _name: lib)
+    return twin, done.stdout + done.stderr
+
+
+def launched(wrapper) -> int:
+    """All launches a wrapper module has counted (an int or a dict of them)."""
+    counts = wrapper.launches
+    return counts if isinstance(counts, int) else sum(counts.values())
+
+
+@contextlib.contextmanager
+def routed_to(twin):
+    """Within: the package's kernel calls of twin's source launch twin's
+    build (kernels/bc.py, etc.py, ... import their wrapper module at each
+    call)."""
+    import cuttlefish_tpu_torch.kernels as pkg
+
+    short = twin.__name__.rsplit(".", 1)[1]
+    saved = getattr(pkg, short)
+    setattr(pkg, short, twin)
+    try:
+        yield
+    finally:
+        setattr(pkg, short, saved)
+
+
+def smem_bytes(entry_line: str) -> int:
+    """Static shared memory of a ptxas_entries line."""
+    return int(entry_line.rsplit("static shared memory", 1)[1].split("bytes")[0])
 
 
 # The BC kernels' device code under the counting float, one library per
@@ -589,8 +656,16 @@ def ptxas_entries(log_text: str) -> list[str]:
     return out
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    ap.add_argument("--parent", action="append", default=[], metavar="SRC",
+                    help="an earlier copy of a csrc/*.cu of the BC or ETC kernels, its headers "
+                    "beside it: phase 5 times its cases in turns with this tree's")
+    args = ap.parse_args(argv)
 
     # 1. device
     if not torch.cuda.is_available():
@@ -638,6 +713,21 @@ def main() -> int:
             log("build", f"ptxas {name}: {line}")
     for line in ptxas_entries(_build.build_info["astc_encode"]["log"]):
         log("build", f"ptxas astc_encode entry {line}")
+    for line in ptxas_entries(_build.build_info["etc_encode"]["log"]):
+        log("build", f"ptxas etc_encode entry {line}")
+        for entry in ("etc_rgb_kernel", "etc2_rgba_kernel"):
+            if entry in line.split(":")[0]:
+                log("build", f"{entry}: 128 threads a CTA, {smem_bytes(line)} bytes of static "
+                    f"shared memory a CTA (its blocks' texels)")
+    parent_dir = tempfile.TemporaryDirectory()
+    earlier = {}  # repo path of the source -> its earlier build's wrapper module
+    for src in args.parent:
+        t0 = time.perf_counter()
+        twin, parent_log = build_earlier(src, parent_dir.name)
+        earlier[f"cuttlefish_tpu_torch/csrc/{os.path.basename(src)}"] = twin
+        log("build", f"{src} (earlier file, for phase 5) in {time.perf_counter() - t0:.2f} s")
+        for line in ptxas_entries(parent_log):
+            log("build", f"ptxas {src} entry {line}")
     for bw, bh in ((4, 4), (8, 8), (12, 12)):
         for stage in ("c", "d"):
             plan = astc_cuda.warp_plan(stage, bw, bh, 4, True, True)
@@ -741,15 +831,18 @@ def main() -> int:
         )
 
     # This slice: ETC1/ETC2 RGB, ETC2 RGBA8 and EAC.  needed_ops: the float
-    # operations per block that each needs, its input's clamp and scale (3
-    # per value) included; the BC cases count their plain version instead.
-    needed_ops = {}
+    # operations per block that each needs on its own inputs (unit channel
+    # weights but the Rec.709 case), its input's clamp and scale (3 per
+    # value) included; weighted_ops: the unit-weight cases counted with the
+    # weight products too, printed beside them.
+    needed_ops, weighted_ops = {}, {}
     for q in (0, 1, 2, 4):
         cases[f"etc1_q{q}"] = (
             lambda x, q=q: etc.encode_etc_rgb(x, q), lambda x, q=q: etc.encode_etc_rgb_plain(x, q),
             "rgba", lambda r: decode_etc_rgb(r, False), slice(0, 3), 255.0,
         )
-        needed_ops[f"etc1_q{q}"] = 3 * 48 + etc_rgb_ops(q, False)
+        needed_ops[f"etc1_q{q}"] = 3 * 48 + etc_rgb_ops(q, False, False)
+        weighted_ops[f"etc1_q{q}"] = 3 * 48 + etc_rgb_ops(q, False, True)
     for q in (2, 4):
         cases[f"etc2_q{q}"] = (
             lambda x, q=q: etc.encode_etc_rgb(x, q, True),
@@ -761,13 +854,15 @@ def main() -> int:
             lambda x, q=q: etc.encode_etc2_rgba_plain(x, q),
             "alpha", decode_etc2_rgba, slice(0, 4), 255.0,
         )
-        needed_ops[f"etc2_q{q}"] = 3 * 48 + etc_rgb_ops(q, True)
-        needed_ops[f"etc2_rgba_q{q}"] = 3 * 64 + eac_ops(q, False) + etc_rgb_ops(q, True)
+        for w, ops in ((False, needed_ops), (True, weighted_ops)):
+            ops[f"etc2_q{q}"] = 3 * 48 + etc_rgb_ops(q, True, w)
+            ops[f"etc2_rgba_q{q}"] = 3 * 64 + eac_ops(q, False) + etc_rgb_ops(q, True, w)
     cases["etc2_q2_srgb"] = (
         lambda x: etc.encode_etc_rgb(x, 2, True, srgb709),
         lambda x: etc.encode_etc_rgb_plain(x, 2, True, srgb709),
         "rgba", lambda r: decode_etc_rgb(r, True), slice(0, 3), 255.0,
     )
+    needed_ops["etc2_q2_srgb"] = weighted_ops["etc2_q2"]
     cases["eac_alpha_q2"] = (
         lambda x: etc.encode_eac_alpha(x, 2), lambda x: etc.encode_eac_alpha_plain(x, 2),
         "alpha1", lambda r: decode_eac_alpha(r) / 255.0, None, 1.0,
@@ -1219,7 +1314,7 @@ def main() -> int:
          "cuttlefish_tpu/kernels/bc6h_pallas.py:584", 192, ("bc6h_q2",)),
         # This slice: the five entries of csrc/etc_encode.cu.
         ("etc_rgb_encode", "etc_rgb", "etc2_q2", "cuttlefish_tpu_torch/csrc/etc_encode.cu",
-         "cuttlefish_tpu/kernels/etc_pallas.py:1260", 256, ("etc2_q4", "etc1_q2")),
+         "cuttlefish_tpu/kernels/etc_pallas.py:1260", 256, ("etc2_q4", "etc1_q2", "etc2_q2_srgb")),
         ("etc2_rgba_encode", "etc2_rgba", "etc2_rgba_q2", "cuttlefish_tpu_torch/csrc/etc_encode.cu",
          "cuttlefish_tpu/kernels/etc_pallas.py:1276", 256, ("etc2_rgba_q4",)),
         ("eac_alpha_encode", "eac_alpha", "eac_alpha_q2", "cuttlefish_tpu_torch/csrc/etc_encode.cu",
@@ -1249,6 +1344,9 @@ def main() -> int:
         plain_ms = event_ms(torch, lambda: plain(x), 7)
         if case in needed_ops:
             ops, counted = needed_ops[case], "needed"
+            if case in weighted_ops:
+                counted += (f"; with the weight products {weighted_ops[case]}, bound "
+                            f"{n * weighted_ops[case] / F32_OPS_PER_S * 1e3:.4f} ms")
         else:
             xs = x[bc_samp].contiguous()
             ops, words = count_bc(case, xs.cpu().numpy())
@@ -1274,6 +1372,34 @@ def main() -> int:
         })
         for other in others:
             time_case(other, key, in_bytes)
+
+    # --parent: every case of the rows whose source was given, through the
+    # earlier build in turns with this tree's (earlier, this, this,
+    # earlier); the words must be the same.
+    check(set(earlier) <= {row[3] for row in kernel_rows},
+          f"--parent takes the sources of these rows: {sorted({row[3] for row in kernel_rows})}")
+    for _, _, case, src, _, _, others in kernel_rows:
+        twin = earlier.get(src)
+        for c in (case, *others) if twin else ():
+            kernel, kind = cases[c][0], cases[c][2]
+            x = dev_in[kind]
+
+            def theirs():
+                with routed_to(twin):
+                    return kernel(x)
+
+            before = launched(twin)
+            same = np.array_equal(theirs().cpu().numpy(), kernel(x).cpu().numpy())
+            check(launched(twin) > before, f"{c}: the earlier build did not launch")
+            check(same, f"{c}: the earlier {os.path.basename(src)}'s words differ from this one's")
+            p1 = event_ms(torch, theirs, 7)
+            k1 = event_ms(torch, lambda: kernel(x), 7)
+            k2 = event_ms(torch, lambda: kernel(x), 7)
+            p2 = event_ms(torch, theirs, 7)
+            log("times", f"{card}: {c} ({x.shape[0]} blocks): earlier file {p1:.4f} / {p2:.4f} ms, "
+                f"this file {k1:.4f} / {k2:.4f} ms (turns: earlier, this, this, earlier), "
+                f"{(p1 + p2) / (k1 + k2):.2f}x faster; words identical")
+    parent_dir.cleanup()
 
     # This slice: each ASTC entry alone, its plain version alone, and its
     # bound from the operations it needs on a sample of the same blocks
@@ -1360,7 +1486,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         sys.exit(1)

@@ -13,23 +13,36 @@
 // of the same algorithms is cuttlefish_tpu_torch/kernels/etc.py; the two are
 // compared on the card.
 //
-// Design: one thread per 4x4 block, 128 threads per CTA, grid = ceil(N /
-// 128), as the BC kernels.  The TPU kernels put 256-512 blocks on vector
-// lanes and unrolled every candidate over [16, TN] tiles; here each thread
-// runs its block's sweep alone.  Each candidate family (differential fit,
-// individual fit, planar, T, H, the EAC search) is its own non-inlined
-// function, so that only the texels, the best words and the best error live
-// across families; a fit keeps its base colours and tables and rebuilds its
-// 2-bit indices (packed into the word as it goes) only for the winner, and
-// the EAC search rebuilds its 3-bit indices once for the winner.  Quality is
-// a run-time argument: q2 and q3 are one algorithm, and the families are
-// compiled once for all qualities.
+// Design.  One thread per 4x4 block, 128 threads per CTA, grid = ceil(N /
+// 128); the TPU kernels put 256-512 blocks on vector lanes, here each
+// thread runs its block's sweep alone.  The RGB and RGBA entries first
+// stage their CTA's blocks in shared memory with one coalesced copy (16-byte
+// loads by neighbouring threads), clamped and scaled there, laid out
+// [channel][texel][block] with the block index fastest and rows padded to
+// 129, so that a warp's 32 reads of one texel hit 32 banks (33 KB a CTA).
+// No texel array lives in a thread's local frame: each candidate family (a
+// sub-block's table fit, the differential and individual searches, planar,
+// T and H, the EAC search) is its own non-inlined function that reads the
+// texels it needs from shared memory into registers.  Every palette entry
+// (a clamped base + modifier) is made once per candidate, not per texel; a
+// table fit runs its 8 tables over the 8 member texels held in registers;
+// the offset estimates keep a sorted top-8 in registers instead of an array
+// of estimates; per-thread table indices (the winner's modifiers, T/H
+// distances) are selects over compile-time reads of the constant tables.
+// T and H evaluate errors alone along their refinement chains and make the
+// winner's indices once.  Each step of those chains, and of planar's
+// per-channel walks, starts from the step before, so the independent T and
+// H chains, and planar's three channels, run side by side to give the card
+// two or three chains to overlap.  With unit channel weights, the default
+// of a linear texture, a second instance skips the products by 1, which
+// are exact.  Quality is a run-time argument: q2 and q3 are one algorithm.
 //
-// What bounds it: arithmetic.  A block reads 256 bytes (64 for A8/R11, 128
-// for RG11) and writes 8 or 16, but an ETC2 block at quality 2 evaluates
-// some 600 palettes of 8 or 16 texels, and at quality 4 some 1,200 more in
-// the planar and T/H refinements.  Loads are per thread and not coalesced
-// across a warp; a warp per block and shared-memory staging are later work.
+// What bounds it: float instruction throughput.  A block reads 192-256
+// bytes and writes 8 or 16, but an ETC2 block at quality 2 evaluates some
+// 600 palettes of 8 or 16 texels, and at quality 4 some 1,200 more in the
+// planar and T/H refinements; --fmad=false makes every add and multiply an
+// instruction of its own.  The ETC1 fits, most of the work, are unrolled
+// loops of independent texel errors; the T/H refinements are chains.
 //
 // Numerics, so that the kernel agrees with the plain version bit for bit:
 // every sum over texels runs in texel order (a sub-block's 8 members alone:
@@ -41,10 +54,15 @@
 // stay IEEE.  Every search keeps the first minimum (strict <, in candidate
 // order); invalid H candidates add 1e30 to their error in float32, as the
 // reference does.  EAC's multiplier seed is span * float32(1 / max_pos[t]),
-// the product XLA makes of the reference's division by a constant.
+// the product XLA makes of the reference's division by a constant.  The
+// sorted top-8 picks what the reference's repeated pick of the least
+// unchosen estimate picks while every estimate is below the 1e30 it gives
+// chosen ones (channel weights below 1e23).
 //
 // The device functions are plain C++: the __global__ kernels and the
-// launchers need nvcc and sit under __CUDACC__.
+// launchers need nvcc and sit under __CUDACC__; a CPU build runs each CTA's
+// staging and then its threads one after another (etc_rgb_cpu,
+// etc2_rgba_cpu).
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -54,14 +72,22 @@
 
 namespace etcx {
 
+#ifndef __CUDACC__
+struct float4 {
+  float x, y, z, w;
+};
+#endif
+
 constexpr int kThreads = 128;
+// A shared-memory row holds one texel value of each of a CTA's blocks,
+// padded by one so that a staging warp's two blocks fall on other banks.
+constexpr int kStride = kThreads + 1;
 constexpr float kBig = 1e30f;
 // Quantiser scales: the Python doubles m / 255.0 rounded once to float32.
 constexpr float kQ15 = (float)(15.0 / 255.0);
 constexpr float kQ31 = (float)(31.0 / 255.0);
 constexpr float kQ63 = (float)(63.0 / 255.0);
 constexpr float kQ127 = (float)(127.0 / 255.0);
-constexpr int kMaxOthers = 30;  // quality 4: 31 offsets, the centre apart
 
 // ETC1 intensity modifiers [table][index] (etc.py:_ETC1_MODS_NP).
 __constant__ int c_etc1_mods[8][4] = {
@@ -102,8 +128,31 @@ __constant__ float c_planar_proj[3][16] = {
      0x1.733334p-2f, 0x1.266666p-2f, 0x1.b33334p-3f, 0x1.19999ap-3f},
 };
 
+// A CTA's texels, [channel][texel][block] (RGB, then alpha for RGBA).
+__shared__ float s_px[64 * kStride];
+
 struct Chw {
   float w[3];
+};
+
+// Texel (c, t) of thread `tid`'s block.
+struct Px {
+  int tid;
+  __device__ __forceinline__ float operator()(int c, int t) const {
+    return s_px[(16 * c + t) * kStride + tid];
+  }
+};
+
+// One channel of a block's texels, indexed by texel.
+struct PxChan {
+  Px px;
+  int c;
+  __device__ __forceinline__ float operator[](int t) const { return px(c, t); }
+};
+
+// Three channel values: a mean or a decoded colour.
+struct Rgb {
+  float v[3];
 };
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
@@ -113,6 +162,8 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
+
+__device__ __forceinline__ int mini(int a, int b) { return a < b ? a : b; }
 
 __device__ __forceinline__ float sq(float x) { return x * x; }
 
@@ -134,11 +185,49 @@ __device__ __forceinline__ bool member(int t, int flip, int sub) {
   return in2 == (sub == 1);
 }
 
+// The j-th member (raster order) of sub-block `sub` of flip `flip`.
+__device__ __forceinline__ int member_texel(int flip, int sub, int j) {
+  return flip ? 8 * sub + j : 4 * (j >> 1) + (j & 1) + 2 * sub;
+}
+
 // A 2-bit index m of raster texel t in an ETC index word: bit p = its lsb,
 // bit 16 + p = its msb, p = the column-major pixel number.
 __device__ __forceinline__ uint32_t index_bits(int t, int m) {
   const int p = colmajor(t);
   return ((uint32_t)(m & 1) << p) | ((uint32_t)(m >> 1) << (16 + p));
+}
+
+// c_etc1_mods[tb][m] and c_dist[di] for an index that differs between
+// threads: selects over compile-time reads, so that no warp reads the
+// constant bank at several addresses.
+__device__ __forceinline__ float etc1_mod(int tb, int m) {
+  int v = c_etc1_mods[0][m];
+#pragma unroll
+  for (int k = 1; k < 8; ++k) v = tb == k ? c_etc1_mods[k][m] : v;
+  return (float)v;
+}
+
+__device__ __forceinline__ float dist_of(int di) {
+  int v = c_dist[0];
+#pragma unroll
+  for (int k = 1; k < 8; ++k) v = di == k ? c_dist[k] : v;
+  return (float)v;
+}
+
+// w_c * x for channel c; with unit weights (UW) the product by 1 is exact
+// and skipped.
+template <bool UW>
+__device__ __forceinline__ float wmul(const Chw& w, int c, float x) {
+  return UW ? x : w.w[c] * x;
+}
+
+// sum_c w_c * d_c^2, channels in order.
+template <bool UW>
+__device__ __forceinline__ float err3(const Chw& w, float d0, float d1, float d2) {
+  float e = wmul<UW>(w, 0, sq(d0));
+  e = e + wmul<UW>(w, 1, sq(d1));
+  e = e + wmul<UW>(w, 2, sq(d2));
+  return e;
 }
 
 // Offset i of the quant-index neighbourhood (etc_tables.py:_ETC_OFFSETS):
@@ -162,13 +251,18 @@ __device__ __forceinline__ int other_offset(int j) { return j < 13 ? j : j + 1; 
 // _restricted_err)
 // ---------------------------------------------------------------------------
 
-// sum_c chw[c] * (px[c][t] - clip(dec[c] + mod, 0, 255))^2, channels in order.
-__device__ __forceinline__ float pix_err(const float (*px)[16], int t, const float (&dec)[3],
-                                         float mod, const float* chw) {
-  float e = chw[0] * sq(px[0][t] - clampf(dec[0] + mod, 0.0f, 255.0f));
-  e = e + chw[1] * sq(px[1][t] - clampf(dec[1] + mod, 0.0f, 255.0f));
-  e = e + chw[2] * sq(px[2][t] - clampf(dec[2] + mod, 0.0f, 255.0f));
-  return e;
+// The 8 members of one sub-block, in raster order.
+struct Sub {
+  float x[3][8];
+};
+
+__device__ __forceinline__ void load_sub(const Px& px, int flip, int sub, Sub& s) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int t = member_texel(flip, sub, j);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) s.x[c][j] = px(c, t);
+  }
 }
 
 __device__ __forceinline__ void dec_of(const int (&b)[3], bool five, float (&dec)[3]) {
@@ -176,55 +270,87 @@ __device__ __forceinline__ void dec_of(const int (&b)[3], bool five, float (&dec
   for (int c = 0; c < 3; ++c) dec[c] = (float)(five ? expand5(b[c]) : expand4(b[c]));
 }
 
-// Error of every modifier table over the members of one sub-block.
-__device__ __forceinline__ void table_errs(const float (*px)[16], const float (&dec)[3], int flip,
-                                           int sub, const float* chw, float (&err)[8]) {
-  for (int tb = 0; tb < 8; ++tb) {
-    float mods[4];
+// Palette entry clip(dec + mod, 0, 255) per channel.
+__device__ __forceinline__ void entry(const float (&dec)[3], float mod, float (&p)[3]) {
 #pragma unroll
-    for (int m = 0; m < 4; ++m) mods[m] = (float)c_etc1_mods[tb][m];
-    float acc = 0.0f;
+  for (int c = 0; c < 3; ++c) p[c] = clampf(dec[c] + mod, 0.0f, 255.0f);
+}
+
+// Sum over the members of each one's least error against K palette
+// entries p[k] (the first minimum's value).
+template <bool UW, int K>
+__device__ __forceinline__ float nearest_sum(const Sub& s, const Chw& w, const float (&p)[K][3]) {
+  float acc = 0.0f;
 #pragma unroll
-    for (int t = 0; t < 16; ++t) {
-      if (!member(t, flip, sub)) continue;
-      float e = pix_err(px, t, dec, mods[0], chw);
+  for (int j = 0; j < 8; ++j) {
+    float e = err3<UW>(w, s.x[0][j] - p[0][0], s.x[1][j] - p[0][1], s.x[2][j] - p[0][2]);
 #pragma unroll
-      for (int m = 1; m < 4; ++m) e = fminf(e, pix_err(px, t, dec, mods[m], chw));
-      acc = acc + e;
-    }
-    err[tb] = acc;
+    for (int k = 1; k < K; ++k)
+      e = fminf(e, err3<UW>(w, s.x[0][j] - p[k][0], s.x[1][j] - p[k][1], s.x[2][j] - p[k][2]));
+    acc = acc + e;
   }
+  return acc;
 }
 
-// First table of least error.
-__device__ __forceinline__ int best_table(const float (&err)[8]) {
-  int bt = 0;
-#pragma unroll
-  for (int tb = 1; tb < 8; ++tb)
-    if (err[tb] < err[bt]) bt = tb;
-  return bt;
-}
+// A sub-block's exhaustive table fit: the first table of least error, its
+// error, and the runner-up (_best_table_fit2: the first least error with
+// the best table at 1e30).
+struct TableFit {
+  int best, second;
+  float err;
+};
 
-// (table, error) of the exhaustive fit of one sub-block.
-__device__ __forceinline__ float table_fit(const float (*px)[16], const float (&dec)[3], int flip,
-                                           int sub, const float* chw, int& table) {
+template <bool UW>
+__device__ __noinline__ TableFit table_fit(Px px, int flip, int sub, Rgb dec, Chw w) {
+  Sub s;
+  load_sub(px, flip, sub, s);
   float err[8];
-  table_errs(px, dec, flip, sub, chw, err);
-  table = best_table(err);
-  return err[table];
+#pragma unroll
+  for (int tb = 0; tb < 8; ++tb) {
+    float p[4][3];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) entry(dec.v, (float)c_etc1_mods[tb][m], p[m]);
+    err[tb] = nearest_sum<UW, 4>(s, w, p);
+  }
+  TableFit f;
+  f.best = 0;
+  f.err = err[0];
+#pragma unroll
+  for (int tb = 1; tb < 8; ++tb) {
+    if (err[tb] < f.err) {
+      f.err = err[tb];
+      f.best = tb;
+    }
+  }
+  f.second = 0;
+  float e2 = f.best == 0 ? kBig : err[0];
+#pragma unroll
+  for (int tb = 1; tb < 8; ++tb) {
+    const float ee = tb == f.best ? kBig : err[tb];
+    if (ee < e2) {
+      e2 = ee;
+      f.second = tb;
+    }
+  }
+  return f;
 }
 
 // The index bits of one sub-block's members under `table` (first minimum).
-__device__ __forceinline__ uint32_t table_bits(const float (*px)[16], const float (&dec)[3],
-                                               int flip, int sub, const float* chw, int table) {
+template <bool UW>
+__device__ __noinline__ uint32_t table_bits(Px px, int flip, int sub, Rgb dec, Chw w, int table) {
+  float p[4][3];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) entry(dec.v, etc1_mod(table, m), p[m]);
   uint32_t bits = 0u;
 #pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    if (!member(t, flip, sub)) continue;
-    float be = pix_err(px, t, dec, (float)c_etc1_mods[table][0], chw);
+  for (int j = 0; j < 8; ++j) {
+    const int t = member_texel(flip, sub, j);
+    const float x0 = px(0, t), x1 = px(1, t), x2 = px(2, t);
+    float be = err3<UW>(w, x0 - p[0][0], x1 - p[0][1], x2 - p[0][2]);
     int bm = 0;
+#pragma unroll
     for (int m = 1; m < 4; ++m) {
-      const float e = pix_err(px, t, dec, (float)c_etc1_mods[table][m], chw);
+      const float e = err3<UW>(w, x0 - p[m][0], x1 - p[m][1], x2 - p[m][2]);
       if (e < be) {
         be = e;
         bm = m;
@@ -235,60 +361,66 @@ __device__ __forceinline__ uint32_t table_bits(const float (*px)[16], const floa
   return bits;
 }
 
-// Block error with the table restricted to the 8 values mv, index free.
-__device__ __forceinline__ float restricted_err(const float (*px)[16], const float (&dec)[3],
-                                                int flip, int sub, const float* chw,
-                                                const float (&mv)[8]) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    if (!member(t, flip, sub)) continue;
-    float e = pix_err(px, t, dec, mv[0], chw);
-    for (int k = 1; k < 8; ++k) e = fminf(e, pix_err(px, t, dec, mv[k], chw));
-    acc = acc + e;
-  }
-  return acc;
-}
-
-// The centre's table fit with its runner-up: mv = the best table's four
-// modifiers, then the runner-up's (_table_modvals of both).
-__device__ __forceinline__ float centre_fit(const float (*px)[16], const float (&dec)[3], int flip,
-                                            int sub, const float* chw, int& table, float (&mv)[8]) {
-  float err[8];
-  table_errs(px, dec, flip, sub, chw, err);
-  table = best_table(err);
-  // _best_table_fit2: the first least error with the best table at 1e30.
-  int t2 = 0;
-  float e2 = table == 0 ? kBig : err[0];
-  for (int tb = 1; tb < 8; ++tb) {
-    const float ee = tb == table ? kBig : err[tb];
-    if (ee < e2) {
-      e2 = ee;
-      t2 = tb;
-    }
-  }
+// The restricted modifier set of the estimates (_table_modvals of the
+// centre's best table, then of its runner-up).
+__device__ __forceinline__ void modvals(const TableFit& f, float (&mv)[8]) {
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
-    mv[m] = (float)c_etc1_mods[table][m];
-    mv[4 + m] = (float)c_etc1_mods[t2][m];
+    mv[m] = etc1_mod(f.best, m);
+    mv[4 + m] = etc1_mod(f.second, m);
   }
-  return err[table];
 }
 
-// Lowest estimate among those not chosen yet, ties to the lower index
-// (the chosen ones count as 1e30); marks it chosen.
-__device__ __forceinline__ int topk_pick(const float* ests, int n, uint32_t& chosen) {
-  int bi = 0;
-  float be = (chosen & 1u) ? kBig : ests[0];
-  for (int i = 1; i < n; ++i) {
-    const float ee = ((chosen >> i) & 1u) ? kBig : ests[i];
-    if (ee < be) {
-      be = ee;
-      bi = i;
+// Block error with the table restricted to the 8 values mv, index free.
+template <bool UW>
+__device__ __forceinline__ float restricted_err(const Sub& s, const float (&dec)[3], const Chw& w,
+                                                const float (&mv)[8]) {
+  float p[8][3];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) entry(dec, mv[k], p[k]);
+  return nearest_sum<UW, 8>(s, w, p);
+}
+
+// The kMaxKeep least estimates so far, ascending, ties in offset order:
+// the order in which the reference's repeated pick of the least unchosen
+// estimate (first index on ties) takes them.
+constexpr int kMaxKeep = 8;
+
+struct TopK {
+  float v[kMaxKeep];
+  int j[kMaxKeep];
+};
+
+__device__ __forceinline__ void topk_init(TopK& k) {
+#pragma unroll
+  for (int r = 0; r < kMaxKeep; ++r) {
+    k.v[r] = INFINITY;
+    k.j[r] = 0;
+  }
+}
+
+// Insert estimate `est` of offset j (offsets arrive in increasing j).
+__device__ __forceinline__ void topk_insert(TopK& k, float est, int j) {
+#pragma unroll
+  for (int r = kMaxKeep - 1; r >= 0; --r) {
+    if (est < k.v[r]) {
+      if (r > 0 && est < k.v[r - 1]) {
+        k.v[r] = k.v[r - 1];
+        k.j[r] = k.j[r - 1];
+      } else {
+        k.v[r] = est;
+        k.j[r] = j;
+      }
     }
   }
-  chosen |= 1u << bi;
-  return bi;
+}
+
+// The r-th pick.
+__device__ __forceinline__ int topk_at(const TopK& k, int r) {
+  int j = k.j[0];
+#pragma unroll
+  for (int i = 1; i < kMaxKeep; ++i) j = r == i ? k.j[i] : j;
+  return j;
 }
 
 // ---------------------------------------------------------------------------
@@ -305,74 +437,78 @@ struct SubFit {
   float err;
 };
 
-// Differential mode, both sub-blocks at once: base 1 from the offset, base
-// 2 = base 1 + the clipped delta to sub-block 2's rounded mean.
-__device__ __noinline__ void diff_fit(const float (*px)[16], const float* chw, int flip,
-                                      const float* mean1, const float* mean2, int quality,
-                                      DiffFit* out) {
-  float base1_q[3];
-  int b2n[3];
+// Base 1 of offset i (clipped to 5 bits) and the clipped delta to sub-block
+// 2's rounded mean; dec1, dec2 their decoded colours.
+__device__ __forceinline__ void diff_bases(const float (&base1_q)[3], const int (&b2n)[3], int i,
+                                           int (&b1)[3], int (&d)[3], Rgb& dec1, Rgb& dec2) {
+  int b2[3];
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
-    base1_q[c] = rintf(mean1[c] * kQ31);
-    b2n[c] = (int)clampf(rintf(mean2[c] * kQ31), 0.0f, 31.0f);
-  }
-  DiffFit best;
-  // The centre offset (0, 0, 0).
-  int b1[3], d[3], b2[3];
-  for (int c = 0; c < 3; ++c) {
-    b1[c] = (int)clampf(base1_q[c], 0.0f, 31.0f);
+    b1[c] = (int)clampf(base1_q[c] + (float)offset_of(i, c), 0.0f, 31.0f);
     d[c] = clampi(b2n[c] - b1[c], -4, 3);
     b2[c] = b1[c] + d[c];
   }
-  float dec1[3], dec2[3], mv1[8], mv2[8];
-  dec_of(b1, true, dec1);
-  dec_of(b2, true, dec2);
-  const int keep = est_keep(quality);
-  if (keep == 0) {
-    best.err = table_fit(px, dec1, flip, 0, chw, best.t1) + table_fit(px, dec2, flip, 1, chw, best.t2);
-  } else {
-    const float e1 = centre_fit(px, dec1, flip, 0, chw, best.t1, mv1);
-    const float e2 = centre_fit(px, dec2, flip, 1, chw, best.t2, mv2);
-    best.err = e1 + e2;
+  dec_of(b1, true, dec1.v);
+  dec_of(b2, true, dec2.v);
+}
+
+// Differential mode, both sub-blocks at once: base 1 from the offset, base
+// 2 = base 1 + the clipped delta to sub-block 2's rounded mean.
+template <bool UW>
+__device__ __noinline__ void diff_fit(Px px, Chw w, int flip, Rgb mean1, Rgb mean2, int quality,
+                                      DiffFit* out) {
+  float base1_q[3];
+  int b2n[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    base1_q[c] = rintf(mean1.v[c] * kQ31);
+    b2n[c] = (int)clampf(rintf(mean2.v[c] * kQ31), 0.0f, 31.0f);
   }
+  DiffFit best;
+  int b1[3], d[3];
+  Rgb dec1, dec2;
+  diff_bases(base1_q, b2n, 13, b1, d, dec1, dec2);  // the centre (0, 0, 0)
+  const TableFit f1 = table_fit<UW>(px, flip, 0, dec1, w);
+  const TableFit f2 = table_fit<UW>(px, flip, 1, dec2, w);
+  best.err = f1.err + f2.err;
+  best.t1 = f1.best;
+  best.t2 = f2.best;
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
     best.b1[c] = b1[c];
     best.d[c] = d[c];
   }
+  const int keep = est_keep(quality);
   if (keep > 0) {
+    float mv1[8], mv2[8];
+    modvals(f1, mv1);
+    modvals(f2, mv2);
+    Sub s1, s2;
+    load_sub(px, flip, 0, s1);
+    load_sub(px, flip, 1, s2);
+    TopK top;
+    topk_init(top);
     const int n = n_offsets(quality) - 1;
-    float ests[kMaxOthers];
+#pragma unroll 1
     for (int j = 0; j < n; ++j) {
-      const int i = other_offset(j);
-      for (int c = 0; c < 3; ++c) {
-        b1[c] = (int)clampf(base1_q[c] + (float)offset_of(i, c), 0.0f, 31.0f);
-        b2[c] = b1[c] + clampi(b2n[c] - b1[c], -4, 3);
-      }
-      dec_of(b1, true, dec1);
-      dec_of(b2, true, dec2);
-      const float e1 = restricted_err(px, dec1, flip, 0, chw, mv1);
-      ests[j] = e1 + restricted_err(px, dec2, flip, 1, chw, mv2);
+      diff_bases(base1_q, b2n, other_offset(j), b1, d, dec1, dec2);
+      const float e1 = restricted_err<UW>(s1, dec1.v, w, mv1);
+      topk_insert(top, e1 + restricted_err<UW>(s2, dec2.v, w, mv2), j);
     }
-    uint32_t chosen = 0u;
+#pragma unroll 1
     for (int r = 0; r < keep; ++r) {
-      const int i = other_offset(topk_pick(ests, n, chosen));
-      for (int c = 0; c < 3; ++c) {
-        b1[c] = (int)clampf(base1_q[c] + (float)offset_of(i, c), 0.0f, 31.0f);
-        d[c] = clampi(b2n[c] - b1[c], -4, 3);
-        b2[c] = b1[c] + d[c];
-      }
-      dec_of(b1, true, dec1);
-      dec_of(b2, true, dec2);
-      int t1, t2;
-      const float e1 = table_fit(px, dec1, flip, 0, chw, t1);
-      const float err = e1 + table_fit(px, dec2, flip, 1, chw, t2);
+      diff_bases(base1_q, b2n, other_offset(topk_at(top, r)), b1, d, dec1, dec2);
+      const TableFit g1 = table_fit<UW>(px, flip, 0, dec1, w);
+      const TableFit g2 = table_fit<UW>(px, flip, 1, dec2, w);
+      const float err = g1.err + g2.err;
       if (err < best.err) {
+#pragma unroll
         for (int c = 0; c < 3; ++c) {
           best.b1[c] = b1[c];
           best.d[c] = d[c];
         }
-        best.t1 = t1;
-        best.t2 = t2;
+        best.t1 = g1.best;
+        best.t2 = g2.best;
         best.err = err;
       }
     }
@@ -380,42 +516,52 @@ __device__ __noinline__ void diff_fit(const float (*px)[16], const float* chw, i
   *out = best;
 }
 
+// The 4-bit base of offset i and its decoded colour.
+__device__ __forceinline__ void ind_base(const float (&base_q)[3], int i, int (&b)[3], Rgb& dec) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) b[c] = (int)clampf(base_q[c] + (float)offset_of(i, c), 0.0f, 15.0f);
+  dec_of(b, false, dec.v);
+}
+
 // Individual mode, one sub-block: a 4-bit base from the offset.
-__device__ __noinline__ void ind_subfit(const float (*px)[16], const float* chw, int flip, int sub,
-                                        const float* mean, int quality, SubFit* out) {
+template <bool UW>
+__device__ __noinline__ void ind_subfit(Px px, Chw w, int flip, int sub, Rgb mean, int quality,
+                                        SubFit* out) {
   float base_q[3];
-  for (int c = 0; c < 3; ++c) base_q[c] = rintf(mean[c] * kQ15);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) base_q[c] = rintf(mean.v[c] * kQ15);
   SubFit best;
   int b[3];
-  for (int c = 0; c < 3; ++c) b[c] = (int)clampf(base_q[c], 0.0f, 15.0f);
-  float dec[3], mv[8];
-  dec_of(b, false, dec);
-  const int keep = est_keep(quality);
-  best.err = keep == 0 ? table_fit(px, dec, flip, sub, chw, best.t)
-                       : centre_fit(px, dec, flip, sub, chw, best.t, mv);
+  Rgb dec;
+  ind_base(base_q, 13, b, dec);
+  const TableFit f = table_fit<UW>(px, flip, sub, dec, w);
+  best.err = f.err;
+  best.t = f.best;
+#pragma unroll
   for (int c = 0; c < 3; ++c) best.b[c] = b[c];
+  const int keep = est_keep(quality);
   if (keep > 0) {
+    float mv[8];
+    modvals(f, mv);
+    Sub s;
+    load_sub(px, flip, sub, s);
+    TopK top;
+    topk_init(top);
     const int n = n_offsets(quality) - 1;
-    float ests[kMaxOthers];
+#pragma unroll 1
     for (int j = 0; j < n; ++j) {
-      const int i = other_offset(j);
-      for (int c = 0; c < 3; ++c)
-        b[c] = (int)clampf(base_q[c] + (float)offset_of(i, c), 0.0f, 15.0f);
-      dec_of(b, false, dec);
-      ests[j] = restricted_err(px, dec, flip, sub, chw, mv);
+      ind_base(base_q, other_offset(j), b, dec);
+      topk_insert(top, restricted_err<UW>(s, dec.v, w, mv), j);
     }
-    uint32_t chosen = 0u;
+#pragma unroll 1
     for (int r = 0; r < keep; ++r) {
-      const int i = other_offset(topk_pick(ests, n, chosen));
-      for (int c = 0; c < 3; ++c)
-        b[c] = (int)clampf(base_q[c] + (float)offset_of(i, c), 0.0f, 15.0f);
-      dec_of(b, false, dec);
-      int t;
-      const float err = table_fit(px, dec, flip, sub, chw, t);
-      if (err < best.err) {
+      ind_base(base_q, other_offset(topk_at(top, r)), b, dec);
+      const TableFit g = table_fit<UW>(px, flip, sub, dec, w);
+      if (g.err < best.err) {
+#pragma unroll
         for (int c = 0; c < 3; ++c) best.b[c] = b[c];
-        best.t = t;
-        best.err = err;
+        best.t = g.best;
+        best.err = g.err;
       }
     }
   }
@@ -430,31 +576,35 @@ __device__ __forceinline__ float dec_planar(int v, int bits) {
   return (float)(bits == 6 ? ((v << 2) | (v >> 4)) : ((v << 1) | (v >> 6)));
 }
 
-// chw * (px - clip(floor((x*(H-O) + y*(V-O) + 4*O + 2) / 4)))^2 at texel t.
-__device__ __forceinline__ float planar_texel(const float (*px)[16], const float* chw, int c, int t,
-                                              float dov, float dhv, float dvv) {
+// w * (x - clip(floor((x*(H-O) + y*(V-O) + 4*O + 2) / 4)))^2 at texel t.
+template <bool UW>
+__device__ __forceinline__ float planar_texel(const Px& px, const Chw& w, int c, int t, float dov,
+                                              float dhv, float dvv) {
   const float val = (float)(t & 3) * (dhv - dov) + (float)(t >> 2) * (dvv - dov) + 4.0f * dov + 2.0f;
   const float d = clampf(floorf(val * 0.25f), 0.0f, 255.0f);
-  return chw[c] * sq(px[c][t] - d);
+  return wmul<UW>(w, c, sq(px(c, t) - d));
 }
 
-__device__ __forceinline__ float planar_chan(const float (*px)[16], const float* chw, int c,
-                                             int o, int h, int v, int bits) {
+template <bool UW>
+__device__ __forceinline__ float planar_chan(const Px& px, const Chw& w, int c, int o, int h, int v,
+                                             int bits) {
   const float dov = dec_planar(o, bits), dhv = dec_planar(h, bits), dvv = dec_planar(v, bits);
   float acc = 0.0f;
 #pragma unroll
-  for (int t = 0; t < 16; ++t) acc = acc + planar_texel(px, chw, c, t, dov, dhv, dvv);
+  for (int t = 0; t < 16; ++t) acc = acc + planar_texel<UW>(px, w, c, t, dov, dhv, dvv);
   return acc;
 }
 
-__device__ __noinline__ float planar(const float (*px)[16], const float* chw, int refine,
-                                     uint32_t* words) {
+template <bool UW>
+__device__ __noinline__ float planar(Px px, Chw w, int refine, uint32_t* words) {
   int q[3][3];  // [O/H/V][channel]
-  for (int k = 0; k < 3; ++k) {
-    for (int c = 0; c < 3; ++c) {
-      float acc = c_planar_proj[k][0] * px[c][0];
 #pragma unroll
-      for (int i = 1; i < 16; ++i) acc = acc + c_planar_proj[k][i] * px[c][i];
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float acc = c_planar_proj[k][0] * px(c, 0);
+#pragma unroll
+      for (int i = 1; i < 16; ++i) acc = acc + c_planar_proj[k][i] * px(c, i);
       const int maxv = c == 1 ? 127 : 63;
       const float scale = c == 1 ? kQ127 : kQ63;
       q[k][c] = (int)clampf(rintf(acc * scale), 0.0f, (float)maxv);
@@ -462,34 +612,42 @@ __device__ __noinline__ float planar(const float (*px)[16], const float* chw, in
   }
   if (refine) {
     // The +-1 neighbourhood of each channel's (O, H, V), walked from the
-    // current best: later steps start from an accepted one.
-    for (int c = 0; c < 3; ++c) {
-      const int bits = c == 1 ? 7 : 6, maxv = (1 << bits) - 1;
-      float best_e = planar_chan(px, chw, c, q[0][c], q[1][c], q[2][c], bits);
-      for (int s = 0; s < 27; ++s) {
-        if (s == 13) continue;
+    // current best: later steps start from an accepted one.  The three
+    // channels' walks are independent and run side by side.
+    float best_e[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      best_e[c] = planar_chan<UW>(px, w, c, q[0][c], q[1][c], q[2][c], c == 1 ? 7 : 6);
+#pragma unroll 1
+    for (int s = 0; s < 27; ++s) {
+      if (s == 13) continue;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const int bits = c == 1 ? 7 : 6, maxv = (1 << bits) - 1;
         const int o = clampi(q[0][c] + s / 9 - 1, 0, maxv);
         const int h = clampi(q[1][c] + (s / 3) % 3 - 1, 0, maxv);
         const int v = clampi(q[2][c] + s % 3 - 1, 0, maxv);
-        const float en = planar_chan(px, chw, c, o, h, v, bits);
-        if (en < best_e) {
+        const float en = planar_chan<UW>(px, w, c, o, h, v, bits);
+        if (en < best_e[c]) {
           q[0][c] = o;
           q[1][c] = h;
           q[2][c] = v;
-          best_e = en;
+          best_e[c] = en;
         }
       }
     }
   }
   float dq[3][3];
+#pragma unroll
   for (int k = 0; k < 3; ++k)
+#pragma unroll
     for (int c = 0; c < 3; ++c) dq[k][c] = dec_planar(q[k][c], c == 1 ? 7 : 6);
   float err = 0.0f;
 #pragma unroll
   for (int t = 0; t < 16; ++t) {
-    float e = planar_texel(px, chw, 0, t, dq[0][0], dq[1][0], dq[2][0]);
-    e = e + planar_texel(px, chw, 1, t, dq[0][1], dq[1][1], dq[2][1]);
-    e = e + planar_texel(px, chw, 2, t, dq[0][2], dq[1][2], dq[2][2]);
+    float e = planar_texel<UW>(px, w, 0, t, dq[0][0], dq[1][0], dq[2][0]);
+    e = e + planar_texel<UW>(px, w, 1, t, dq[0][1], dq[1][1], dq[2][1]);
+    e = e + planar_texel<UW>(px, w, 2, t, dq[0][2], dq[1][2], dq[2][2]);
     err = err + e;
   }
   const uint32_t ro = q[0][0], go = q[0][1], bo = q[0][2];
@@ -521,20 +679,23 @@ __device__ __noinline__ float planar(const float (*px)[16], const float* chw, in
 // ---------------------------------------------------------------------------
 
 // Principal-axis split of the block -> the means of the two halves.
-__device__ __noinline__ void pca_split_means(const float (*px)[16], float* mp, float* mn) {
+__device__ __noinline__ void pca_split_means(Px px, Rgb* mp, Rgb* mn) {
   float mean[3];
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
     float acc = 0.0f;
 #pragma unroll
-    for (int t = 0; t < 16; ++t) acc = acc + px[c][t];
+    for (int t = 0; t < 16; ++t) acc = acc + px(c, t);
     mean[c] = acc / 16.0f;
   }
   float cov[3][3];
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
+#pragma unroll
     for (int d = 0; d < 3; ++d) {
       float acc = 0.0f;
 #pragma unroll
-      for (int t = 0; t < 16; ++t) acc = acc + (px[c][t] - mean[c]) * (px[d][t] - mean[d]);
+      for (int t = 0; t < 16; ++t) acc = acc + (px(c, t) - mean[c]) * (px(d, t) - mean[d]);
       cov[c][d] = acc;
     }
   }
@@ -543,7 +704,7 @@ __device__ __noinline__ void pca_split_means(const float (*px)[16], float* mp, f
   int fidx = 0;
 #pragma unroll
   for (int t = 0; t < 16; ++t) {
-    const float c0 = px[0][t] - mean[0], c1 = px[1][t] - mean[1], c2 = px[2][t] - mean[2];
+    const float c0 = px(0, t) - mean[0], c1 = px(1, t) - mean[1], c2 = px(2, t) - mean[2];
     const float nrm = c0 * c0 + c1 * c1 + c2 * c2;
     if (t == 0 || nrm > mx) {
       mx = nrm;
@@ -551,77 +712,58 @@ __device__ __noinline__ void pca_split_means(const float (*px)[16], float* mp, f
     }
   }
   float v[3];
-  for (int c = 0; c < 3; ++c) v[c] = px[c][fidx] - mean[c];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) v[c] = px(c, fidx) - mean[c];
   const float n0 = sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]);
+#pragma unroll
   for (int c = 0; c < 3; ++c) v[c] = n0 > 1e-10f ? v[c] / (n0 + 1e-20f) : 1.0f;
+#pragma unroll
   for (int it = 0; it < 3; ++it) {
     float nv[3];
+#pragma unroll
     for (int c = 0; c < 3; ++c) nv[c] = cov[c][0] * v[0] + cov[c][1] * v[1] + cov[c][2] * v[2];
     const float nn = sqrtf(nv[0] * nv[0] + nv[1] * nv[1] + nv[2] * nv[2]);
     if (nn > 1e-10f)
+#pragma unroll
       for (int c = 0; c < 3; ++c) v[c] = nv[c] / (nn + 1e-20f);
   }
   uint32_t split = 0u;
   float np = 0.0f;
 #pragma unroll
   for (int t = 0; t < 16; ++t) {
-    const float s = (px[0][t] - mean[0]) * v[0] + (px[1][t] - mean[1]) * v[1] +
-                    (px[2][t] - mean[2]) * v[2];
+    const float s = (px(0, t) - mean[0]) * v[0] + (px(1, t) - mean[1]) * v[1] +
+                    (px(2, t) - mean[2]) * v[2];
     if (s > 0.0f) {
       split |= 1u << t;
       np = np + 1.0f;
     }
   }
   const float cp = np + 1e-6f, cn = (16.0f - np) + 1e-6f;
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
     float sp = 0.0f, sn = 0.0f;
 #pragma unroll
     for (int t = 0; t < 16; ++t) {
       if ((split >> t) & 1u)
-        sp = sp + px[c][t];
+        sp = sp + px(c, t);
       else
-        sn = sn + px[c][t];
+        sn = sn + px(c, t);
     }
-    mp[c] = sp / cp;
-    mn[c] = sn / cn;
+    mp->v[c] = sp / cp;
+    mn->v[c] = sn / cn;
   }
 }
 
-__device__ __forceinline__ void quant444(const float* x, int (&q)[3]) {
-  for (int c = 0; c < 3; ++c) q[c] = (int)clampf(rintf(x[c] * kQ15), 0.0f, 15.0f);
-}
-
-// Error and index bits of a 4-entry palette pal[k][c] (first minimum).
-__device__ __forceinline__ float palette_err(const float (*px)[16], const float* chw,
-                                             const float (&pal)[4][3], uint32_t& bits) {
-  float err = 0.0f;
-  bits = 0u;
+__device__ __forceinline__ void quant444(const Rgb& x, int (&q)[3]) {
 #pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    float be = 0.0f;
-    int bk = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float e = chw[0] * sq(px[0][t] - pal[k][0]);
-      e = e + chw[1] * sq(px[1][t] - pal[k][1]);
-      e = e + chw[2] * sq(px[2][t] - pal[k][2]);
-      if (k == 0 || e < be) {
-        be = e;
-        bk = k;
-      }
-    }
-    err = err + be;
-    bits |= index_bits(t, bk);
-  }
-  return err;
+  for (int c = 0; c < 3; ++c) q[c] = (int)clampf(rintf(x.v[c] * kQ15), 0.0f, 15.0f);
 }
 
 // T palette [C1, C2 + d, C2, C2 - d]; H palette [C1 + d, C1 - d, C2 + d,
 // C2 - d]; colours expanded from 4 bits.
-__device__ __forceinline__ float th_eval(const float (*px)[16], const float* chw, bool h,
-                                         const int (&q1)[3], const int (&q2)[3], float dist,
-                                         uint32_t& bits) {
-  float pal[4][3];
+__device__ __forceinline__ void th_palette(bool h, const int (&q1)[3], const int (&q2)[3],
+                                           float dist, float (&pal)[4][3]) {
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float d1 = (float)expand4(q1[c]), d2 = (float)expand4(q2[c]);
     if (h) {
@@ -634,23 +776,68 @@ __device__ __forceinline__ float th_eval(const float (*px)[16], const float* chw
     pal[2][c] = h ? clampf(d2 + dist, 0.0f, 255.0f) : d2;
     pal[3][c] = clampf(d2 - dist, 0.0f, 255.0f);
   }
-  return palette_err(px, chw, pal, bits);
+}
+
+// The block's texels in registers.
+struct Block {
+  float x[3][16];
+};
+
+// Error of a T or H candidate: each texel's least error over the palette.
+template <bool UW>
+__device__ __forceinline__ float th_err(const Block& b, const Chw& w, bool h, const int (&q1)[3],
+                                        const int (&q2)[3], float dist) {
+  float pal[4][3];
+  th_palette(h, q1, q2, dist, pal);
+  float err = 0.0f;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    float e = err3<UW>(w, b.x[0][t] - pal[0][0], b.x[1][t] - pal[0][1], b.x[2][t] - pal[0][2]);
+#pragma unroll
+    for (int k = 1; k < 4; ++k)
+      e = fminf(e, err3<UW>(w, b.x[0][t] - pal[k][0], b.x[1][t] - pal[k][1], b.x[2][t] - pal[k][2]));
+    err = err + e;
+  }
+  return err;
+}
+
+// The index bits of a T or H candidate (first minimum).
+template <bool UW>
+__device__ __forceinline__ uint32_t th_bits(const Block& b, const Chw& w, bool h,
+                                            const int (&q1)[3], const int (&q2)[3], float dist) {
+  float pal[4][3];
+  th_palette(h, q1, q2, dist, pal);
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    float be = err3<UW>(w, b.x[0][t] - pal[0][0], b.x[1][t] - pal[0][1], b.x[2][t] - pal[0][2]);
+    int bk = 0;
+#pragma unroll
+    for (int k = 1; k < 4; ++k) {
+      const float e = err3<UW>(w, b.x[0][t] - pal[k][0], b.x[1][t] - pal[k][1], b.x[2][t] - pal[k][2]);
+      if (e < be) {
+        be = e;
+        bk = k;
+      }
+    }
+    bits |= index_bits(t, bk);
+  }
+  return bits;
 }
 
 struct ThCand {
   int q1[3], q2[3], didx;
-  uint32_t bits;
   float err;
 };
 
 __device__ __forceinline__ void th_take(ThCand& best, const int (&q1)[3], const int (&q2)[3],
-                                        int didx, uint32_t bits, float err) {
+                                        int didx, float err) {
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
     best.q1[c] = q1[c];
     best.q2[c] = q2[c];
   }
   best.didx = didx;
-  best.bits = bits;
   best.err = err;
 }
 
@@ -662,6 +849,7 @@ __device__ __forceinline__ bool canon(const int (&q1n)[3], const int (&q2n)[3], 
                                       int (&q1c)[3], int (&q2c)[3]) {
   const int p1 = packed444(q1n), p2 = packed444(q2n);
   const bool swap = (int)(p1 >= p2) != want;
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
     q1c[c] = swap ? q2n[c] : q1n[c];
     q2c[c] = swap ? q1n[c] : q2n[c];
@@ -671,85 +859,64 @@ __device__ __forceinline__ bool canon(const int (&q1n)[3], const int (&q2n)[3], 
 }
 
 __device__ __forceinline__ void nudge(const int (&q)[3], int c, int dd, int (&out)[3]) {
+#pragma unroll
   for (int i = 0; i < 3; ++i) out[i] = i == c ? clampi(q[i] + dd, 0, 15) : q[i];
 }
 
-// T (h = false) or H (h = true) candidate; returns its error, words in
-// `words` (hi, lo).
-__device__ __noinline__ float th_mode(const float (*px)[16], const float* chw, const float* mp,
-                                      const float* mn, bool h, int refine, uint32_t* words) {
-  ThCand best;
-  bool have = false;
-  for (int order = 0; order < 2; ++order) {
-    int q1[3], q2[3];
-    quant444(order ? mn : mp, q1);
-    quant444(order ? mp : mn, q2);
-    const int ord_bit = packed444(q1) >= packed444(q2);
-    for (int di = 0; di < 8; ++di) {
-      uint32_t bits;
-      float err = th_eval(px, chw, h, q1, q2, (float)c_dist[di], bits);
-      if (h) err = err + ((di & 1) == ord_bit ? 0.0f : kBig);
-      if (!have || err < best.err) th_take(best, q1, q2, di, bits, err);
-      have = true;
+// One step of a T (h = false) or H (h = true) search, each from the
+// chain's current best.  The first candidate of the initial search is
+// taken whatever its error; an H candidate whose colour order does not
+// carry its distance's low bit adds 1e30.
+template <bool UW, bool h>
+__device__ __forceinline__ void th_first(const Block& b, const Chw& w, const int (&q1)[3],
+                                         const int (&q2)[3], int ord_bit, int di, bool first,
+                                         ThCand& best) {
+  float err = th_err<UW>(b, w, h, q1, q2, dist_of(di));
+  if (h) err = err + ((di & 1) == ord_bit ? 0.0f : kBig);
+  if (first || err < best.err) th_take(best, q1, q2, di, err);
+}
+
+// The pair of refinement step `step` from `best`: +-1 on colour coordinate
+// step / 2 (q1's R, G, B, then q2's), down for an even step.
+__device__ __forceinline__ void th_step_pair(const ThCand& best, int step, int (&q1n)[3],
+                                             int (&q2n)[3]) {
+  const int which = step / 6, c = (step / 2) % 3, dd = step & 1 ? 1 : -1;
+  if (which == 0) {
+    nudge(best.q1, c, dd, q1n);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) q2n[i] = best.q2[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) q1n[i] = best.q1[i];
+    nudge(best.q2, c, dd, q2n);
+  }
+}
+
+// Pair (q1n, q2n) at distance rung didx, for H in the order that didx's
+// low bit asks for; taken into `best` if it beats it.
+template <bool UW, bool h>
+__device__ __forceinline__ void th_try(const Block& b, const Chw& w, const int (&q1n)[3],
+                                       const int (&q2n)[3], int didx, ThCand& best) {
+  int q1c[3], q2c[3];
+  bool ok = true;
+  if (h) {
+    ok = canon(q1n, q2n, didx & 1, q1c, q2c);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      q1c[i] = q1n[i];
+      q2c[i] = q2n[i];
     }
   }
-  for (int pass = 0; pass < refine; ++pass) {
-    // +-1 coordinate descent over the six colour coordinates with the
-    // adjacent distance rungs tried per step, then a distance re-sweep.
-    for (int which = 0; which < 2; ++which) {
-      for (int c = 0; c < 3; ++c) {
-        for (int dd = -1; dd <= 1; dd += 2) {
-          int q1n[3], q2n[3];
-          if (which == 0) {
-            nudge(best.q1, c, dd, q1n);
-            for (int i = 0; i < 3; ++i) q2n[i] = best.q2[i];
-          } else {
-            for (int i = 0; i < 3; ++i) q1n[i] = best.q1[i];
-            nudge(best.q2, c, dd, q2n);
-          }
-          for (int dstep = -1; dstep <= 1; ++dstep) {
-            const int didxn = clampi(best.didx + dstep, 0, 7);
-            int q1c[3], q2c[3];
-            bool ok = true;
-            if (h) {
-              ok = canon(q1n, q2n, didxn & 1, q1c, q2c);
-            } else {
-              for (int i = 0; i < 3; ++i) {
-                q1c[i] = q1n[i];
-                q2c[i] = q2n[i];
-              }
-            }
-            uint32_t bits;
-            float errn = th_eval(px, chw, h, q1c, q2c, (float)c_dist[didxn], bits);
-            if (h) errn = errn + (ok ? 0.0f : kBig);
-            if (errn < best.err) th_take(best, q1c, q2c, didxn, bits, errn);
-          }
-        }
-      }
-    }
-    if (h) {
-      ThCand f = best;
-      for (int di = 0; di < 8; ++di) {
-        int q1c[3], q2c[3];
-        const bool ok = canon(best.q1, best.q2, di & 1, q1c, q2c);
-        uint32_t bits;
-        float errn = th_eval(px, chw, true, q1c, q2c, (float)c_dist[di], bits);
-        errn = errn + (ok ? 0.0f : kBig);
-        if (errn < f.err) th_take(f, q1c, q2c, di, bits, errn);
-      }
-      best = f;
-    } else {
-      for (int di = 0; di < 8; ++di) {
-        uint32_t bits;
-        const float errn = th_eval(px, chw, false, best.q1, best.q2, (float)c_dist[di], bits);
-        if (errn < best.err) {
-          best.didx = di;
-          best.bits = bits;
-          best.err = errn;
-        }
-      }
-    }
-  }
+  float errn = th_err<UW>(b, w, h, q1c, q2c, dist_of(didx));
+  if (h) errn = errn + (ok ? 0.0f : kBig);
+  if (errn < best.err) th_take(best, q1c, q2c, didx, errn);
+}
+
+// The (hi, lo) words of a T or H candidate.
+template <bool UW, bool h>
+__device__ __forceinline__ void th_words(const Block& b, const Chw& w, const ThCand& best,
+                                         uint32_t* words) {
   const int r1 = best.q1[0], g1 = best.q1[1], b1 = best.q1[2];
   const uint32_t d = (uint32_t)best.didx;
   uint32_t hi;
@@ -772,8 +939,64 @@ __device__ __noinline__ float th_mode(const float (*px)[16], const float* chw, c
     if (r1 + dr < 0) hi |= 1u << 31;
   }
   words[0] = hi;
-  words[1] = best.bits;
-  return best.err;
+  words[1] = th_bits<UW>(b, w, h, best.q1, best.q2, dist_of(best.didx));
+}
+
+// The T and H candidates, their two searches run side by side: each step
+// of a refinement starts from its own chain's best, so running the
+// independent T and H steps together gives the card two chains to overlap.
+// out: T's words, then H's; err: T's error, then H's.
+template <bool UW>
+__device__ __noinline__ void th_modes(Px px, Chw w, Rgb mp, Rgb mn, int refine, uint32_t* out,
+                                      float* err) {
+  Block b;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int t = 0; t < 16; ++t) b.x[c][t] = px(c, t);
+  ThCand bt, bh;
+#pragma unroll 1
+  for (int order = 0; order < 2; ++order) {
+    int q1[3], q2[3];
+    quant444(order ? mn : mp, q1);
+    quant444(order ? mp : mn, q2);
+    const int ord_bit = packed444(q1) >= packed444(q2);
+#pragma unroll 1
+    for (int di = 0; di < 8; ++di) {
+      const bool first = order == 0 && di == 0;
+      th_first<UW, false>(b, w, q1, q2, ord_bit, di, first, bt);
+      th_first<UW, true>(b, w, q1, q2, ord_bit, di, first, bh);
+    }
+  }
+#pragma unroll 1
+  for (int pass = 0; pass < refine; ++pass) {
+    // +-1 coordinate descent over the six colour coordinates with the
+    // adjacent distance rungs tried per step, then a distance re-sweep.
+#pragma unroll 1
+    for (int step = 0; step < 12; ++step) {
+      int q1t[3], q2t[3], q1h[3], q2h[3];
+      th_step_pair(bt, step, q1t, q2t);
+      th_step_pair(bh, step, q1h, q2h);
+#pragma unroll 1
+      for (int dstep = -1; dstep <= 1; ++dstep) {
+        th_try<UW, false>(b, w, q1t, q2t, clampi(bt.didx + dstep, 0, 7), bt);
+        th_try<UW, true>(b, w, q1h, q2h, clampi(bh.didx + dstep, 0, 7), bh);
+      }
+    }
+    // The re-sweep tries every rung on the pair it started from.
+    ThCand ft = bt, fh = bh;
+#pragma unroll 1
+    for (int di = 0; di < 8; ++di) {
+      th_try<UW, false>(b, w, bt.q1, bt.q2, di, ft);
+      th_try<UW, true>(b, w, bh.q1, bh.q2, di, fh);
+    }
+    bt = ft;
+    bh = fh;
+  }
+  th_words<UW, false>(b, w, bt, out);
+  th_words<UW, true>(b, w, bh, out + 2);
+  err[0] = bt.err;
+  err[1] = bh.err;
 }
 
 // ---------------------------------------------------------------------------
@@ -783,6 +1006,7 @@ __device__ __noinline__ float th_mode(const float (*px)[16], const float* chw, c
 __device__ __forceinline__ uint32_t etc1_hi(const int (&f1)[3], const int (&f2)[3], bool diff,
                                             int flip, int t1, int t2) {
   uint32_t hi = 0u;
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
     if (diff) {
       hi |= (uint32_t)f1[c] << (27 - 8 * c);
@@ -809,61 +1033,69 @@ __device__ __forceinline__ void offer(float err, uint32_t hi, uint32_t lo, bool&
 }
 
 // The un-swapped (hi, lo) words of the best ETC1 (or ETC2) encoding.
-__device__ __noinline__ void rgb_words(const float (*px)[16], const float* chw, int quality,
-                                       bool etc2, uint32_t* words) {
+template <bool UW>
+__device__ __noinline__ void rgb_words(Px px, Chw w, int quality, bool etc2, uint32_t* words) {
   bool have = false;
   float best_err = 0.0f;
+#pragma unroll 1
   for (int flip = 0; flip < 2; ++flip) {
-    float mean1[3], mean2[3];
+    Rgb mean1, mean2;
+#pragma unroll
     for (int c = 0; c < 3; ++c) {
       float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
       for (int t = 0; t < 16; ++t) {
         if (member(t, flip, 0))
-          s1 = s1 + px[c][t];
+          s1 = s1 + px(c, t);
         else
-          s2 = s2 + px[c][t];
+          s2 = s2 + px(c, t);
       }
-      mean1[c] = s1 / 8.0f;
-      mean2[c] = s2 / 8.0f;
+      mean1.v[c] = s1 / 8.0f;
+      mean2.v[c] = s2 / 8.0f;
     }
     DiffFit df;
-    diff_fit(px, chw, flip, mean1, mean2, quality, &df);
+    diff_fit<UW>(px, w, flip, mean1, mean2, quality, &df);
     {
       int b2[3];
-      float dec1[3], dec2[3];
+      Rgb dec1, dec2;
+#pragma unroll
       for (int c = 0; c < 3; ++c) b2[c] = df.b1[c] + df.d[c];
-      dec_of(df.b1, true, dec1);
-      dec_of(b2, true, dec2);
-      const uint32_t lo = table_bits(px, dec1, flip, 0, chw, df.t1) |
-                          table_bits(px, dec2, flip, 1, chw, df.t2);
+      dec_of(df.b1, true, dec1.v);
+      dec_of(b2, true, dec2.v);
+      const uint32_t lo = table_bits<UW>(px, flip, 0, dec1, w, df.t1) |
+                          table_bits<UW>(px, flip, 1, dec2, w, df.t2);
       offer(df.err, etc1_hi(df.b1, df.d, true, flip, df.t1, df.t2), lo, have, best_err, words);
     }
     if (quality >= 1) {
       SubFit i1, i2;
-      ind_subfit(px, chw, flip, 0, mean1, quality, &i1);
-      ind_subfit(px, chw, flip, 1, mean2, quality, &i2);
-      float dec1[3], dec2[3];
-      dec_of(i1.b, false, dec1);
-      dec_of(i2.b, false, dec2);
-      const uint32_t lo = table_bits(px, dec1, flip, 0, chw, i1.t) |
-                          table_bits(px, dec2, flip, 1, chw, i2.t);
+      ind_subfit<UW>(px, w, flip, 0, mean1, quality, &i1);
+      ind_subfit<UW>(px, w, flip, 1, mean2, quality, &i2);
+      Rgb dec1, dec2;
+      dec_of(i1.b, false, dec1.v);
+      dec_of(i2.b, false, dec2.v);
+      const uint32_t lo = table_bits<UW>(px, flip, 0, dec1, w, i1.t) |
+                          table_bits<UW>(px, flip, 1, dec2, w, i2.t);
       offer(i1.err + i2.err, etc1_hi(i1.b, i2.b, false, flip, i1.t, i2.t), lo, have, best_err,
             words);
     }
   }
   if (etc2) {
     const int refine = quality >= 4 ? 2 : 0;
-    uint32_t w[2];
-    float err = planar(px, chw, refine, w);
-    offer(err, w[0], w[1], have, best_err, words);
-    float mp[3], mn[3];
-    pca_split_means(px, mp, mn);
-    err = th_mode(px, chw, mp, mn, false, refine, w);
-    offer(err, w[0], w[1], have, best_err, words);
-    err = th_mode(px, chw, mp, mn, true, refine, w);
-    offer(err, w[0], w[1], have, best_err, words);
+    uint32_t wd[2];
+    float err = planar<UW>(px, w, refine, wd);
+    offer(err, wd[0], wd[1], have, best_err, words);
+    Rgb mp, mn;
+    pca_split_means(px, &mp, &mn);
+    uint32_t th[4];
+    float th_e[2];
+    th_modes<UW>(px, w, mp, mn, refine, th, th_e);
+    offer(th_e[0], th[0], th[1], have, best_err, words);
+    offer(th_e[1], th[2], th[3], have, best_err, words);
   }
+}
+
+__device__ __forceinline__ bool unit_weights(const Chw& w) {
+  return w.w[0] == 1.0f && w.w[1] == 1.0f && w.w[2] == 1.0f;
 }
 
 // ---------------------------------------------------------------------------
@@ -885,9 +1117,11 @@ __device__ __forceinline__ float eac_pal(const EacDomain& dm, float mod, float m
 }
 
 // The table x multiplier search around the range fit; returns the 64-bit
-// block's (hi, lo) words before the byte swap, base byte given.
-__device__ __noinline__ void eac_block(const float* v, int quality, uint32_t base_byte,
-                                       float span, EacDomain dm, uint32_t* words) {
+// block's (hi, lo) words before the byte swap, base byte given.  v[t]: a
+// thread's array (R11, the alpha entry) or a shared-memory channel (RGBA).
+template <class V>
+__device__ __noinline__ void eac_block(const V v, int quality, uint32_t base_byte, float span,
+                                       EacDomain dm, uint32_t* words) {
   const int ncand = c_eac_ncand[quality];
   int best_t = 0, best_mult = 1;
   float best_err = 0.0f;
@@ -945,8 +1179,9 @@ __device__ __noinline__ void eac_block(const float* v, int quality, uint32_t bas
   words[1] = lo;
 }
 
-// a[16] alpha in 0..255.
-__device__ __forceinline__ void eac_alpha(const float* a, int quality, uint32_t* words) {
+// a[t], t < 16: alpha in 0..255.
+template <class V>
+__device__ __forceinline__ void eac_alpha(const V a, int quality, uint32_t* words) {
   float lo = a[0], hi = a[0];
   for (int t = 1; t < 16; ++t) {
     lo = fminf(lo, a[t]);
@@ -972,8 +1207,81 @@ __device__ __forceinline__ void eac_r11(const float* v, int quality, bool is_sig
   const int base = (int)clampf(rintf((lo + hi) * 0.5f), blo, bhi);
   const EacDomain dm = {true, (float)base * 8.0f + (is_signed ? 0.0f : 4.0f),
                         is_signed ? -1023.0f : 0.0f, is_signed ? 1023.0f : 2047.0f};
-  eac_block(v8, quality, (uint32_t)base & 0xFFu, (hi - lo) * 0.5f, dm, words);
+  eac_block((const float*)v8, quality, (uint32_t)base & 0xFFu, (hi - lo) * 0.5f, dm, words);
 }
+
+// ---------------------------------------------------------------------------
+// The RGB and RGBA entries' CTA body
+// ---------------------------------------------------------------------------
+
+// Thread tid's share of staging blocks [first, first + nb) of blocks
+// [n,16,nch] into s_px: the first nc channels, clamp(x, 0, 1) * 255.  With
+// nch = 4 neighbouring threads read neighbouring texels as float4 (the
+// wrapper hands over 16-byte aligned storage, bc_cuda.launch).
+__device__ __forceinline__ void stage(const float* blocks, int first, int nb, int nch, int nc,
+                                      int tid) {
+  if (nch == 4) {
+    const float4* src = (const float4*)blocks + (size_t)first * 16;
+    for (int f = tid; f < nb * 16; f += kThreads) {
+      const float4 q = src[f];
+      float* d = s_px + (f & 15) * kStride + (f >> 4);
+      d[0] = clampf(q.x, 0.0f, 1.0f) * 255.0f;
+      d[16 * kStride] = clampf(q.y, 0.0f, 1.0f) * 255.0f;
+      d[32 * kStride] = clampf(q.z, 0.0f, 1.0f) * 255.0f;
+      if (nc == 4) d[48 * kStride] = clampf(q.w, 0.0f, 1.0f) * 255.0f;
+    }
+  } else {
+    const float* src = blocks + (size_t)first * 16 * nch;
+    for (int e = tid; e < nb * 16 * nch; e += kThreads) {
+      const int bt = e / nch, c = e - bt * nch;  // bt = block * 16 + texel
+      if (c < nc) s_px[(16 * c + (bt & 15)) * kStride + (bt >> 4)] = clampf(src[e], 0.0f, 1.0f) * 255.0f;
+    }
+  }
+}
+
+// Thread tid's block after staging: its ETC RGB words (2) or its EAC alpha
+// then ETC2 RGB words (4), byte-swapped.
+__device__ __forceinline__ void rgb_block(int tid, int quality, bool etc2, const Chw& w,
+                                          uint32_t* out) {
+  uint32_t cw[2];
+  if (unit_weights(w))
+    rgb_words<true>(Px{tid}, w, quality, etc2, cw);
+  else
+    rgb_words<false>(Px{tid}, w, quality, etc2, cw);
+  out[0] = bswap(cw[0]);
+  out[1] = bswap(cw[1]);
+}
+
+__device__ __forceinline__ void rgba_block(int tid, int quality, const Chw& w, uint32_t* out) {
+  uint32_t aw[2];
+  eac_alpha(PxChan{Px{tid}, 3}, quality, aw);
+  out[0] = bswap(aw[0]);
+  out[1] = bswap(aw[1]);
+  rgb_block(tid, quality, true, w, out + 2);
+}
+
+#ifndef __CUDACC__
+
+// The RGB and RGBA entries on the CPU: each CTA's staging, then its
+// threads one after another.  out: [n, 2] (RGB) or [n, 4] (RGBA) words.
+inline void etc_rgb_cpu(const float* blocks, uint32_t* out, int n, int nch, int quality, int etc2,
+                        Chw w) {
+  for (int first = 0; first < n; first += kThreads) {
+    const int nb = mini(kThreads, n - first);
+    for (int tid = 0; tid < kThreads; ++tid) stage(blocks, first, nb, nch, 3, tid);
+    for (int tid = 0; tid < nb; ++tid) rgb_block(tid, quality, etc2 != 0, w, out + 2 * (first + tid));
+  }
+}
+
+inline void etc2_rgba_cpu(const float* blocks, uint32_t* out, int n, int quality, Chw w) {
+  for (int first = 0; first < n; first += kThreads) {
+    const int nb = mini(kThreads, n - first);
+    for (int tid = 0; tid < kThreads; ++tid) stage(blocks, first, nb, 4, 4, tid);
+    for (int tid = 0; tid < nb; ++tid) rgba_block(tid, quality, w, out + 4 * (first + tid));
+  }
+}
+
+#endif  // !__CUDACC__
 
 #ifdef __CUDACC__
 
@@ -981,39 +1289,26 @@ __device__ __forceinline__ void eac_r11(const float* v, int quality, bool is_sig
 __global__ void __launch_bounds__(kThreads)
     etc_rgb_kernel(const float* __restrict__ blocks, uint2* __restrict__ out, int n, int nch,
                    int quality, int etc2, Chw chw) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* src = blocks + (size_t)i * 16 * nch;
-  float px[3][16];
-#pragma unroll
-  for (int t = 0; t < 16; ++t)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) px[c][t] = clampf(src[t * nch + c], 0.0f, 1.0f) * 255.0f;
+  const int first = blockIdx.x * kThreads, nb = mini(kThreads, n - first);
+  stage(blocks, first, nb, nch, 3, threadIdx.x);
+  __syncthreads();
+  if ((int)threadIdx.x >= nb) return;
   uint32_t w[2];
-  rgb_words(px, chw.w, quality, etc2 != 0, w);
-  out[i] = make_uint2(bswap(w[0]), bswap(w[1]));
+  rgb_block(threadIdx.x, quality, etc2 != 0, chw, w);
+  out[first + threadIdx.x] = make_uint2(w[0], w[1]);
 }
 
 // blocks: [n,16,4] float32 -> [n] uint4: EAC alpha words, then ETC2 RGB.
 __global__ void __launch_bounds__(kThreads)
-    etc2_rgba_kernel(const float4* __restrict__ blocks, uint4* __restrict__ out, int n,
-                     int quality, Chw chw) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float4* src = blocks + (size_t)i * 16;
-  float px[3][16], a[16];
-#pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    const float4 q = src[t];
-    px[0][t] = clampf(q.x, 0.0f, 1.0f) * 255.0f;
-    px[1][t] = clampf(q.y, 0.0f, 1.0f) * 255.0f;
-    px[2][t] = clampf(q.z, 0.0f, 1.0f) * 255.0f;
-    a[t] = clampf(q.w, 0.0f, 1.0f) * 255.0f;
-  }
-  uint32_t aw[2], cw[2];
-  eac_alpha(a, quality, aw);
-  rgb_words(px, chw.w, quality, true, cw);
-  out[i] = make_uint4(bswap(aw[0]), bswap(aw[1]), bswap(cw[0]), bswap(cw[1]));
+    etc2_rgba_kernel(const float* __restrict__ blocks, uint4* __restrict__ out, int n, int quality,
+                     Chw chw) {
+  const int first = blockIdx.x * kThreads, nb = mini(kThreads, n - first);
+  stage(blocks, first, nb, 4, 4, threadIdx.x);
+  __syncthreads();
+  if ((int)threadIdx.x >= nb) return;
+  uint32_t w[4];
+  rgba_block(threadIdx.x, quality, chw, w);
+  out[first + threadIdx.x] = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 __device__ __forceinline__ void load16(const float4* src, float lo, float hi, float scale,
@@ -1037,7 +1332,7 @@ __global__ void __launch_bounds__(kThreads)
   float a[16];
   load16(vals + (size_t)i * 4, 0.0f, 1.0f, 255.0f, a);
   uint32_t w[2];
-  eac_alpha(a, quality, w);
+  eac_alpha((const float*)a, quality, w);
   out[i] = make_uint2(bswap(w[0]), bswap(w[1]));
 }
 
@@ -1103,7 +1398,7 @@ extern "C" int etc2_rgba_encode_launch(const void* blocks, void* out, int n, int
   if (quality < 0 || quality > 4) return (int)cudaErrorInvalidValue;
   const etcx::Chw chw = {{w0, w1, w2}};
   etcx::etc2_rgba_kernel<<<etcx::grid_for(n), etcx::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)blocks, (uint4*)out, n, quality, chw);
+      (const float*)blocks, (uint4*)out, n, quality, chw);
   return (int)cudaGetLastError();
 }
 

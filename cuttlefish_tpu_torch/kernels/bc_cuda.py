@@ -67,8 +67,12 @@ def check_input(x: torch.Tensor, name: str, tail: tuple, quality: int) -> None:
 def launch(load_lib, counts: dict, name: str, fn: str, x: torch.Tensor, nwords: int,
            *args) -> torch.Tensor:
     """[N, nwords] uint32 words of launcher ``fn`` of the library
-    ``load_lib()`` on x (N = 0: no launch); counts[name] moves by one."""
+    ``load_lib()`` on x (N = 0: no launch); counts[name] moves by one.  The
+    kernels read 16-byte vectors: a view that starts off a 16-byte boundary
+    is copied first."""
     n = x.shape[0]
+    if x.data_ptr() % 16:
+        x = x.clone()
     out = torch.empty((n, nwords), dtype=torch.uint32, device=x.device)
     if n == 0:
         return out

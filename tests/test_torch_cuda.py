@@ -255,6 +255,53 @@ def test_etc_kernel_matches_plain_on_card(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 300])
+def test_etc_rgb_kernels_equal_plain_at_cta_edges(cuda, n):
+    """The ETC RGB entry on 3 and 4 channels and the RGBA8 entry stage 128
+    blocks a CTA: around one CTA and with a part-filled last CTA (300 =
+    2 x 128 + 44) every block equals the plain version (ETC2 q4, RGBA8 q2),
+    one launch each (none at n = 0)."""
+    b = _bc_input("rgba", 300)[:n]
+    for kind, x in (("etc_rgb", b[..., :3]), ("etc_rgb", b), ("etc2_rgba", b)):
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+        before = etc_cuda.launches[kind]
+        if kind == "etc_rgb":
+            k, p = etc.encode_etc_rgb(x, 4, True), etc.encode_etc_rgb_plain(x, 4, True)
+        else:
+            k, p = etc.encode_etc2_rgba(x, 2), etc.encode_etc2_rgba_plain(x, 2)
+        torch.cuda.synchronize()
+        assert etc_cuda.launches[kind] == before + (n > 0)
+        k, p = k.cpu().numpy(), p.cpu().numpy()
+        assert k.shape == p.shape == (n, 2 if kind == "etc_rgb" else 4)
+        assert np.array_equal(k, p), (kind, x.shape)
+
+
+@pytest.mark.gpu
+def test_etc_kernels_take_views_off_16_byte_boundaries(cuda):
+    """The ETC/EAC entries read 16-byte vectors: a contiguous view that
+    starts 4 bytes into its storage encodes as its aligned copy does."""
+    b = torch.from_numpy(_bc_input("rgba", 129)).to(cuda)
+    a = b[..., 3].contiguous()
+
+    def off(t):
+        store = torch.zeros(t.numel() + 1, device=cuda)
+        store[1:] = t.flatten()
+        view = store[1:].view(t.shape)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        return view
+
+    for kernel, plain, x in (
+        (lambda t: etc.encode_etc_rgb(t, 2, True), lambda t: etc.encode_etc_rgb_plain(t, 2, True), b),
+        (lambda t: etc.encode_etc2_rgba(t, 2), lambda t: etc.encode_etc2_rgba_plain(t, 2), b),
+        (lambda t: etc.encode_eac_alpha(t, 2), lambda t: etc.encode_eac_alpha_plain(t, 2), a),
+        (lambda t: etc.encode_eac_r11(t, 2), lambda t: etc.encode_eac_r11_plain(t, 2), a),
+    ):
+        got = kernel(off(x))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), plain(x).cpu())
+
+
+@pytest.mark.gpu
 def test_etc_kernels_reject_bad_input(cuda):
     x = torch.zeros((8, 16, 4), device=cuda)
     one = (1.0, 1.0, 1.0)
