@@ -14,12 +14,13 @@ exits non-zero:
    and power limit (nvidia-smi), torch and CUDA versions; TF32 off.
 2. build: one nvcc per csrc/*.cu for sm_90a, all started together, and the
    native codecs with g++; prints the seconds and what ptxas reports
-   (registers, spills) for every kernel entry, a line per ASTC and ETC
-   entry (registers, stack, spills, shared memory), the dynamic shared
-   memory and blocks a warp of ASTC entries C and D and the shared memory a
-   CTA of the ETC RGB and RGBA8 entries.  With --parent SRC, also that
-   earlier copy of a BC or ETC csrc/*.cu (kept outside the tree, its
-   headers beside it, its launchers this tree's) for phase 5.
+   (registers, spills) for every kernel entry, a line per BC7 q3-4, ASTC
+   and ETC entry (registers, stack, spills, shared memory), the dynamic
+   shared memory and blocks a warp of ASTC entries B, C and D and the
+   shared memory a CTA of the BC7 q3-4 and the ETC RGB and RGBA8 entries.
+   With --parent SRC, also that earlier copy of a BC, ETC or ASTC csrc/*.cu
+   (kept outside the tree, its headers beside it, its launchers this
+   tree's) for phase 5.
 3. kernel vs plain: the 262,144 blocks of the surface through each kernel
    and through its plain PyTorch version on the card: >= 99 % identical
    blocks, |dPSNR| <= 0.05 dB on a decoded sample of 4,096 blocks.  BC7 q0,
@@ -58,15 +59,17 @@ exits non-zero:
    took over a second): each kernel alone and its plain version alone on
    the 262,144 blocks (BC7 q3-4 and BC6H at q4, the main paths' quality,
    and at q3 and q2; ETC RGB and RGBA8 at q2 and q4, EAC at q2; ASTC
-   entries A and B at 4x4 q2 on the colour surface and at 8x8 q2, C and D
-   at 4x4 q4 and 8x8 q4 on the near-gray alpha surface); each main-path
+   entries A and B at 4x4, 8x8 and 12x12 q2 on the colour surface, B at
+   4x4 q4 on the near-gray alpha surface, C and D at 4x4 q4 and 8x8 q4 on
+   that surface); each main-path
    convert (host clock, synchronised) median of 5, and each of its phases'
    median over the same 5.  The unit-weight ETC RGB and RGBA8 cases also
    print the bound with the products by the weights counted, which a
    product by 1 does not need.  With --parent, every case of the rows whose source it
    names goes through the earlier build too (a second instance of the
    source's wrapper module, kernels/<name>_cuda.py, bound to it), timed in
-   turns with this tree's (earlier, this, this, earlier), words identical.
+   turns with this tree's (earlier, this, this, earlier), words identical
+   (for astc_encode.cu: every ASTC entry case, words and errors).
 
 Then one JSON line of kernels (launches from the paths of phase 4; bound_ms
 from this run's inputs: the larger of the bytes the function must move over
@@ -486,20 +489,12 @@ extern "C" void set_tables(const uint16_t* m2, const int* a2, const uint16_t* m3
   memcpy(bc7::c_part3, m3, sizeof bc7::c_part3);
   memcpy(bc7::c_anchor3, a3, sizeof bc7::c_anchor3);
 }
+// The warp body the card runs, its lanes one after another.
 extern "C" unsigned long long count(const float* blocks, int n, int q, const float* chw,
                                     uint32_t* out) {
   g_ops = 0;
   const CF w[4] = {chw[0], chw[1], chw[2], chw[3]};
-  for (int i = 0; i < n; ++i) {
-    CF px[4][16];
-    for (int t = 0; t < 16; ++t)
-      for (int c = 0; c < 4; ++c)
-        px[c][t] = bc7::clampf(CF(blocks[(i * 16 + t) * 4 + c]), 0.0f, 1.0f) * 255.0f;
-    uint32_t words[4];
-    if (q == 3) bc7::encode_block_hq<3>(px, w, words);
-    else bc7::encode_block_hq<4>(px, w, words);
-    memcpy(out + 4 * i, words, 16);
-  }
+  bc7::bc7_hq_cpu((const CF*)blocks, out, n, q, w);
   return g_ops;
 }
 """,
@@ -567,10 +562,12 @@ extern "C" unsigned long long count(const float* proxy, int n, int q, const floa
 
 
 def bc_op_counter(csrc: str, tmp: str):
-    """-> count(row, host input, **): (float operations per block, the
-    device code's words [n, 4]) for the rows bc7_q2, bc7_q3, bc7_q4, bc1_q2,
-    bc2_q2, bc3_q2, bc4_q2, bc5s_q2, bc6h_q2, bc6h_q4 (BC4: [n,16] values;
-    BC6H: [n,16,3] RGB through the f16 wire; the others [n,16,4] RGBA)."""
+    """-> count(row, host input, chw=None): (float operations per block,
+    the device code's words [n, 4]) for the rows bc7_q2, bc7_q3, bc7_q4,
+    bc1_q2, bc2_q2, bc3_q2, bc4_q2, bc5s_q2, bc6h_q2, bc6h_q4 (BC4: [n,16]
+    values; BC6H: [n,16,3] RGB through the f16 wire; the others [n,16,4]
+    RGBA); chw: other channel weights than the row's (BC7: the perceptual
+    ones)."""
     import ctypes
 
     import torch
@@ -619,8 +616,9 @@ def bc_op_counter(csrc: str, tmp: str):
             "bc4_q2": ("bc_encode", 4, chw1), "bc5s_q2": ("bc_encode", 5, chw1),
             "bc6h_q2": ("bc6h_encode", 2, chw1), "bc6h_q4": ("bc6h_encode", 4, chw1)}
 
-    def count(row, blocks):
-        name, arg, chw = rows[row]
+    def count(row, blocks, chw=None):
+        name, arg, row_chw = rows[row]
+        chw = row_chw if chw is None else np.ascontiguousarray(chw, np.float32)
         x = np.ascontiguousarray(blocks, np.float32)
         if name == "bc6h_encode":
             x = np.ascontiguousarray(bc6h._to_proxy(torch.from_numpy(x), False).numpy(),
@@ -663,8 +661,8 @@ def main(argv: list[str]) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--parent", action="append", default=[], metavar="SRC",
-                    help="an earlier copy of a csrc/*.cu of the BC or ETC kernels, its headers "
-                    "beside it: phase 5 times its cases in turns with this tree's")
+                    help="an earlier copy of a csrc/*.cu of the BC, ETC or ASTC kernels, its "
+                    "headers beside it: phase 5 times its cases in turns with this tree's")
     args = ap.parse_args(argv)
 
     # 1. device
@@ -711,6 +709,10 @@ def main(argv: list[str]) -> int:
             f"{info['seconds']:.2f} s)")
         for line in ptxas_lines(info["log"]):
             log("build", f"ptxas {name}: {line}")
+    for line in ptxas_entries(_build.build_info["bc7_hq_encode"]["log"]):
+        log("build", f"ptxas bc7_hq_encode entry {line}")
+    log("build", f"bc7_hq_kernel: 4 warps a CTA, 32 blocks a warp, {bc7_hq_cuda.shared_bytes()} "
+        f"bytes of dynamic shared memory a CTA (its blocks' texels and phase results)")
     for line in ptxas_entries(_build.build_info["astc_encode"]["log"]):
         log("build", f"ptxas astc_encode entry {line}")
     for line in ptxas_entries(_build.build_info["etc_encode"]["log"]):
@@ -729,11 +731,14 @@ def main(argv: list[str]) -> int:
         for line in ptxas_entries(parent_log):
             log("build", f"ptxas {src} entry {line}")
     for bw, bh in ((4, 4), (8, 8), (12, 12)):
-        for stage in ("c", "d"):
-            plan = astc_cuda.warp_plan(stage, bw, bh, 4, True, True)
-            log("build", f"astc_{stage} {bw}x{bh} q4 gray alpha: {plan['group']} blocks a warp, "
+        for stage, q in (("b", 2), ("b", 4), ("c", 4), ("d", 4)):
+            plan = astc_cuda.warp_plan(stage, bw, bh, q, True, True)
+            if not plan["group"]:
+                continue  # a thread per block
+            log("build", f"astc_{stage} {bw}x{bh} q{q} gray alpha: {plan['group']} blocks a warp, "
                 f"4 warps a CTA, {plan['smem_bytes']} bytes of dynamic shared memory a CTA "
-                f"({plan['mask_bytes']} of pattern masks)")
+                f"({plan['mask_bytes']} of pattern masks); {plan['scratch_bytes']} bytes of device "
+                f"scratch a block")
     log("build", f"nvcc {' '.join(_build.NVCC_FLAGS)}: {build_s:.2f} s for "
         f"{[p.name for p in _build._sources()]}, one nvcc each, in parallel")
     t0 = time.perf_counter()
@@ -1212,7 +1217,7 @@ def main(argv: list[str]) -> int:
             "astc4_2048_mips_ktx": (TF.ASTC_4x4, QN, images["rgba"], True, False, True, astc_ab),
             "astc4_cube_srgb_nm_ktx": (TF.ASTC_4x4, QN, nm256, True, True, True, astc_ab),
             "astc8x8_2048_ktx": (TF.ASTC_8x8, QN, images["rgba"], False, False, False, astc_ab),
-            "astc12x12_2048_ktx": (TF.ASTC_12x12, QN, images["rgba"], False, False, False,
+            "astc12x12_2048_ktx": (TF.ASTC_12x12, QN, images["rgba"], False, False, True,
                                    astc_ab),
             "astc4_q4_grayalpha_2048_ktx": (TF.ASTC_4x4, QX, gray_img, False, False, True,
                                             ("astc_a", "astc_b", "astc_c", "astc_d")),
@@ -1376,8 +1381,9 @@ def main(argv: list[str]) -> int:
     # --parent: every case of the rows whose source was given, through the
     # earlier build in turns with this tree's (earlier, this, this,
     # earlier); the words must be the same.
-    check(set(earlier) <= {row[3] for row in kernel_rows},
-          f"--parent takes the sources of these rows: {sorted({row[3] for row in kernel_rows})}")
+    astc_src = "cuttlefish_tpu_torch/csrc/astc_encode.cu"
+    sources = {row[3] for row in kernel_rows} | {astc_src}
+    check(set(earlier) <= sources, f"--parent takes the sources of these rows: {sorted(sources)}")
     for _, _, case, src, _, _, others in kernel_rows:
         twin = earlier.get(src)
         for c in (case, *others) if twin else ():
@@ -1399,7 +1405,6 @@ def main(argv: list[str]) -> int:
             log("times", f"{card}: {c} ({x.shape[0]} blocks): earlier file {p1:.4f} / {p2:.4f} ms, "
                 f"this file {k1:.4f} / {k2:.4f} ms (turns: earlier, this, this, earlier), "
                 f"{(p1 + p2) / (k1 + k2):.2f}x faster; words identical")
-    parent_dir.cleanup()
 
     # This slice: each ASTC entry alone, its plain version alone, and its
     # bound from the operations it needs on a sample of the same blocks
@@ -1408,8 +1413,10 @@ def main(argv: list[str]) -> int:
     # (row name, entry, TPU kernel body, (block w, block h, quality, surface) timed for the
     # row, then the other shapes timed alongside)
     astc_rows = [
-        ("astc_a_encode", "a", ":792", [(4, 4, 2, "rgba"), (8, 8, 2, "rgba")]),
-        ("astc_b_encode", "b", ":1005", [(4, 4, 2, "rgba"), (8, 8, 2, "rgba")]),
+        ("astc_a_encode", "a", ":792", [(4, 4, 2, "rgba"), (8, 8, 2, "rgba"),
+                                        (12, 12, 2, "rgba")]),
+        ("astc_b_encode", "b", ":1005", [(4, 4, 2, "rgba"), (8, 8, 2, "rgba"),
+                                         (12, 12, 2, "rgba"), (4, 4, 4, "grayalpha")]),
         ("astc_c_encode", "c", ":1151", [(4, 4, 4, "grayalpha"), (8, 8, 4, "grayalpha")]),
         ("astc_d_encode", "d", ":1269", [(4, 4, 4, "grayalpha"), (8, 8, 4, "grayalpha")]),
     ]
@@ -1439,10 +1446,33 @@ def main(argv: list[str]) -> int:
                     f"Mtexels/s); plain {plain_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
                     f"({bound_by}: {bytes_ / 1e6:.1f} MB, {ops:.0f} needed ops/block, counted "
                     f"on {samp.size} blocks in {count_s:.1f} s)")
+                twin = earlier.get(astc_src)
+                if twin:
+                    def theirs():
+                        return twin.stage_cuda(stage, x, bw, bh, q, gray, alpha)
+
+                    def ours():
+                        return astc_cuda.stage_cuda(stage, x, bw, bh, q, gray, alpha)
+
+                    before = launched(twin)
+                    (tw, te), (ow, oe) = theirs(), ours()
+                    check(launched(twin) > before, f"astc_{stage}: the earlier build did not launch")
+                    check(torch.equal(tw.view(torch.int32), ow.view(torch.int32))
+                          and torch.equal(te.view(torch.int32), oe.view(torch.int32)),
+                          f"astc_{stage} {bw}x{bh} q{q}: the earlier astc_encode.cu's words or "
+                          f"errors differ from this one's")
+                    p1 = event_ms(torch, theirs, 7)
+                    k1 = event_ms(torch, ours, 7)
+                    k2 = event_ms(torch, ours, 7)
+                    p2 = event_ms(torch, theirs, 7)
+                    log("times", f"{card}: astc_{stage} ({bw}x{bh} q{q} on {kind}, {nb} blocks): "
+                        f"earlier file {p1:.4f} / {p2:.4f} ms, this file {k1:.4f} / {k2:.4f} ms "
+                        f"(turns: earlier, this, this, earlier), {(p1 + p2) / (k1 + k2):.2f}x "
+                        f"faster; words and errors identical")
                 if i == 0:
                     rows.append({
                         "name": name, "route": "cuda",
-                        "source": "cuttlefish_tpu_torch/csrc/astc_encode.cu",
+                        "source": astc_src,
                         "replaces": "cuttlefish_tpu/kernels/astc_pallas.py" + line,
                         "launches": path_launches[f"astc_{stage}"],
                         "max_abs_err": max_err["astc4_q4_grayalpha" if q == 4 else "astc4_q2"],
@@ -1450,6 +1480,8 @@ def main(argv: list[str]) -> int:
                         "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by,
                         "library_ms": None,
                     })
+
+    parent_dir.cleanup()
 
     def time_convert(pname, make, fmt, typ, quality):
         secs, phases = [], []

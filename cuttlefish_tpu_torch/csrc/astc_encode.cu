@@ -24,22 +24,27 @@
 // (MT = 16 for 4x4, 64 up to 8x8, 144 up to 12x12), one template instance
 // per class, with per-texel weights and endpoints as bytes.
 //
-// Entries A and B: one thread per ASTC block, 64 threads per CTA, the
-// block's texels in the thread's local memory; B's screen uses the warp
-// entries' masked sums (lane_sums_n) on one pattern at a time.
+// Entry A, and B at 4x4: one thread per ASTC block, 64 threads per CTA,
+// the block's texels in the thread's local memory, where a warp's loads of
+// one texel of its 32 blocks coalesce.
 //
-// Entries C and D, whose pattern screens took most of their time: a warp
-// per group of G blocks, 4 warps per CTA.  The entry's pattern masks are
-// staged once per CTA in dynamic shared memory (D: 12 KB at 4x4, 60 KB at
-// 12x12), each block's texels once per warp as [4][T] floats.  For each
-// block the 32 lanes share its patterns (lane j takes j, j + 32, ...),
-// reading each texel as a shared-memory broadcast for all of a pattern's
-// masks at once, and keep their own top-k; five levels of pairwise merges
-// by (estimate, pattern) give the list of the sequential scan.  The rerank
-// and final fits of the G blocks then run a fit per lane, and a lane per
-// block takes the winner in candidate order.  G fills the lanes in the
-// final fits: 10 blocks for C and 16 for D at 4x4 q4.  In a CPU build the
-// 32 lanes of each phase run one after another (FOR_LANES).
+// Entries B above 4x4, C and D, whose pattern screens took most of their
+// time: a warp per group of G blocks, 4 warps per CTA.  The entry's
+// pattern masks are staged once per CTA in dynamic shared memory (B: 5.5
+// KB at 8x8, 16 KB at 12x12; D: 12 KB at 4x4, 60 KB at 12x12), each
+// block's texels once per warp as [4][T] floats: C's and D's in shared
+// memory, B's (32 blocks of up to 2.3 KB) in a device scratch read through
+// L1.  For each block the 32 lanes share its patterns (lane j takes j, j +
+// 32, ...), reading each texel as a broadcast for all of a pattern's masks
+// at once, and keep their own top-k; five levels of pairwise merges by
+// (estimate, pattern) give the list of the sequential scan.  The rerank
+// (B: a continuous SSE, C and D: an unrefined fit) and the final fits of
+// the G blocks then run a lane per (block, candidate) and per (block, seed,
+// layout), B's a layout at a time, and a lane per block takes the winner in
+// candidate order.  G fills the lanes in the final fits: B 32 blocks (one
+// kept seed above 4x4 at every quality), C 10 and D 16 at 4x4 q4; C and D
+// at most 512 texels of blocks a warp.  In a CPU build the 32 lanes of each
+// phase run one after another (FOR_LANES).
 //
 // What bounds it: operations.  A block reads 64-576 bytes and writes 20,
 // but a 4x4 block at quality 2 runs some twenty layout fits of several
@@ -72,7 +77,7 @@
 
 namespace astcx {
 
-constexpr int kThreads = 64;  // entries A and B: threads per CTA
+constexpr int kThreads = 64;  // entry A and B at 4x4: threads per CTA
 constexpr int kMaxT = 144;    // 12x12
 constexpr int kMaxTopK = 16;
 
@@ -1130,11 +1135,33 @@ __device__ void screen_totals(const Blk<MT>& B, float& sq_all, float s_all[4]) {
   }
 }
 
-// Kernel B: 2-partition screen, top-k, rerank, CEM 8 (12) fits.
+// Estimate of kernel B's screen for the 2-partition pattern row m (one
+// mask: partition 1): the block's SSE less what the two partition means
+// explain; invalid (a partition under one texel) is infinite.
+template <int MT>
+__device__ __forceinline__ float screen_b(const Blk<MT>& B, const int* m, int nw, float sq_all,
+                                          const float s_all[4]) {
+  const float tf = (float)B.T;
+  const float ns = popf(m, nw);
+  float sp[1][4];
+  lane_sums_n<MT, 1>(B, m, nw, sp);
+  const float* s1 = sp[0];
+  const float n1 = ns + 1e-6f, n0 = (tf - ns) + 1e-6f;
+  float a = s1[0] * s1[0], b = sq(s_all[0] - s1[0]);
+  for (int c = 1; c < 4; ++c) {
+    a = a + s1[c] * s1[c];
+    b = b + sq(s_all[c] - s1[c]);
+  }
+  float sse = sq_all - (a / n1 + b / n0);
+  if (ns < 1.0f || ns > tf - 1.0f) sse = kInf;
+  return sse;
+}
+
+// Kernel B at 4x4, a thread per block: 2-partition screen, top-k, rerank,
+// CEM 8 (12) fits.
 template <int MT>
 __device__ __noinline__ void body_b(const int* d, const Blk<MT>& B, uint32_t w[4], float& e) {
-  const int T = B.T, nw = d[H_NW], U = d[H_U2];
-  const float tf = (float)T;
+  const int nw = d[H_NW], U = d[H_U2];
   const int* masks = d + d[H_OFF_P2];
   const int* smap = d + d[H_OFF_S2];
   float sq_all, s_all[4];
@@ -1142,22 +1169,8 @@ __device__ __noinline__ void body_b(const int* d, const Blk<MT>& B, uint32_t w[4
   const int topk = d[H_TOPK2], keep = d[H_KEEP2];
   float vs[kMaxTopK];
   int ids[kMaxTopK], cnt = 0;
-  for (int u = 0; u < U; ++u) {
-    const int* m = masks + u * nw;
-    const float ns = popf(m, nw);
-    float sp[1][4];
-    lane_sums_n<MT, 1>(B, m, nw, sp);
-    const float* s1 = sp[0];
-    const float n1 = ns + 1e-6f, n0 = (tf - ns) + 1e-6f;
-    float a = s1[0] * s1[0], b = sq(s_all[0] - s1[0]);
-    for (int c = 1; c < 4; ++c) {
-      a = a + s1[c] * s1[c];
-      b = b + sq(s_all[c] - s1[c]);
-    }
-    float sse = sq_all - (a / n1 + b / n0);
-    if (ns < 1.0f || ns > tf - 1.0f) sse = kInf;
-    topk_insert(vs, ids, cnt, topk, sse, u);
-  }
+  for (int u = 0; u < U; ++u)
+    topk_insert(vs, ids, cnt, topk, screen_b(B, masks + u * nw, nw, sq_all, s_all), u);
   int seeds[kMaxTopK];
   int nseeds = topk;
   if (topk > keep) {
@@ -1191,7 +1204,7 @@ __device__ __noinline__ void body_b(const int* d, const Blk<MT>& B, uint32_t w[4
 }
 
 // ---------------------------------------------------------------------------
-// Kernels C and D: a warp per group of blocks
+// Kernels B, C and D: a warp per group of blocks
 // ---------------------------------------------------------------------------
 
 // Estimate of kernel C's screen for the 3-partition pattern row m (two
@@ -1294,7 +1307,7 @@ __device__ inline void merge_keys(uint64_t* a, int& na, const uint64_t* b, int n
   na = n;
 }
 
-constexpr int kWarps = 4;           // warps per CTA of kernels C and D
+constexpr int kWarps = 4;           // warps per CTA of kernels B, C and D
 constexpr int kGroupTexels = 512;   // at most this many texels of blocks per warp
 
 __host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
@@ -1305,12 +1318,15 @@ struct Head {
   int gray, pad[2];
 };
 
-// How a warp of kernel C (stage 2) or D (3) splits its work, and where its
-// shared memory goes, from the descriptor header.  G blocks a warp: as many
-// as fill the 32 lanes with the final fits (C: its kept seeds, D: its
-// layouts), at most kGroupTexels texels.
+// How a warp of kernel B (stage 1), C (2) or D (3) splits its work, and
+// where its shared memory goes, from the descriptor header.  The final
+// fits of a block are its seeds times `nlay` layouts, seed-major (B: kept
+// seeds x its layouts, C: kept seeds x 1, D: 1 seed x its layouts).  G
+// blocks a warp: as many as fill the 32 lanes with the final fits, at most
+// kGroupTexels texels.
 struct WarpPlan {
-  int topk, keep, rerank, nfin, group, slots, mask_words, masks_bytes;
+  int topk, keep, rerank, nlay, nfin, group, slots, mask_words, masks_bytes;
+  int global_blk;  // B: the blocks' texels in device memory (a scratch), not shared memory
   int blk_off, head_off, ids_off, ests_off, seeds_off, errs_off, words_off, keys_off, cnt_off;
   int warp_bytes, smem_bytes;
 };
@@ -1319,27 +1335,44 @@ template <int MT>
 __host__ __device__ inline WarpPlan warp_plan(int stage, const int* h) {
   WarpPlan P;
   const int nw = h[H_NW];
-  if (stage == 2) {
+  if (stage == 1) {
+    P.topk = h[H_TOPK2];
+    P.keep = h[H_KEEP2];
+    P.rerank = P.topk > P.keep;
+    P.nlay = h[H_NB];
+    P.nfin = (P.rerank ? P.keep : P.topk) * P.nlay;
+    P.mask_words = h[H_U2] * nw;
+  } else if (stage == 2) {
     P.topk = h[H_TOPK3];
     P.keep = h[H_KEEP3];
     P.rerank = P.topk > P.keep;
+    P.nlay = 1;
     P.nfin = P.rerank ? P.keep : P.topk;
     P.mask_words = h[H_U3] * 2 * nw;
   } else {
     P.topk = h[H_TOPK4];
     P.keep = 1;
     P.rerank = P.topk > 1;
+    P.nlay = h[H_ND];
     P.nfin = h[H_ND];
     P.mask_words = 1024 * 3 * nw;
   }
   int g = 32 / (P.nfin > 1 ? P.nfin : 1);
   if (g > kGroupTexels / MT) g = kGroupTexels / MT;
+  P.global_blk = 0;
+  if (stage == 1) {
+    // A block's final fits run one layout at a time, so G fills the lanes
+    // with its kept seeds; the G blocks' texels then outgrow shared memory
+    // and stay in device memory (L1).
+    g = 32 / (P.nfin / P.nlay);
+    P.global_blk = 1;
+  }
   P.group = g > 1 ? g : 1;
   P.slots = P.topk > P.nfin ? P.topk : P.nfin;
   const int gs = P.group * P.slots;
   int off = 0;
   P.blk_off = off;
-  off += P.group * (int)sizeof(Blk<MT>);
+  off += P.global_blk ? 0 : P.group * (int)sizeof(Blk<MT>);
   P.head_off = off;
   off += align16(P.group * (int)sizeof(Head));
   P.ids_off = off;
@@ -1374,9 +1407,9 @@ struct WarpMem {
 };
 
 template <int MT>
-__device__ inline WarpMem<MT> warp_mem(unsigned char* base, const WarpPlan& P) {
+__device__ inline WarpMem<MT> warp_mem(unsigned char* base, const WarpPlan& P, Blk<MT>* gblk) {
   WarpMem<MT> M;
-  M.blk = (Blk<MT>*)(base + P.blk_off);
+  M.blk = P.global_blk ? gblk : (Blk<MT>*)(base + P.blk_off);
   M.head = (Head*)(base + P.head_off);
   M.ids = (int*)(base + P.ids_off);
   M.ests = (float*)(base + P.ests_off);
@@ -1388,6 +1421,16 @@ __device__ inline WarpMem<MT> warp_mem(unsigned char* base, const WarpPlan& P) {
   return M;
 }
 
+// Whether entry S at texel class MT runs the warp body (B above 4x4, C,
+// D); else a thread per block.
+__host__ __device__ constexpr bool warp_entry(int S, int MT) { return S >= 2 || (S == 1 && MT > 16); }
+
+// The header field of stage S's pattern masks (B: 2-, C: 3-, D:
+// 4-partition).
+__host__ __device__ constexpr int mask_table(int S) {
+  return S == 1 ? H_OFF_P2 : S == 2 ? H_OFF_P3 : H_OFF_P4;
+}
+
 // The lanes of a warp.  On the card each lane runs the body once, and
 // WARP_SYNC orders the warp's shared memory between phases; in a CPU build
 // the 32 lanes run one after another.  A phase's lanes share nothing but
@@ -1395,9 +1438,11 @@ __device__ inline WarpMem<MT> warp_mem(unsigned char* base, const WarpPlan& P) {
 #ifdef __CUDACC__
 #define FOR_LANES(lane) for (int lane = (int)(threadIdx.x & 31u), lane##_once = 1; lane##_once; lane##_once = 0)
 #define WARP_SYNC() __syncwarp()
+#define WARP_FENCE() __threadfence_block()
 #else
 #define FOR_LANES(lane) for (int lane = 0; lane < 32; ++lane)
 #define WARP_SYNC()
+#define WARP_FENCE()
 #endif
 
 // The k least (estimate, pattern) pairs of patterns 0 .. U-1, est(u) the
@@ -1429,20 +1474,24 @@ __device__ void warp_topk(const Est& est, int U, int k, uint64_t* keys, int* cnt
   WARP_SYNC();
 }
 
-// Kernel C (S = 2: 3-partition screen, top-k, unrefined-fit rerank, CEM 8
-// fits) or D (S = 3: 4-partition luminance screen over all 1024 seeds and
-// CEM 0/4 fits, near-gray blocks only; other blocks get zero words, error
-// inf) on blocks i0 .. i0 + ng - 1 by one warp.  masks: the entry's pattern
-// masks, staged; ws: the warp's shared memory (WarpPlan).
+// Kernel B (S = 1: 2-partition screen over the distinct patterns, top-k,
+// continuous-SSE rerank, CEM 8/12 fits of each kept seed and layout), C
+// (S = 2: 3-partition screen, top-k, unrefined-fit rerank, CEM 8 fits) or
+// D (S = 3: 4-partition luminance screen over all 1024 seeds and CEM 0/4
+// fits, near-gray blocks only; other blocks get zero words, error inf) on
+// blocks i0 .. i0 + ng - 1 by one warp.  masks: the entry's pattern masks
+// (np a row), staged; ws: the warp's shared memory (WarpPlan); gblk: the
+// group's texels in device memory where P.global_blk.
 template <int S, int MT>
 __device__ void encode_group(const int* d, const int* masks, const WarpPlan& P, const float* blocks,
-                             long long i0, int ng, unsigned char* ws, uint32_t* out_w, float* out_e) {
-  const WarpMem<MT> M = warp_mem<MT>(ws, P);
+                             long long i0, int ng, unsigned char* ws, Blk<MT>* gblk, uint32_t* out_w,
+                             float* out_e) {
+  const WarpMem<MT> M = warp_mem<MT>(ws, P, gblk);
   const int T = d[H_T], nw = d[H_NW];
-  const int np = S == 2 ? 2 : 3;
-  const int U = S == 2 ? d[H_U3] : 1024;
+  const int np = S;
+  const int U = S == 1 ? d[H_U2] : S == 2 ? d[H_U3] : 1024;
   const int K = P.slots, k = P.topk;
-  const int* lays = d + (S == 2 ? d[H_OFF_C] : d[H_OFF_D]);
+  const int* lays = d + d[S == 1 ? H_OFF_B : S == 2 ? H_OFF_C : H_OFF_D];
 
   // Texels, read coalesced and scaled as load_block does; then each
   // block's gate and screen totals, a lane per block.
@@ -1454,11 +1503,12 @@ __device__ void encode_group(const int* d, const int* masks, const WarpPlan& P, 
     }
     if (lane < ng) M.blk[lane].T = T;
   }
+  WARP_FENCE();
   WARP_SYNC();
   FOR_LANES(lane) {
     for (int b = lane; b < ng; b += 32) {
       Head& h = M.head[b];
-      h.gray = S == 2 ? 1 : (is_gray(d, M.blk[b]) ? 1 : 0);
+      h.gray = S < 3 ? 1 : (is_gray(d, M.blk[b]) ? 1 : 0);
       if (h.gray) screen_totals(M.blk[b], h.sq_all, h.s_all);
     }
   }
@@ -1472,35 +1522,43 @@ __device__ void encode_group(const int* d, const int* masks, const WarpPlan& P, 
     warp_topk(
         [&](int u) {
           const int* m = masks + u * np * nw;
-          return S == 2 ? screen_c(B, m, nw, h.sq_all, h.s_all) : screen_d(B, m, nw, h.sq_all, h.s_all);
+          return S == 1   ? screen_b(B, m, nw, h.sq_all, h.s_all)
+                 : S == 2 ? screen_c(B, m, nw, h.sq_all, h.s_all)
+                          : screen_d(B, m, nw, h.sq_all, h.s_all);
         },
         U, k, M.keys, M.cnt, M.ids + b * K);
   }
 
-  // The rerank: a one-iteration fit of each (block, candidate), a lane each.
+  // The rerank, a lane per (block, candidate): B's continuous SSE, C's and
+  // D's one-iteration fit.
   if (P.rerank) {
     FOR_LANES(lane) {
       for (int task = lane; task < ng * k; task += 32) {
         const int b = task / k, i = task - b * k;
         if (!M.head[b].gray) continue;
-        const Lay L = load_lay(d, lays[0]);
-        Fit<MT> F;
-        fit_parts(M.blk[b], L, make_part<MT>(masks + M.ids[b * K + i] * np * nw, np, nw), np + 1, 1, F);
-        M.ests[b * K + i] = F.err;
+        const Part<MT> part = make_part<MT>(masks + M.ids[b * K + i] * np * nw, np, nw);
+        if (S == 1) {
+          M.ests[b * K + i] = cont_sse(M.blk[b], part);
+        } else {
+          const Lay L = load_lay(d, lays[0]);
+          Fit<MT> F;
+          fit_parts(M.blk[b], L, part, np + 1, 1, F);
+          M.ests[b * K + i] = F.err;
+        }
       }
     }
     WARP_SYNC();
   }
 
-  // The seeds, a lane per block: C keeps `keep` by rerank estimate, D the
-  // first of least error.
+  // The seeds, a lane per block: B and C keep `keep` by rerank estimate, D
+  // the first of least error.
   FOR_LANES(lane) {
     for (int b = lane; b < ng; b += 32) {
       if (!M.head[b].gray) continue;
       const int* ids = M.ids + b * K;
       const float* ests = M.ests + b * K;
       int* seeds = M.seeds + b * K;
-      if (S == 2) {
+      if (S < 3) {
         if (P.rerank) {
           rank_keep(ids, ests, k, P.keep, seeds);
         } else {
@@ -1522,17 +1580,30 @@ __device__ void encode_group(const int* d, const int* masks, const WarpPlan& P, 
   }
   WARP_SYNC();
 
-  // The final fits, a lane each: C one per kept seed, D one per layout on
-  // the block's seed.
+  // The final fits, a lane each: one per kept seed and layout, slot j
+  // seed-major (B: its layouts on each kept seed, C: one per kept seed, D:
+  // one per layout on the block's seed).  B takes its tasks layout-major,
+  // so that the warp's lanes fit one layout at a time.
+  const int nseed = P.nfin / P.nlay;
   FOR_LANES(lane) {
     for (int task = lane; task < ng * P.nfin; task += 32) {
-      const int b = task / P.nfin, j = task - b * P.nfin;
+      int b, j;
+      if (S == 1) {
+        const int li = task / (ng * nseed), r = task - li * (ng * nseed);
+        b = r / nseed;
+        j = (r - b * nseed) * P.nlay + li;
+      } else {
+        b = task / P.nfin;
+        j = task - b * P.nfin;
+      }
       if (!M.head[b].gray) continue;
-      const int seed = M.seeds[b * K + (S == 2 ? j : 0)];
-      const Lay L = load_lay(d, lays[S == 2 ? 0 : j]);
+      const int seed = M.seeds[b * K + j / P.nlay];
+      const Lay L = load_lay(d, lays[j % P.nlay]);
       Fit<MT> F;
-      fit_parts(M.blk[b], L, make_part<MT>(masks + seed * np * nw, np, nw), np + 1, d[H_ITERS], F);
-      pack_fit(d, L, F, 0, S == 2 ? d[d[H_OFF_S3] + seed] : seed, M.words + (b * K + j) * 4);
+      fit_parts(M.blk[b], L, make_part<MT>(masks + seed * np * nw, np, nw), np + 1,
+                d[S == 1 ? H_P2ITERS : H_ITERS], F);
+      const int id = S == 3 ? seed : d[d[S == 1 ? H_OFF_S2 : H_OFF_S3] + seed];
+      pack_fit(d, L, F, 0, id, M.words + (b * K + j) * 4);
       M.errs[b * K + j] = F.err;
     }
   }
@@ -1558,13 +1629,14 @@ __device__ void encode_group(const int* d, const int* masks, const WarpPlan& P, 
 #ifndef __CUDACC__
 
 // Entry `stage` (0..3 = a..d) on n blocks on the CPU, arrays sized by the
-// texel class MT: A and B block by block, C and D through the warp body
-// (its lanes one after another), groups of WarpPlan::group blocks.
+// texel class MT, as the card runs it: A and B at 4x4 block by block, B
+// above 4x4, C and D through the warp body (its lanes one after another),
+// groups of WarpPlan::group blocks.
 template <int MT>
 inline void encode_stage_t(int stage, const int* d, const float* blocks, int n, uint32_t* words,
                            float* err) {
   const int T = d[H_T];
-  if (stage < 2) {
+  if (!warp_entry(stage, MT)) {
     for (int i = 0; i < n; ++i) {
       Blk<MT> B;
       load_block(blocks + (size_t)i * T * 4, T, B);
@@ -1577,14 +1649,19 @@ inline void encode_stage_t(int stage, const int* d, const float* blocks, int n, 
   }
   const WarpPlan P = warp_plan<MT>(stage, d);
   unsigned char* smem = (unsigned char*)aligned_alloc(16, P.masks_bytes + P.warp_bytes);
-  memcpy(smem, d + d[stage == 2 ? H_OFF_P3 : H_OFF_P4], (size_t)P.mask_words * 4);
+  Blk<MT>* gblk = new Blk<MT>[P.group];
+  memcpy(smem, d + d[mask_table(stage)], (size_t)P.mask_words * 4);
   for (int i0 = 0; i0 < n; i0 += P.group) {
     const int ng = n - i0 < P.group ? n - i0 : P.group;
-    if (stage == 2)
-      encode_group<2, MT>(d, (const int*)smem, P, blocks, i0, ng, smem + P.masks_bytes, words, err);
+    unsigned char* ws = smem + P.masks_bytes;
+    if (stage == 1)
+      encode_group<1, MT>(d, (const int*)smem, P, blocks, i0, ng, ws, gblk, words, err);
+    else if (stage == 2)
+      encode_group<2, MT>(d, (const int*)smem, P, blocks, i0, ng, ws, gblk, words, err);
     else
-      encode_group<3, MT>(d, (const int*)smem, P, blocks, i0, ng, smem + P.masks_bytes, words, err);
+      encode_group<3, MT>(d, (const int*)smem, P, blocks, i0, ng, ws, gblk, words, err);
   }
+  delete[] gblk;
   free(smem);
 }
 
@@ -1599,7 +1676,7 @@ inline void encode_stage(int stage, const int* d, const float* blocks, int n, ui
 
 #ifdef __CUDACC__
 
-// Entries A (S = 0) and B (S = 1): one thread per block.
+// Entry A, and B at 4x4: one thread per block.
 template <int S, int MT>
 __global__ void __launch_bounds__(kThreads)
     astc_kernel(const float* __restrict__ blocks, const int* __restrict__ desc,
@@ -1619,16 +1696,16 @@ __global__ void __launch_bounds__(kThreads)
   err[i] = e;
 }
 
-// Entries C (S = 2) and D (S = 3): kWarps warps a CTA, a warp per group of
-// blocks; the masks are staged once per CTA.
+// Entries B above 4x4 (S = 1), C (S = 2) and D (S = 3): kWarps warps a CTA,
+// a warp per group of blocks; the masks are staged once per CTA.
 template <int S, int MT>
 __global__ void __launch_bounds__(kWarps * 32)
     astc_warp_kernel(const float* __restrict__ blocks, const int* __restrict__ desc,
-                     uint32_t* __restrict__ words, float* __restrict__ err, int n) {
+                     uint32_t* __restrict__ words, float* __restrict__ err, Blk<MT>* scratch, int n) {
   extern __shared__ __align__(16) unsigned char smem[];
   const WarpPlan P = warp_plan<MT>(S, desc);
   int* masks = (int*)smem;
-  const int* src = desc + desc[S == 2 ? H_OFF_P3 : H_OFF_P4];
+  const int* src = desc + desc[mask_table(S)];
   for (int i = threadIdx.x; i < P.mask_words; i += blockDim.x) masks[i] = src[i];
   __syncthreads();
   const int warp = threadIdx.x >> 5;
@@ -1636,14 +1713,16 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (i0 >= n) return;
   const int ng = n - i0 < P.group ? (int)(n - i0) : P.group;
   encode_group<S, MT>(desc, masks, P, blocks, i0, ng, smem + P.masks_bytes + warp * P.warp_bytes,
-                      words, err);
+                      P.global_blk ? scratch + i0 : nullptr, words, err);
 }
 
 // Raises the dynamic shared memory limit of astc_warp_kernel<S, MT> to
 // `bytes` where it is above the default 48 KB: once per instance, device
-// and size, since the limit stays set for later launches.
+// and size, since the limit stays set for later launches.  Static, so that
+// each library (an earlier build loaded beside this one) keeps its own
+// record for its own kernels.
 template <int S, int MT>
-cudaError_t allow_smem(int bytes) {
+static cudaError_t allow_smem(int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   static std::mutex mu;
   static int allowed[64] = {};  // per device
@@ -1659,9 +1738,9 @@ cudaError_t allow_smem(int bytes) {
 }
 
 template <int S, int MT>
-int launch_mt(const void* blocks, const void* desc, const int* hdr, void* words, void* err, int n,
-              cudaStream_t stream) {
-  if constexpr (S < 2) {
+int launch_mt(const void* blocks, const void* desc, const int* hdr, void* words, void* err,
+              void* scratch, int n, cudaStream_t stream) {
+  if constexpr (!warp_entry(S, MT)) {
     astc_kernel<S, MT><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
         (const float*)blocks, (const int*)desc, (uint4*)words, (float*)err, n);
   } else {
@@ -1671,21 +1750,22 @@ int launch_mt(const void* blocks, const void* desc, const int* hdr, void* words,
     if (rc != cudaSuccess) return (int)rc;
     astc_warp_kernel<S, MT><<<(unsigned)((n + per_cta - 1) / per_cta), kWarps * 32, P.smem_bytes,
                               stream>>>((const float*)blocks, (const int*)desc, (uint32_t*)words,
-                                        (float*)err, n);
+                                        (float*)err, (Blk<MT>*)scratch, n);
   }
   return (int)cudaGetLastError();
 }
 
 // The template instance of the block's texel class.
 template <int S>
-int launch(const void* blocks, const void* desc, const void* hdr, void* words, void* err, int n,
-           void* stream) {
+int launch(const void* blocks, const void* desc, const void* hdr, void* words, void* err,
+           void* scratch, int n, void* stream) {
   if (n <= 0) return 0;
   const int T = ((const int*)hdr)[H_T];
   const cudaStream_t s = (cudaStream_t)stream;
   if (T < 16 || T > kMaxT) return (int)cudaErrorInvalidValue;
   return by_texel_class(T, [&](auto c) {
-    return launch_mt<S, decltype(c)::value>(blocks, desc, (const int*)hdr, words, err, n, s);
+    return launch_mt<S, decltype(c)::value>(blocks, desc, (const int*)hdr, words, err, scratch, n,
+                                            s);
   });
 }
 
@@ -1699,34 +1779,41 @@ int launch(const void* blocks, const void* desc, const void* hdr, void* words, v
 // launch is not synchronised).  blocks: [n, T, 4] float32; desc: the int32
 // descriptor of astc_cuda.py:descriptor on the device, hdr: the same on
 // the host (the launch reads its header); words: [n, 4] uint32; err: [n]
-// float32.
+// float32; scratch (last, so that the launchers of files without it take
+// the same call): n times astc_warp_plan's scratch bytes a block of device
+// memory (entry B above 16 texels), else unused.
 extern "C" int astc_a_launch(const void* blocks, const void* desc, const void* hdr, void* words,
-                             void* err, int n, void* stream) {
-  return astcx::launch<0>(blocks, desc, hdr, words, err, n, stream);
+                             void* err, int n, void* stream, void* scratch) {
+  return astcx::launch<0>(blocks, desc, hdr, words, err, scratch, n, stream);
 }
 extern "C" int astc_b_launch(const void* blocks, const void* desc, const void* hdr, void* words,
-                             void* err, int n, void* stream) {
-  return astcx::launch<1>(blocks, desc, hdr, words, err, n, stream);
+                             void* err, int n, void* stream, void* scratch) {
+  return astcx::launch<1>(blocks, desc, hdr, words, err, scratch, n, stream);
 }
 extern "C" int astc_c_launch(const void* blocks, const void* desc, const void* hdr, void* words,
-                             void* err, int n, void* stream) {
-  return astcx::launch<2>(blocks, desc, hdr, words, err, n, stream);
+                             void* err, int n, void* stream, void* scratch) {
+  return astcx::launch<2>(blocks, desc, hdr, words, err, scratch, n, stream);
 }
 extern "C" int astc_d_launch(const void* blocks, const void* desc, const void* hdr, void* words,
-                             void* err, int n, void* stream) {
-  return astcx::launch<3>(blocks, desc, hdr, words, err, n, stream);
+                             void* err, int n, void* stream, void* scratch) {
+  return astcx::launch<3>(blocks, desc, hdr, words, err, scratch, n, stream);
 }
 
-// The warp plan of entry C (stage 2) or D (3) for the host descriptor hdr:
-// out = {blocks a warp, dynamic shared memory bytes a CTA, of it the
-// staged masks}.
+// The warp plan of entry B (stage 1), C (2) or D (3) for the host
+// descriptor hdr: out = {blocks a warp, dynamic shared memory bytes a CTA,
+// of it the staged masks, scratch bytes a block}; all 0 where the entry
+// runs a thread per block (B at 4x4).
 extern "C" void astc_warp_plan(int stage, const void* hdr, int* out) {
   const int* h = (const int*)hdr;
-  const astcx::WarpPlan P = astcx::by_texel_class(
-      h[astcx::H_T], [&](auto c) { return astcx::warp_plan<decltype(c)::value>(stage, h); });
-  out[0] = P.group;
-  out[1] = P.smem_bytes;
-  out[2] = P.masks_bytes;
+  astcx::by_texel_class(h[astcx::H_T], [&](auto c) {
+    constexpr int MT = decltype(c)::value;
+    const bool warp = astcx::warp_entry(stage, MT);
+    const astcx::WarpPlan P = astcx::warp_plan<MT>(stage, h);
+    out[0] = warp ? P.group : 0;
+    out[1] = warp ? P.smem_bytes : 0;
+    out[2] = warp ? P.masks_bytes : 0;
+    out[3] = warp && P.global_blk ? (int)sizeof(astcx::Blk<MT>) : 0;
+  });
 }
 
 #endif  // __CUDACC__

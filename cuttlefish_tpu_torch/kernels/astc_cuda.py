@@ -16,8 +16,11 @@ device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, launches on the current stream, raises on a non-zero
 launch status and counts its launches in ``launches``.  The launcher also
 reads the host copy of the descriptor's header: it picks the template
-instance of the block's texel class and, for ``astc_c`` and ``astc_d`` (a
-warp per group of blocks), the group size and the dynamic shared memory.
+instance of the block's texel class and, for ``astc_b``, ``astc_c`` and
+``astc_d`` (a warp per group of blocks), the group size and the dynamic
+shared memory.  ``astc_b`` runs a thread per block at 4x4 and a warp per
+group above, where it keeps its blocks' texels in a device scratch tensor
+that the wrapper allocates.
 ``encode_astc_cuda`` runs the entries that ``encode_astc_pallas`` runs and
 merges their words as it does.  The library is built on first use
 (``kernels/_build.py``).
@@ -223,7 +226,7 @@ def _lib() -> ctypes.CDLL:
     if not _bound:
         for name in launches:
             fn = getattr(lib, f"{name}_launch")
-            fn.argtypes = [_P, _P, _P, _P, _P, _I, _P]
+            fn.argtypes = [_P, _P, _P, _P, _P, _I, _P, _P]
             fn.restype = ctypes.c_int
         lib.astc_warp_plan.argtypes = [_I, _P, _P]
         lib.astc_warp_plan.restype = None
@@ -232,15 +235,19 @@ def _lib() -> ctypes.CDLL:
 
 
 def warp_plan(stage, bw, bh, quality, gray=True, alpha=True) -> dict:
-    """How entry ``"c"`` or ``"d"`` launches for this configuration:
-    blocks a warp (``group``), dynamic shared memory a CTA (``smem_bytes``)
-    and of it the staged pattern masks (``mask_bytes``)."""
-    if stage not in ("c", "d"):
-        raise ValueError(f"only entries c and d run a warp per group, not {stage!r}")
-    out = (ctypes.c_int * 3)()
+    """How entry ``"b"``, ``"c"`` or ``"d"`` launches for this
+    configuration: blocks a warp (``group``), dynamic shared memory a CTA
+    (``smem_bytes``), of it the staged pattern masks (``mask_bytes``), and
+    the device memory a block takes for its texels outside shared memory
+    (``scratch_bytes``, 0 where they stay in shared memory); all 0 where the
+    entry runs a thread per block (``"b"`` at 4x4)."""
+    if stage not in ("b", "c", "d"):
+        raise ValueError(f"only entries b, c and d run a warp per group, not {stage!r}")
+    out = (ctypes.c_int * 4)()
     host = descriptor(int(bw), int(bh), int(quality), bool(gray), bool(alpha))
     _lib().astc_warp_plan("abcd".index(stage), host.ctypes.data, out)
-    return {"group": out[0], "smem_bytes": out[1], "mask_bytes": out[2]}
+    return {"group": out[0], "smem_bytes": out[1], "mask_bytes": out[2],
+            "scratch_bytes": out[3]}
 
 
 def _check(blocks: torch.Tensor, t_count: int) -> None:
@@ -273,11 +280,13 @@ def stage_cuda(stage, blocks, bw, bh, quality, gray=True, alpha=True):
     host = descriptor(*key)  # cached: the pointer stays valid
     name = f"astc_{stage}"
     lib = _lib()
+    per_block = warp_plan(stage, *key)["scratch_bytes"] if stage == "b" else 0
+    scratch = torch.empty((n * per_block,), dtype=torch.uint8, device=blocks.device)
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream(blocks.device).cuda_stream
         rc = getattr(lib, f"{name}_launch")(
             blocks.data_ptr(), desc.data_ptr(), host.ctypes.data, words.data_ptr(),
-            err.data_ptr(), n, stream
+            err.data_ptr(), n, stream, scratch.data_ptr()
         )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")

@@ -42,6 +42,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def shared_bytes() -> int:
+    """Dynamic shared memory a CTA of the kernel takes (4 warps of 32
+    blocks: their texels and phase results)."""
+    fn = _lib().bc7_hq_shared_bytes
+    fn.restype = ctypes.c_int
+    return fn()
+
+
 def _set_tables(lib, consts, device: torch.device) -> None:
     """Copy the 2- and 3-subset partition masks and anchors into the
     device's constant memory, once per device."""
@@ -72,6 +80,8 @@ def encode_bc7_hq_cuda(blocks: torch.Tensor, quality: int, consts) -> torch.Tens
     out = torch.empty((n, 4), dtype=torch.uint32, device=device)
     if n == 0:
         return out
+    if blocks.data_ptr() % 16:
+        blocks = blocks.clone()  # the kernel reads 16 bytes a load
     lib = _lib()
     _set_tables(lib, consts, device)
     with torch.cuda.device(device):

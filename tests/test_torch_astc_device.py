@@ -6,11 +6,13 @@ with g++ and a counting float type to count the operations of each entry
 (``astc_op_counter``).  That build must give the plain version's words, bit
 for bit, on every entry: here on seeded blocks at 4x4 q4 (near-gray with
 alpha: all four entries) and at 12x12 q2 (decimated grids, Gauss-Seidel).
-Entries C and D run there as the card runs them, a warp per group of
+Entries B, C and D run there as the card runs them, a warp per group of
 blocks, with the warp's 32 lanes simulated one after another: their words
 and errors must equal the plain version's at 4x4 and 8x8 q4 (block counts
 that leave the last group short), on blocks whose screen estimates tie,
-and the warp's merged top-k must be the sequential scan's.
+and the warp's merged top-k must be the sequential scan's.  B runs the
+warp body above 4x4 (its texels in device memory) and a thread per block
+at 4x4: both at the qualities whose plans differ.
 """
 
 import shutil
@@ -60,8 +62,8 @@ def _same_as_plain(count_ops, stage, b, bw, bh, q):
 
 
 # Near-gray alpha blocks; 37 and 21 blocks leave the last group of the
-# warp (C: 10 blocks at 4x4, D: 16; 8 at 8x8) short.
-@pytest.mark.parametrize("stage", ["c", "d"])
+# warp (B at 8x8: 32 blocks; C: 10 at 4x4, D: 16; 8 at 8x8) short.
+@pytest.mark.parametrize("stage", ["b", "c", "d"])
 @pytest.mark.parametrize("case", [(4, 4, 37), (8, 8, 21)], ids=["4x4_q4", "8x8_q4"])
 def test_warp_entries_equal_plain_version(count_ops, case, stage):
     bw, bh, n = case
@@ -96,10 +98,28 @@ def _tie_blocks(t: int) -> np.ndarray:
     return np.round(b * 255).astype(np.uint8).astype(np.float32) * np.float32(1 / 255)
 
 
-@pytest.mark.parametrize("stage", ["c", "d"])
+@pytest.mark.parametrize("stage", ["b", "c", "d"])
 @pytest.mark.parametrize("bw", [4, 8], ids=["4x4_q4", "8x8_q4"])
 def test_warp_entries_on_tied_estimates(count_ops, bw, stage):
     _same_as_plain(count_ops, stage, _tie_blocks(bw * bw), bw, bw, 4)
+
+
+# Entry B at the qualities whose plans differ (q1: top-1, no rerank; q2:
+# top-6, keep 1, 2 layouts) at 4x4 (a thread per block) and above (a warp
+# per 32 blocks, its texels in device memory); 37, 21 and 7 blocks leave
+# the last group short.
+@pytest.mark.parametrize("case", [(4, 1, 37), (4, 2, 37), (8, 2, 21), (12, 2, 7)],
+                         ids=["4x4_q1", "4x4_q2", "8x8_q2", "12x12_q2"])
+def test_entry_b_equals_plain_version(count_ops, case):
+    bw, q, n = case
+    _same_as_plain(count_ops, "b", astc_blocks(n, bw * bw, "alpha", seed=13), bw, bw, q)
+
+
+@pytest.mark.parametrize("q", [1, 2], ids=["4x4_q1", "4x4_q2"])
+def test_entry_b_on_tied_estimates_at_4x4(count_ops, q):
+    """Entry B at 4x4 q1/q2 on blocks whose estimates tie: the lowest pattern
+    first."""
+    _same_as_plain(count_ops, "b", np.concatenate([_tie_blocks(16)] * 3), 4, 4, q)
 
 
 # (patterns, k, estimates drawn from): many ties, infinities (invalid

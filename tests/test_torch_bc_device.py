@@ -83,3 +83,57 @@ def test_counting_build_equals_plain_version(count_bc, row):
     assert words.dtype == want.dtype == np.uint32
     assert np.array_equal(words, want), row
     assert ops > 1000, row
+
+
+def _tie_blocks() -> np.ndarray:
+    """Blocks whose partition screens or rotation screens tie: flat blocks
+    (every partition scores the same), two- and three-level blocks in
+    stripes, halves and checkerboards (several partitions split them
+    alike), gray blocks whose alpha equals their gray (every rotation scores
+    the same) or two of whose channels are equal, and one odd texel in a
+    flat block."""
+    idx = np.arange(16)
+    x, y = idx % 4, idx // 4
+    out = []
+    for v in (0.0, 0.5, 1.0):
+        out.append(np.full((16, 4), v))
+    for mask in ((x + y) % 2, x % 2, y % 2, (x >= 2).astype(int), (y >= 2).astype(int),
+                 idx % 3, (x + y) % 3):
+        lv = np.array([0.2, 0.8, 0.5])[mask]
+        blk = np.repeat(lv[:, None], 4, axis=1)
+        blk[:, 3] = 1.0
+        out.append(blk)
+        gray = blk.copy()
+        gray[:, 3] = lv  # alpha = gray: the four rotations tie
+        out.append(gray)
+        two = blk.copy()
+        two[:, 2] = 1.0 - lv  # red = green
+        two[:, 3] = 0.3 + 0.4 * lv
+        out.append(two)
+    odd = np.full((16, 4), 0.4)
+    odd[5] = 0.9
+    out.append(odd)
+    b = np.stack(out).astype(np.float32)
+    return np.round(b * 255).astype(np.float32) * np.float32(1 / 255)
+
+
+_HQ_BLOCKS = {
+    # 45 and 25 blocks: a group of 32 and one cut short, or one short group.
+    "mixed": lambda: _blocks(45),
+    "ties": _tie_blocks,
+    "one": lambda: _blocks(8)[5:6],
+}
+
+
+@pytest.mark.parametrize("blocks", list(_HQ_BLOCKS))
+@pytest.mark.parametrize("quality,perceptual", [(3, False), (4, False), (4, True)],
+                         ids=["q3", "q4", "q4_perceptual"])
+def test_bc7_hq_warp_body_equals_plain_version(count_bc, quality, perceptual, blocks):
+    """The BC7 q3-4 warp body (a warp per 32 blocks, its lanes one after
+    another) gives _encode_hq's words, for every group size the card sees."""
+    b = _HQ_BLOCKS[blocks]()
+    x = dequant(wire(b, "u8"))
+    consts = bc7._constants(perceptual, "cpu")
+    _, words = count_bc(f"bc7_q{quality}", x.numpy(), chw=np.asarray(consts.chw, np.float32))
+    want = bc7.encode_bc7_plain(x, quality, consts).numpy()
+    assert np.array_equal(words, want), (quality, perceptual, blocks)

@@ -79,6 +79,26 @@ def test_hq_kernel_matches_plain_on_card(cuda, quality, perceptual):
     assert abs(_psnr(k, b) - _psnr(p, b)) <= 0.05
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("quality", [3, 4])
+def test_hq_kernel_at_group_edges(cuda, quality):
+    """BC7 q3-4 runs a warp per 32 blocks, 2 warps a CTA: counts that leave
+    a warp or a CTA part-filled give the plain version's words, and a view
+    off a 16-byte boundary is copied before the launch."""
+    x = torch.from_numpy(_blocks(300, seed=4)).to(cuda)
+    consts = _constants(False, cuda)
+    for n in (1, 31, 33, 64, 65, 300):
+        k = bc7_hq_cuda.encode_bc7_hq_cuda(x[:n].contiguous(), quality, consts)
+        p = encode_bc7_plain(x[:n], quality, consts)
+        assert torch.equal(k.view(torch.int32).cpu(), p.view(torch.int32).cpu()), n
+    flat = torch.zeros(300 * 64 + 1, device=cuda)
+    flat[1:] = x.reshape(-1)
+    view = flat[1:].view(300, 16, 4)
+    k = bc7_hq_cuda.encode_bc7_hq_cuda(view, quality, consts)
+    p = encode_bc7_plain(x, quality, consts)
+    assert torch.equal(k.view(torch.int32).cpu(), p.view(torch.int32).cpu())
+
+
 def _hdr(n, signed, seed=9):
     rng = np.random.default_rng(seed)
     b = np.exp(rng.normal(0, 1.5, (n, 1, 1))) * (1 + rng.normal(0, 0.1, (n, 16, 3)))
@@ -375,17 +395,21 @@ def test_astc_kernel_matches_plain_on_card(cuda, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bw", [4, 8, 12], ids=["4x4_q4", "8x8_q4", "12x12_q4"])
 def test_astc_warp_entries_launch_shapes(cuda, bw):
-    """Entries C and D run a warp per group of blocks, 4 warps a CTA, with
-    the pattern masks staged in dynamic shared memory (D at 12x12: above
-    48 KB).  A block count that leaves the last CTA part-filled, one block
-    and none: words and errors equal the plain version's."""
+    """Entries B (above 4x4), C and D run a warp per group of blocks, 4
+    warps a CTA, with the pattern masks staged in dynamic shared memory (D
+    at 12x12: above 48 KB; B with its texels in a device scratch).  A block
+    count that leaves the last CTA part-filled, one block and none: words
+    and errors equal the plain version's."""
     b = _astc_input(bw, bw, "gray_alpha", 600)
     gray, alpha = astc_tables.has_gray_blocks(b), astc_tables.has_alpha_blocks(b)
     assert astc.stages(bw, bw, 4, gray, alpha) == ["a", "b", "c", "d"]
     x = torch.from_numpy(b).to(cuda)
-    for stage in ("c", "d"):
+    if bw == 4:
+        assert astc_cuda.warp_plan("b", bw, bw, 4, gray, alpha)["group"] == 0  # a thread per block
+    for stage in ("b", "c", "d") if bw > 4 else ("c", "d"):
         plan = astc_cuda.warp_plan(stage, bw, bw, 4, gray, alpha)
         assert 1 <= plan["group"] <= 32 and plan["smem_bytes"] > plan["mask_bytes"] > 0
+        assert (plan["scratch_bytes"] > 0) == (stage == "b")
         if bw == 12 and stage == "d":
             assert plan["smem_bytes"] > 48 * 1024
         n = 4 * plan["group"] * 2 + 3
