@@ -14,13 +14,15 @@ exits non-zero:
    and power limit (nvidia-smi), torch and CUDA versions; TF32 off.
 2. build: one nvcc per csrc/*.cu for sm_90a, all started together, and the
    native codecs with g++; prints the seconds and what ptxas reports
-   (registers, spills) for every kernel entry, a line per BC7 q3-4, ASTC
-   and ETC entry (registers, stack, spills, shared memory), the dynamic
+   (registers, spills) for every kernel entry, a line per BC7 q3-4, BC6H,
+   ASTC and ETC entry (registers, stack, spills, shared memory), the
+   warps and dynamic shared memory a CTA of ASTC entry A, the dynamic
    shared memory and blocks a warp of ASTC entries B, C and D and the
-   shared memory a CTA of the BC7 q3-4 and the ETC RGB and RGBA8 entries.
-   With --parent SRC, also that earlier copy of a BC, ETC or ASTC csrc/*.cu
-   (kept outside the tree, its headers beside it, its launchers this
-   tree's) for phase 5.
+   shared memory a CTA of the BC7 q3-4, BC6H and the ETC RGB and RGBA8
+   entries.
+   With --parent SRC, also that earlier tree's BC, ETC or ASTC csrc/*.cu
+   (kept outside this package, its headers beside it, its wrapper module
+   in the kernels/ beside csrc/) for phase 5.
 3. kernel vs plain: the 262,144 blocks of the surface through each kernel
    and through its plain PyTorch version on the card: >= 99 % identical
    blocks, |dPSNR| <= 0.05 dB on a decoded sample of 4,096 blocks.  BC7 q0,
@@ -58,16 +60,17 @@ exits non-zero:
 5. times: CUDA events, one warm-up, median of 7 (of 3 where the warm-up
    took over a second): each kernel alone and its plain version alone on
    the 262,144 blocks (BC7 q3-4 and BC6H at q4, the main paths' quality,
-   and at q3 and q2; ETC RGB and RGBA8 at q2 and q4, EAC at q2; ASTC
-   entries A and B at 4x4, 8x8 and 12x12 q2 on the colour surface, B at
-   4x4 q4 on the near-gray alpha surface, C and D at 4x4 q4 and 8x8 q4 on
+   and at q3 and q2, BC6H also q4 signed and q2 with the code metric; ETC
+   RGB and RGBA8 at q2 and q4, EAC at q2; ASTC entries A and B at 4x4, 8x8
+   and 12x12 q2 on the colour surface, A at 8x8 and 12x12 q4 and B at 4x4
+   q4 on the near-gray alpha surface, C and D at 4x4 q4 and 8x8 q4 on
    that surface); each main-path
    convert (host clock, synchronised) median of 5, and each of its phases'
    median over the same 5.  The unit-weight ETC RGB and RGBA8 cases also
    print the bound with the products by the weights counted, which a
    product by 1 does not need.  With --parent, every case of the rows whose source it
-   names goes through the earlier build too (a second instance of the
-   source's wrapper module, kernels/<name>_cuda.py, bound to it), timed in
+   names goes through the earlier build too (the earlier tree's wrapper
+   module, kernels/<name>_cuda.py, bound to it), timed in
    turns with this tree's (earlier, this, this, earlier), words identical
    (for astc_encode.cu: every ASTC entry case, words and errors).
 
@@ -77,7 +80,7 @@ from this run's inputs: the larger of the bytes the function must move over
 operations the function needs on those inputs, etc_rgb_ops (no products
 by unit channel weights) and eac_ops, for BC and ASTC
 those of its device code on a sample of the blocks, bc_op_counter and
-astc_op_counter),
+astc_op_counter, BC6H's with each texel's value and scale once),
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -402,11 +405,10 @@ def astc_op_counter(csrc: str, tmp: str):
 
 
 def build_earlier(src: str, out_dir: str):
-    """nvcc of an earlier copy of a csrc/<name>.cu (its headers beside it,
-    its launchers those of this tree's) with this package's flags -> (a
-    second instance of the wrapper module of <name>, with its own binding,
-    tables and launch counts, whose launches go to that build; the ptxas
-    log)."""
+    """nvcc of an earlier tree's csrc/<name>.cu (its headers beside it)
+    with this package's flags -> (that tree's wrapper module of <name>,
+    kernels/<name>_cuda.py beside its csrc/, with its own binding, tables
+    and launch counts, whose launches go to that build; the ptxas log)."""
     import ctypes
     import importlib.util
     import types
@@ -419,8 +421,12 @@ def build_earlier(src: str, out_dir: str):
                           capture_output=True, text=True, timeout=600)
     check(done.returncode == 0, f"nvcc {src} failed:\n{done.stderr[-3000:]}")
     lib = ctypes.CDLL(so)
-    spec = importlib.util.find_spec(
-        f"cuttlefish_tpu_torch.kernels.{name.replace('_encode', '_cuda')}")
+    short = name.replace("_encode", "_cuda")
+    wrapper = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(src))), "kernels",
+                           short + ".py")
+    check(os.path.isfile(wrapper), f"--parent {src}: no wrapper module {wrapper} beside it")
+    spec = importlib.util.spec_from_file_location(f"cuttlefish_tpu_torch.kernels.{short}",
+                                                  wrapper)
     twin = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(twin)
     twin._build = types.SimpleNamespace(load=lambda _name: lib)
@@ -453,6 +459,24 @@ def smem_bytes(entry_line: str) -> int:
     """Static shared memory of a ptxas_entries line."""
     return int(entry_line.rsplit("static shared memory", 1)[1].split("bytes")[0])
 
+
+# Code before a source's #include in its counting build.
+BC_COUNT_PRE = {
+    # BC6H makes a texel's value and scale where it reads them (TEXEL_FORM):
+    # with g_once set those repeats go uncounted, and count adds each
+    # texel's once.
+    "bc6h_encode": r"""
+static bool g_once = false;
+template <class F>
+static inline CF once_a_texel(F f) {
+  const unsigned long long k = g_ops;
+  const CF v = f();
+  if (g_once) g_ops = k;
+  return v;
+}
+#define TEXEL_FORM(v) once_a_texel([&]() { return CF(v); })
+""",
+}
 
 # The BC kernels' device code under the counting float, one library per
 # source; each count() does what its __global__ kernel does around the
@@ -544,33 +568,49 @@ extern "C" void set_tables(const uint16_t* m, const int* a, const int* modes, co
   memcpy(bc6h::c_modes, modes, sizeof bc6h::c_modes);
   memcpy(bc6h::c_layout, layout, sizeof bc6h::c_layout);
 }
-// proxy: [n,48] as bc6h_cuda hands it to the kernel; unsigned, value metric.
-extern "C" unsigned long long count(const float* proxy, int n, int q, const float*,
+// The warp body the card runs (the proxy made in it), its lanes one after
+// another; blocks [n,16,3] as bc6h_cuda hands them on; arg = quality |
+// signed << 3 | code metric << 4 | needed << 5 (each texel's value and
+// scale counted once, not at every read).
+extern "C" unsigned long long count(const float* blocks, int n, int arg, const float*,
                                     uint32_t* out) {
+  const bool is_signed = (arg >> 3) & 1, code = (arg >> 4) & 1;
   g_ops = 0;
-  for (int i = 0; i < n; ++i) {
-    bc6h::Texels x;
-    bc6h::load_texels((const CF*)(proxy + (size_t)i * 48), false, x);
-    uint32_t words[4];
-    bc6h::encode_block<false>(x, q, false, words);
-    memcpy(out + 4 * i, words, 16);
+  g_once = (arg >> 5) & 1;
+  bc6h::bc6h_cpu((const CF*)blocks, out, n, arg & 7, is_signed, code);
+  if (g_once && !code) {
+    for (long i = 0; i < 48L * n; ++i) {
+      const unsigned long long k = g_ops;
+      const CF p = is_signed ? bc6h::to_proxy<true>(CF(blocks[i]))
+                             : bc6h::to_proxy<false>(CF(blocks[i]));
+      g_ops = k;
+      bc6h::proxy_to_value(p);
+      bc6h::proxy_scale(p);
+    }
   }
   return g_ops;
+}
+// The kernel's half-bit proxy of n values.
+extern "C" void proxy(const float* in, int n, int is_signed, float* out) {
+  for (int i = 0; i < n; ++i)
+    out[i] = (is_signed ? bc6h::to_proxy<true>(CF(in[i])) : bc6h::to_proxy<false>(CF(in[i]))).v;
 }
 """,
 }
 
 
 def bc_op_counter(csrc: str, tmp: str):
-    """-> count(row, host input, chw=None): (float operations per block,
-    the device code's words [n, 4]) for the rows bc7_q2, bc7_q3, bc7_q4,
-    bc1_q2, bc2_q2, bc3_q2, bc4_q2, bc5s_q2, bc6h_q2, bc6h_q4 (BC4: [n,16]
+    """-> count(row, host input, chw=None, device=False): (float operations
+    per block, the device code's words [n, 4]) for the rows bc7_q2, bc7_q3,
+    bc7_q4, bc1_q2, bc2_q2, bc3_q2, bc4_q2, bc5s_q2, and BC6H's
+    bc6h[s]_q{2,4}[_code] (s: signed; _code: the code metric) (BC4: [n,16]
     values; BC6H: [n,16,3] RGB through the f16 wire; the others [n,16,4]
     RGBA); chw: other channel weights than the row's (BC7: the perceptual
-    ones)."""
+    ones).  BC6H counts each texel's value and scale once, as the function
+    needs them, or with device=True at every read, as its device code makes
+    them.  count.proxy(values, signed): the BC6H kernel's half-bit proxy of
+    a float32 array."""
     import ctypes
-
-    import torch
 
     from cuttlefish_tpu_torch.kernels import bc, bc6h, bc7
     from cuttlefish_tpu_torch.kernels.bc7_tables import ANCHOR2, PARTITION2
@@ -579,8 +619,8 @@ def bc_op_counter(csrc: str, tmp: str):
     for name, glue in BC_COUNT_SRC.items():
         src, so = os.path.join(tmp, f"{name}_count.cpp"), os.path.join(tmp, f"lib{name}_count.so")
         with open(src, "w") as f:
-            f.write(COUNT_PRELUDE + '#define float CF\n#include "' + name + '.cu"\n#undef float\n'
-                    + glue)
+            f.write(COUNT_PRELUDE + BC_COUNT_PRE.get(name, "") + '#define float CF\n#include "'
+                    + name + '.cu"\n#undef float\n' + glue)
         procs[name] = (subprocess.Popen(
             ["g++", "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC", "-I", csrc,
              "-o", so, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), so)
@@ -596,6 +636,9 @@ def bc_op_counter(csrc: str, tmp: str):
         if name != "bc_encode":
             lib.set_tables.argtypes = [ctypes.c_void_p] * 4
             lib.set_tables.restype = None
+        if name == "bc6h_encode":
+            lib.proxy.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            lib.proxy.restype = None
         libs[name] = lib
     consts = bc7._constants(False, "cpu")
     tabs = [np.ascontiguousarray(consts.masks, np.uint16), np.ascontiguousarray(consts.anchors,
@@ -613,21 +656,31 @@ def bc_op_counter(csrc: str, tmp: str):
     rows = {"bc7_q2": ("bc7_encode", 2, chw7), "bc7_q3": ("bc7_hq_encode", 3, chw7),
             "bc7_q4": ("bc7_hq_encode", 4, chw7), "bc1_q2": ("bc_encode", 1, chw1),
             "bc2_q2": ("bc_encode", 2, chw1), "bc3_q2": ("bc_encode", 3, chw1),
-            "bc4_q2": ("bc_encode", 4, chw1), "bc5s_q2": ("bc_encode", 5, chw1),
-            "bc6h_q2": ("bc6h_encode", 2, chw1), "bc6h_q4": ("bc6h_encode", 4, chw1)}
+            "bc4_q2": ("bc_encode", 4, chw1), "bc5s_q2": ("bc_encode", 5, chw1)}
+    for q in (2, 4):
+        for sgn in (0, 1):
+            for code in (0, 1):
+                rows[f"bc6h{'s' if sgn else ''}_q{q}{'_code' if code else ''}"] = (
+                    "bc6h_encode", q | sgn << 3 | code << 4, chw1)
 
-    def count(row, blocks, chw=None):
+    def count(row, blocks, chw=None, device=False):
         name, arg, row_chw = rows[row]
+        if name == "bc6h_encode" and not device:
+            arg |= 1 << 5
         chw = row_chw if chw is None else np.ascontiguousarray(chw, np.float32)
         x = np.ascontiguousarray(blocks, np.float32)
-        if name == "bc6h_encode":
-            x = np.ascontiguousarray(bc6h._to_proxy(torch.from_numpy(x), False).numpy(),
-                                     np.float32)
         words = np.zeros((x.shape[0], 4), np.uint32)
         ops = libs[name].count(x.ctypes.data, x.shape[0], arg, chw.ctypes.data, words.ctypes.data)
         nw = 2 if row in ("bc1_q2", "bc4_q2") else 4
         return ops / max(x.shape[0], 1), words[:, :nw]
 
+    def proxy(values, signed):
+        x = np.ascontiguousarray(values, np.float32)
+        out = np.zeros_like(x)
+        libs["bc6h_encode"].proxy(x.ctypes.data, x.size, int(signed), out.ctypes.data)
+        return out
+
+    count.proxy = proxy
     return count
 
 
@@ -661,8 +714,9 @@ def main(argv: list[str]) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--parent", action="append", default=[], metavar="SRC",
-                    help="an earlier copy of a csrc/*.cu of the BC, ETC or ASTC kernels, its "
-                    "headers beside it: phase 5 times its cases in turns with this tree's")
+                    help="an earlier tree's csrc/*.cu of the BC, ETC or ASTC kernels, its "
+                    "headers beside it and its kernels/ wrapper modules beside csrc/: phase 5 "
+                    "times its cases in turns with this tree's")
     args = ap.parse_args(argv)
 
     # 1. device
@@ -713,6 +767,11 @@ def main(argv: list[str]) -> int:
         log("build", f"ptxas bc7_hq_encode entry {line}")
     log("build", f"bc7_hq_kernel: 4 warps a CTA, 32 blocks a warp, {bc7_hq_cuda.shared_bytes()} "
         f"bytes of dynamic shared memory a CTA (its blocks' texels and phase results)")
+    for line in ptxas_entries(_build.build_info["bc6h_encode"]["log"]):
+        log("build", f"ptxas bc6h_encode entry {line}")
+        if "bc6h_kernel" in line.split(":")[0]:
+            log("build", f"bc6h_kernel: 4 warps a CTA, 32 blocks a warp, {smem_bytes(line)} bytes "
+                f"of static shared memory a CTA (its blocks' half-bit proxies)")
     for line in ptxas_entries(_build.build_info["astc_encode"]["log"]):
         log("build", f"ptxas astc_encode entry {line}")
     for line in ptxas_entries(_build.build_info["etc_encode"]["log"]):
@@ -731,6 +790,11 @@ def main(argv: list[str]) -> int:
         for line in ptxas_entries(parent_log):
             log("build", f"ptxas {src} entry {line}")
     for bw, bh in ((4, 4), (8, 8), (12, 12)):
+        for q, gray in ((2, False), (4, True)):
+            plan = astc_cuda.warp_plan("a", bw, bh, q, gray, True)
+            log("build", f"astc_a {bw}x{bh} q{q}{' gray' if gray else ''} alpha: a CTA per "
+                f"{plan['group']} blocks, {plan['warps']} warps (a warp per task), "
+                f"{plan['smem_bytes']} bytes of dynamic shared memory a CTA")
         for stage, q in (("b", 2), ("b", 4), ("c", 4), ("d", 4)):
             plan = astc_cuda.warp_plan(stage, bw, bh, q, True, True)
             if not plan["group"]:
@@ -1316,7 +1380,7 @@ def main(argv: list[str]) -> int:
         ("bc5_encode", "bc5", "bc5s_q2", "cuttlefish_tpu_torch/csrc/bc_encode.cu",
          "cuttlefish_tpu/kernels/bc_pallas.py:539", 128, ()),
         ("bc6h_encode", "bc6h", "bc6h_q4", "cuttlefish_tpu_torch/csrc/bc6h_encode.cu",
-         "cuttlefish_tpu/kernels/bc6h_pallas.py:584", 192, ("bc6h_q2",)),
+         "cuttlefish_tpu/kernels/bc6h_pallas.py:584", 192, ("bc6h_q2", "bc6hs_q4", "bc6h_q2_code")),
         # This slice: the five entries of csrc/etc_encode.cu.
         ("etc_rgb_encode", "etc_rgb", "etc2_q2", "cuttlefish_tpu_torch/csrc/etc_encode.cu",
          "cuttlefish_tpu/kernels/etc_pallas.py:1260", 256, ("etc2_q4", "etc1_q2", "etc2_q2_srgb")),
@@ -1358,6 +1422,10 @@ def main(argv: list[str]) -> int:
             check(np.array_equal(words, plain(xs).cpu().numpy()),
                   f"{case}: the counting build's words differ from the plain version's")
             counted = f"device code's, counted on {bc_samp.numel()} blocks"
+            if case.startswith("bc6h"):
+                device_ops, _ = count_bc(case, xs.cpu().numpy(), device=True)
+                counted = (f"needed (each texel's value and scale made once), counted on "
+                           f"{bc_samp.numel()} blocks; the device code's {device_ops:.0f}")
         bytes_ = n * (in_bytes + out_bytes.get(key, 16))
         t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, n * ops / F32_OPS_PER_S * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
@@ -1414,7 +1482,8 @@ def main(argv: list[str]) -> int:
     # row, then the other shapes timed alongside)
     astc_rows = [
         ("astc_a_encode", "a", ":792", [(4, 4, 2, "rgba"), (8, 8, 2, "rgba"),
-                                        (12, 12, 2, "rgba")]),
+                                        (12, 12, 2, "rgba"), (8, 8, 4, "grayalpha"),
+                                        (12, 12, 4, "grayalpha")]),
         ("astc_b_encode", "b", ":1005", [(4, 4, 2, "rgba"), (8, 8, 2, "rgba"),
                                          (12, 12, 2, "rgba"), (4, 4, 4, "grayalpha")]),
         ("astc_c_encode", "c", ":1151", [(4, 4, 4, "grayalpha"), (8, 8, 4, "grayalpha")]),

@@ -17,16 +17,31 @@
 // entry loops over a descriptor table built on the host
 // (astc_cuda.py:descriptor): layout records with their ISE ranges, the
 // colour/weight LUTs, trit/quint pack tables, each decimated grid's
-// infill, pseudo-inverse and footprint, and the partition patterns as
-// texel bitmasks.  The TPU's one-hot matmul "gathers" are table loads; a
-// fit reads its pattern's masks into a 2-bit partition id per texel, held
-// in registers.  Every per-block array is sized by the block's texel class
-// (MT = 16 for 4x4, 64 up to 8x8, 144 up to 12x12), one template instance
-// per class, with per-texel weights and endpoints as bytes.
+// pseudo-inverse and infill, and the partition patterns as texel
+// bitmasks.  The TPU's one-hot matmul "gathers" are table loads; a fit
+// reads its pattern's masks into a 2-bit partition id per texel, held in
+// registers.  A decimated grid's infill and Gauss-Seidel footprint scores
+// read the infill's at most four non-zero terms a texel, not the TPU
+// kernel's dense [T][G] infill and [G][T] footprint (at 12x12, 4 of 32-64
+// a row).  Every per-block array
+// is sized by the block's texel class (MT = 16 for 4x4, 64 up to 8x8, 144
+// up to 12x12), one template instance per class, with per-texel weights
+// and endpoints as bytes.
 //
-// Entry A, and B at 4x4: one thread per ASTC block, 64 threads per CTA,
-// the block's texels in the thread's local memory, where a warp's loads of
-// one texel of its 32 blocks coalesce.
+// Entry A: a CTA per group of 32 blocks and a warp per task of its list,
+// up to 8 (1-partition layouts and dual planes, then CEM 0/4 for near-gray
+// blocks).  The group's texels are staged once, coalesced, in dynamic
+// shared memory at an odd stride (4 MT + 1 words a block: 32 lanes on 32
+// blocks read 32 banks; 74 KB at 12x12); lane b of every warp holds block
+// b, warp v runs tasks v, v + warps, ..., so the lanes of a warp fit one
+// layout at a time, and lane b of warp 0 merges the warps' bests in the
+// task list's order.  At 12x12 there are only 29,241 blocks: a thread per
+// block gave about 7 warps an SM, with each block's tasks one after
+// another; a warp per task gives up to 8 times the warps.
+//
+// Entry B at 4x4: one thread per ASTC block, 64 threads per CTA, the
+// block's texels in the thread's local memory, where a warp's loads of one
+// texel of its 32 blocks coalesce.
 //
 // Entries B above 4x4, C and D, whose pattern screens took most of their
 // time: a warp per group of G blocks, 4 warps per CTA.  The entry's
@@ -49,7 +64,8 @@
 // What bounds it: operations.  A block reads 64-576 bytes and writes 20,
 // but a 4x4 block at quality 2 runs some twenty layout fits of several
 // refinement rounds each and screens 438 partition patterns; at 12x12 a
-// screen covers 144 texels per pattern.
+// screen covers 144 texels per pattern, and a decimated fit runs 17
+// footprint scorings a Gauss-Seidel pass.
 //
 // Numerics, so that the kernel agrees with the plain version bit for bit:
 // every sum over texels is a left fold in texel order, except the
@@ -77,7 +93,7 @@
 
 namespace astcx {
 
-constexpr int kThreads = 64;  // entry A and B at 4x4: threads per CTA
+constexpr int kThreads = 64;  // entry B at 4x4: threads per CTA
 constexpr int kMaxT = 144;    // 12x12
 constexpr int kMaxTopK = 16;
 
@@ -138,9 +154,8 @@ struct Lay {
   int nparts, cem, gw, gh, g, wlevels, clevels, dual, wbits, header, mode;
   int ckind, cb, wkind, wb;
   const int *cq, *cd, *unq, *up, *dn, *wq, *wu;
-  const int* a;        // [T][G] C.2.18 infill (16ths), or null for a full grid
-  const int* pinv;     // [G][T] float32 bits
-  const int* foot;     // [G][T] 0/1
+  const int* pinv;     // [G][T] float32 bits, or null for a full grid
+  const int* ia;       // [T][4] the C.2.18 infill's non-zero terms, j | weight << 8 (16ths; 0: none)
 };
 
 __device__ inline Lay load_lay(const int* d, int off) {
@@ -170,23 +185,30 @@ __device__ inline Lay load_lay(const int* d, int off) {
   L.wu = d + r[L_OFF_WU];
   if (r[L_OFF_GRID] >= 0) {
     const int T = d[H_T];
-    L.a = d + r[L_OFF_GRID];
-    L.pinv = L.a + T * L.g;
-    L.foot = L.pinv + L.g * T;
+    L.pinv = d + r[L_OFF_GRID];
+    L.ia = L.pinv + L.g * T;
   } else {
-    L.a = L.pinv = L.foot = nullptr;
+    L.pinv = L.ia = nullptr;
   }
   return L;
 }
 
 // The block: texels clip(x, 0, 1) * 255, channel-major, sized by the
 // texel class MT (16 B a texel and 16 B more, so that arrays of blocks in
-// shared memory stay 16-byte aligned).
-template <int MT>
+// shared memory stay 16-byte aligned: the warp entries read four texels a
+// load).
+template <int MT, int PAD = 3>
 struct alignas(16) Blk {
   float px[4][MT];
   int T;
-  int pad[3];
+  int pad[PAD];
+};
+// Entry A's blocks in shared memory: 4 MT + 1 words, an odd stride, so that
+// 32 lanes on 32 consecutive blocks read 32 different banks.
+template <int MT>
+struct Blk<MT, 0> {
+  float px[4][MT];
+  int T;
 };
 
 // A block's partitions, read from the bitmasks of partitions 1..np (texels
@@ -228,8 +250,8 @@ __device__ __forceinline__ int part_of(const Part<MT>& P, int t) {
 }
 
 // Fit-space channel c of texel t (CEM 0/4: luma, then alpha).
-template <int MT>
-__device__ __forceinline__ float pxf(const Blk<MT>& B, int cem, int c, int t) {
+template <int MT, int PD>
+__device__ __forceinline__ float pxf(const Blk<MT, PD>& B, int cem, int c, int t) {
   if (cem == 0 || cem == 4) {
     if (c == 0) return ((B.px[0][t] + B.px[1][t]) + B.px[2][t]) * kThird;
     return B.px[3][t];
@@ -260,8 +282,8 @@ __device__ __forceinline__ float sq(float x) { return x * x; }
 // PCA seed, endpoint order, colour quantisation, least squares
 // ---------------------------------------------------------------------------
 
-template <int MT>
-__device__ float count_of(const Blk<MT>& B, const Part<MT> P, int p) {
+template <int MT, int PD>
+__device__ float count_of(const Blk<MT, PD>& B, const Part<MT> P, int p) {
   if (P.np == 0) return (float)B.T + 1e-6f;
   float s = memb(P, p, 0);
   for (int t = 1; t < B.T; ++t) s = s + memb(P, p, t);
@@ -295,13 +317,13 @@ struct Chans {
   int idx[4];  // -1: fit-space channel k; else a raw channel
 };
 
-template <int MT>
-__device__ __forceinline__ float chv(const Blk<MT>& B, const Chans& C, int k, int t) {
+template <int MT, int PD>
+__device__ __forceinline__ float chv(const Blk<MT, PD>& B, const Chans& C, int k, int t) {
   return C.idx[k] < 0 ? pxf(B, C.cem, k, t) : B.px[C.idx[k]][t];
 }
 
-template <int MT>
-__device__ __noinline__ void pca_seed(const Blk<MT>& B, const Chans& C, const Part<MT> P, int p,
+template <int MT, int PD>
+__device__ __noinline__ void pca_seed(const Blk<MT, PD>& B, const Chans& C, const Part<MT> P, int p,
                                       float e0[4], float e1[4]) {
   const int T = B.T, chn = C.n;
   const float cnt = count_of(B, P, p);
@@ -366,8 +388,8 @@ __device__ __forceinline__ void quant_color(const Lay& L, float e, uint8_t& q, u
 }
 
 // Least-squares endpoints for per-texel weights w (w = 1 -> e1).
-template <int MT>
-__device__ __noinline__ void lsq(const Blk<MT>& B, const Chans& C, const float* w, const Part<MT> P,
+template <int MT, int PD>
+__device__ __noinline__ void lsq(const Blk<MT, PD>& B, const Chans& C, const float* w, const Part<MT> P,
                                  int p, float e0[4], float e1[4]) {
   const int T = B.T, chn = C.n;
   float a11 = 0, a12 = 0, a22 = 0, b1[4], b0[4], ms[4];
@@ -428,8 +450,8 @@ struct TexelEnds {
   int nc;
 };
 
-template <int MT>
-__device__ __forceinline__ TexelEnds texel_ends(const Blk<MT>& B, const Ends& E, const Part<MT> P,
+template <int MT, int PD>
+__device__ __forceinline__ TexelEnds texel_ends(const Blk<MT, PD>& B, const Ends& E, const Part<MT> P,
                                                 const int* chs, int nc, int t) {
   TexelEnds R;
   R.nc = nc;
@@ -457,8 +479,8 @@ __device__ __forceinline__ float texel_werr(const TexelEnds& R, int w64) {
 }
 
 // Per-texel weight by exact decode error (full grids).
-template <int MT>
-__device__ __noinline__ void wquant_exact(const Blk<MT>& B, const Ends& E, const Part<MT> P,
+template <int MT, int PD>
+__device__ __noinline__ void wquant_exact(const Blk<MT, PD>& B, const Ends& E, const Part<MT> P,
                                           const int* chs, int nc, const Lay& L, uint8_t* gq,
                                           uint8_t* unq) {
   const int T = B.T, levels = L.wlevels;
@@ -510,20 +532,25 @@ __device__ __noinline__ void wquant_exact(const Blk<MT>& B, const Ends& E, const
   }
 }
 
-// C.2.18 infill of grid values gv (ISE values) -> per-texel w64.
+// C.2.18 infill of grid values gv (ISE values) at texel t -> its w64: the
+// at most four non-zero terms of the texel's row (an integer sum, exact in
+// any order).
+__device__ __forceinline__ int infill_at(const Lay& L, const uint8_t* gv, int t) {
+  const int* e = L.ia + 4 * t;
+  int s = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) s += (e[k] >> 8) * L.unq[gv[e[k] & 0xFF]];
+  return (s + 8) >> 4;
+}
+
 __device__ void infill(const Lay& L, int T, const uint8_t* gv, uint8_t* w64) {
-  for (int t = 0; t < T; ++t) {
-    int s = 0;
-    const int* row = L.a + t * L.g;
-    for (int j = 0; j < L.g; ++j) s += row[j] * L.unq[gv[j]];
-    w64[t] = (s + 8) >> 4;
-  }
+  for (int t = 0; t < T; ++t) w64[t] = infill_at(L, gv, t);
 }
 
 // Ideal texel weights tw -> grid ISE values gq[G] and texel weights w64[T].
 __device__ __noinline__ void grid_quant(const Lay& L, int T, const float* tw, uint8_t* gq,
                                         uint8_t* w64) {
-  if (L.a == nullptr) {
+  if (L.pinv == nullptr) {
     for (int t = 0; t < T; ++t) {
       const int w = (int)clampf(rintf(tw[t] * 64.0f), 0.0f, 64.0f);
       gq[t] = L.wq[w];
@@ -542,48 +569,68 @@ __device__ __noinline__ void grid_quant(const Lay& L, int T, const float* tw, ui
 }
 
 // Footprint scores of grid values g: per grid point, the exact error over
-// its footprint texels (a left fold in texel order).
-template <int MT>
-__device__ __noinline__ void gs_scores(const Blk<MT>& B, const Ends& E, const Part<MT> P, const Lay& L,
+// its footprint texels (a left fold in texel order).  The footprint of grid
+// point j is the texels whose infill weighs it (foot[j][t] = a[t][j] > 0),
+// so one pass over the texels adds each texel's error to the at most four
+// points of its infill row, in texel order.  A dense fold over foot
+// gives the same float: each of its other terms is 0 * err = +0 (err a
+// finite sum of squares, >= +0), and s + 0 = s.
+template <int MT, int PD>
+__device__ __noinline__ void gs_scores(const Blk<MT, PD>& B, const Ends& E, const Part<MT> P, const Lay& L,
                                        const uint8_t* g, float* sc) {
-  const int T = B.T;
-  uint8_t w64[MT];
-  float err[MT];
-  infill(L, T, g, w64);
+  const int T = B.T, G = L.g;
+  const int* ia = L.ia;
+  uint8_t gw[max_grid(MT)];  // each grid point's unquantised weight
+  for (int j = 0; j < G; ++j) {
+    gw[j] = (uint8_t)L.unq[g[j]];
+    sc[j] = 0.0f;
+  }
+  int a0[4], a1[4];  // one partition: its endpoints at every texel
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    a0[c] = e0c(E, P, c, 0);
+    a1[c] = e1c(E, P, c, 0);
+  }
   for (int t = 0; t < T; ++t) {
+    int ent[4], s = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      ent[k] = ia[4 * t + k];
+      s += (ent[k] >> 8) * gw[ent[k] & 0xFF];
+    }
+    const int w64 = (s + 8) >> 4;
     float e = 0.0f;
+#pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const float x = sq(dec8(e0c(E, P, c, t), e1c(E, P, c, t), w64[t]) - B.px[c][t]);
+      const int d0 = P.np == 0 ? a0[c] : e0c(E, P, c, t), d1 = P.np == 0 ? a1[c] : e1c(E, P, c, t);
+      const float x = sq(dec8(d0, d1, w64) - B.px[c][t]);
       e = c == 0 ? x : e + x;
     }
-    err[t] = e;
-  }
-  for (int j = 0; j < L.g; ++j) {
-    const int* f = L.foot + j * T;
-    float s = (float)f[0] * err[0];
-    for (int t = 1; t < T; ++t) s = s + (float)f[t] * err[t];
-    sc[j] = s;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (ent[k] >> 8) sc[ent[k] & 0xFF] = sc[ent[k] & 0xFF] + e;
   }
 }
 
 // One Gauss-Seidel pass over the four (gx%2, gy%2) checkerboard classes.
-template <int MT>
-__device__ __noinline__ void gs_refine(const Blk<MT>& B, const Ends& E, const Part<MT> P, const Lay& L,
+template <int MT, int PD>
+__device__ __noinline__ void gs_refine(const Blk<MT, PD>& B, const Ends& E, const Part<MT> P, const Lay& L,
                                        uint8_t* gq) {
   float cur[max_grid(MT)], sc[max_grid(MT)];
   uint8_t cand[max_grid(MT)];
+  const int G = L.g, gwid = L.gw;
   gs_scores(B, E, P, L, gq, cur);
   for (int cc = 0; cc < 4; ++cc)
     for (int dir = 0; dir < 2; ++dir) {
       const int* tab = dir == 0 ? L.up : L.dn;
-      for (int j = 0; j < L.g; ++j) {
-        const int cls = ((j / L.gw) % 2) * 2 + (j % L.gw) % 2;
-        cand[j] = cls == cc ? tab[gq[j]] : gq[j];
+      for (int j = 0, x = 0, y = 0; j < G; ++j) {
+        cand[j] = (y & 1) * 2 + (x & 1) == cc ? tab[gq[j]] : gq[j];
+        if (++x == gwid) x = 0, ++y;
       }
       gs_scores(B, E, P, L, cand, sc);
-      for (int j = 0; j < L.g; ++j) {
-        const int cls = ((j / L.gw) % 2) * 2 + (j % L.gw) % 2;
-        if (cls == cc && sc[j] < cur[j]) gq[j] = cand[j];
+      for (int j = 0, x = 0, y = 0; j < G; ++j) {
+        if ((y & 1) * 2 + (x & 1) == cc && sc[j] < cur[j]) gq[j] = cand[j];
+        if (++x == gwid) x = 0, ++y;
       }
       gs_scores(B, E, P, L, gq, cur);
     }
@@ -591,8 +638,8 @@ __device__ __noinline__ void gs_refine(const Blk<MT>& B, const Ends& E, const Pa
 
 // Block error of texel weights w64 (all 4 channels, per channel a fold
 // over texels, then over channels).
-template <int MT>
-__device__ __noinline__ float eval_exact(const Blk<MT>& B, const Ends& E, const Part<MT> P,
+template <int MT, int PD>
+__device__ __noinline__ float eval_exact(const Blk<MT, PD>& B, const Ends& E, const Part<MT> P,
                                          const uint8_t* w64) {
   float err = 0.0f;
   for (int c = 0; c < 4; ++c) {
@@ -618,8 +665,8 @@ struct Fit {
 };
 
 // Single- or multi-partition fit of layout L (_fit_1part / _fit_2part).
-template <int MT>
-__device__ __noinline__ void fit_parts(const Blk<MT>& B, const Lay& L, const Part<MT> P, int nparts,
+template <int MT, int PD>
+__device__ __noinline__ void fit_parts(const Blk<MT, PD>& B, const Lay& L, const Part<MT> P, int nparts,
                                        int iters, Fit<MT>& best) {
   const int T = B.T;
   const bool luma = L.cem == 0 || L.cem == 4;
@@ -671,7 +718,7 @@ __device__ __noinline__ void fit_parts(const Blk<MT>& B, const Lay& L, const Par
       }
     }
     E.nche = (L.cem == 0 || L.cem == 8) ? 3 : 4;
-    if (L.a == nullptr) {
+    if (L.pinv == nullptr) {
       wquant_exact(B, E, P, all_ch, E.nche, L, gq, unq);
     } else {
       for (int t = 0; t < T; ++t) {
@@ -696,7 +743,7 @@ __device__ __noinline__ void fit_parts(const Blk<MT>& B, const Lay& L, const Par
       }
     }
     cand.err = eval_exact(B, E, P, unq);
-    const int ng = L.a == nullptr ? T : L.g;
+    const int ng = L.pinv == nullptr ? T : L.g;
     if (it == 0 || cand.err < best.err) {
       for (int p = 0; p < nparts; ++p)
         for (int c = 0; c < nch; ++c) {
@@ -719,8 +766,8 @@ __device__ __noinline__ void fit_parts(const Blk<MT>& B, const Lay& L, const Par
 
 // Single-partition dual-plane fit: plane 0 drives the channels other than
 // ccs, plane 1 drives ccs (_fit_dual).
-template <int MT>
-__device__ __noinline__ void fit_dual(const Blk<MT>& B, const Lay& L, int ccs, int iters, Fit<MT>& best) {
+template <int MT, int PD>
+__device__ __noinline__ void fit_dual(const Blk<MT, PD>& B, const Lay& L, int ccs, int iters, Fit<MT>& best) {
   const int T = B.T;
   const Part<MT> whole = whole_part<MT>();
   const int nch = L.cem == 12 ? 4 : 3;
@@ -768,7 +815,7 @@ __device__ __noinline__ void fit_dual(const Blk<MT>& B, const Lay& L, int ccs, i
     }
     for (int c = nch; c < 4; ++c) E.d0[0][c] = E.d1[0][c] = 255;
     E.nche = nch;
-    if (L.a == nullptr) {
+    if (L.pinv == nullptr) {
       wquant_exact(B, E, whole, R.idx, R.n, L, gq0, unq0);
       wquant_exact(B, E, whole, A.idx, 1, L, gq1, unq1);
     } else {
@@ -933,8 +980,8 @@ __device__ void load_block(const float* src, int T, Blk<MT>& B) {
     for (int c = 0; c < 4; ++c) B.px[c][t] = clampf(src[t * 4 + c], 0.0f, 1.0f) * 255.0f;
 }
 
-template <int MT>
-__device__ bool is_gray(const int* d, const Blk<MT>& B) {
+template <int MT, int PD>
+__device__ bool is_gray(const int* d, const Blk<MT, PD>& B) {
   float m = 0.0f;
   for (int t = 0; t < B.T; ++t) {
     const float hi = fmaxf(fmaxf(B.px[0][t], B.px[1][t]), B.px[2][t]);
@@ -951,10 +998,9 @@ __device__ __forceinline__ void take_if(uint32_t w[4], float& e, const uint32_t 
   }
 }
 
-// Kernel A: void extent, then the 1-partition tasks (and CEM 0/4 for a
-// near-gray block).
-template <int MT>
-__device__ __noinline__ void body_a(const int* d, const Blk<MT>& B, uint32_t w[4], float& e) {
+// Kernel A's void extent (its mean colour), the first candidate.
+template <int MT, int PD>
+__device__ __noinline__ void void_extent(const Blk<MT, PD>& B, uint32_t w[4], float& e) {
   const int T = B.T;
   const float inv = 1.0f / (float)T;
   int v16[4];
@@ -975,25 +1021,24 @@ __device__ __noinline__ void body_a(const int* d, const Blk<MT>& B, uint32_t w[4
   w[1] = 0xFFFFFFFFu;
   w[2] = (uint32_t)(v16[0] | (v16[1] << 16));
   w[3] = (uint32_t)(v16[2] | (v16[3] << 16));
-  const bool gray = d[H_NAG] > 0 && is_gray(d, B);
-  const Part<MT> whole = whole_part<MT>();
-  for (int pass = 0; pass < 2; ++pass) {
-    const int n = pass == 0 ? d[H_NA] : (gray ? d[H_NAG] : 0);
-    const int* tasks = d + (pass == 0 ? d[H_OFF_A] : d[H_OFF_AG]);
-    for (int k = 0; k < n; ++k) {
-      const Lay L = load_lay(d, tasks[2 * k]);
-      const int ccs = tasks[2 * k + 1];
-      const int iters = L.cem == 12 ? d[H_ITERS12] : d[H_ITERS];
-      Fit<MT> F;
-      if (ccs < 0)
-        fit_parts(B, L, whole, 1, iters, F);
-      else
-        fit_dual(B, L, ccs, iters, F);
-      uint32_t lw[4];
-      pack_fit(d, L, F, ccs < 0 ? 0 : ccs, 0, lw);
-      take_if(w, e, lw, F.err);
-    }
-  }
+}
+
+// Kernel A's task k: one of the NA 1-partition tasks (k < NA), else gray
+// task k - NA (CEM 0/4); its words and error.
+template <int MT, int PD>
+__device__ __noinline__ float task_a(const int* d, const Blk<MT, PD>& B, int k, uint32_t w[4]) {
+  const int na = d[H_NA];
+  const int* task = k < na ? d + d[H_OFF_A] + 2 * k : d + d[H_OFF_AG] + 2 * (k - na);
+  const Lay L = load_lay(d, task[0]);
+  const int ccs = task[1];
+  const int iters = L.cem == 12 ? d[H_ITERS12] : d[H_ITERS];
+  Fit<MT> F;
+  if (ccs < 0)
+    fit_parts(B, L, whole_part<MT>(), 1, iters, F);
+  else
+    fit_dual(B, L, ccs, iters, F);
+  pack_fit(d, L, F, ccs < 0 ? 0 : ccs, 0, w);
+  return F.err;
 }
 
 // Masked sums of NP screen rows of nw words (rows m, m + nw, ...): per
@@ -1435,14 +1480,19 @@ __host__ __device__ constexpr int mask_table(int S) {
 // WARP_SYNC orders the warp's shared memory between phases; in a CPU build
 // the 32 lanes run one after another.  A phase's lanes share nothing but
 // the warp's shared memory.
+// FOR_WARPS and CTA_SYNC do the same for the nw warps of a CTA (entry A).
 #ifdef __CUDACC__
 #define FOR_LANES(lane) for (int lane = (int)(threadIdx.x & 31u), lane##_once = 1; lane##_once; lane##_once = 0)
 #define WARP_SYNC() __syncwarp()
 #define WARP_FENCE() __threadfence_block()
+#define FOR_WARPS(warp, nw) for (int warp = (int)(threadIdx.x >> 5), warp##_once = 1; warp##_once; warp##_once = 0)
+#define CTA_SYNC() __syncthreads()
 #else
 #define FOR_LANES(lane) for (int lane = 0; lane < 32; ++lane)
 #define WARP_SYNC()
 #define WARP_FENCE()
+#define FOR_WARPS(warp, nw) for (int warp = 0; warp < (nw); ++warp)
+#define CTA_SYNC()
 #endif
 
 // The k least (estimate, pattern) pairs of patterns 0 .. U-1, est(u) the
@@ -1626,6 +1676,119 @@ __device__ void encode_group(const int* d, const int* masks, const WarpPlan& P, 
   WARP_SYNC();
 }
 
+// ---------------------------------------------------------------------------
+// Kernel A: a CTA per group of blocks, its warps sharing the group's tasks
+// ---------------------------------------------------------------------------
+
+constexpr int kAGroup = 32;    // blocks a CTA of entry A: one a lane
+constexpr int kAMaxWarps = 8;  // warps a CTA of entry A
+
+// A warp's best candidate for one block: words, error, and its index in
+// the candidate order (-1: the void extent, then the tasks, the gray tasks
+// last; nt: none yet).
+struct ABest {
+  uint32_t w[4];
+  float e;
+  int k;
+};
+
+// How a CTA of entry A splits its work: a warp per task of the NA that
+// every block runs, up to kAMaxWarps (warp v takes tasks v, v + warps, ...,
+// the gray tasks included, which run on near-gray blocks only), the
+// group's texels, each warp's best per block and each block's near-gray
+// flag in its dynamic shared memory.
+struct APlan {
+  int ntask, warps, best_off, gray_off, smem_bytes;
+};
+
+template <int MT>
+__host__ __device__ inline APlan a_plan(const int* h) {
+  APlan P;
+  P.ntask = h[H_NA] + h[H_NAG];
+  P.warps = h[H_NA] < 1 ? 1 : h[H_NA] > kAMaxWarps ? kAMaxWarps : h[H_NA];
+  P.best_off = align16(kAGroup * (int)sizeof(Blk<MT, 0>));
+  P.gray_off = P.best_off + P.warps * kAGroup * (int)sizeof(ABest);
+  P.smem_bytes = P.gray_off + kAGroup * (int)sizeof(int);
+  return P;
+}
+
+// Entry A (_kernel_a: the void extent, the 1-partition tasks, and CEM 0/4
+// for a near-gray block; the first of least error) on blocks i0 .. i0 + ng
+// - 1 (ng <= kAGroup) by the P.warps warps of a CTA.  The texels are
+// staged once, coalesced, at an odd stride (Blk<MT, 0>); lane b of every
+// warp then holds block b, and warp v runs tasks v, v + P.warps, ... of
+// the list, so that the 32 lanes of a warp run one layout at a time; warp
+// 0 also takes the void extent and, where there are gray tasks, tests
+// each block for near-gray once for all warps.  Each warp keeps the first
+// of least error among its own candidates, and lane b of warp 0 takes the
+// least over the warps, ties to the earliest in the candidate order: the
+// candidate that a scan in that order with strict < keeps.
+template <int MT>
+__device__ void encode_group_a(const int* d, const APlan& P, const float* blocks, long long i0, int ng,
+                               unsigned char* smem, uint32_t* out_w, float* out_e) {
+  Blk<MT, 0>* blk = (Blk<MT, 0>*)smem;
+  ABest* best = (ABest*)(smem + P.best_off);
+  int* gray = (int*)(smem + P.gray_off);
+  const int T = d[H_T], na = d[H_NA], nt = P.ntask;
+  FOR_WARPS(warp, P.warps) {
+    FOR_LANES(lane) {
+      const int tid = warp * 32 + lane, nth = P.warps * 32;
+      const float* src = blocks + i0 * T * 4;
+      for (int x = tid; x < ng * T * 4; x += nth) {
+        const int b = x / (T * 4), r = x - b * (T * 4);
+        blk[b].px[r & 3][r >> 2] = clampf(src[x], 0.0f, 1.0f) * 255.0f;
+      }
+      if (tid < ng) blk[tid].T = T;
+    }
+  }
+  CTA_SYNC();
+  if (nt > na) {
+    FOR_WARPS(warp, P.warps) {
+      FOR_LANES(lane) {
+        if (warp == 0 && lane < ng) gray[lane] = is_gray(d, blk[lane]) ? 1 : 0;
+      }
+    }
+    CTA_SYNC();
+  }
+  FOR_WARPS(warp, P.warps) {
+    FOR_LANES(lane) {
+      if (lane < ng) {
+        const Blk<MT, 0>& B = blk[lane];
+        ABest r = {{0u, 0u, 0u, 0u}, kInf, nt};
+        if (warp == 0) {
+          void_extent(B, r.w, r.e);
+          r.k = -1;
+        }
+        const int n = nt > na && gray[lane] ? nt : na;
+        for (int k = warp; k < n; k += P.warps) {
+          uint32_t lw[4];
+          const float le = task_a(d, B, k, lw);
+          if (le < r.e) {
+            for (int x = 0; x < 4; ++x) r.w[x] = lw[x];
+            r.e = le;
+            r.k = k;
+          }
+        }
+        best[warp * kAGroup + lane] = r;
+      }
+    }
+  }
+  CTA_SYNC();
+  FOR_WARPS(warp, P.warps) {
+    FOR_LANES(lane) {
+      if (warp == 0 && lane < ng) {
+        ABest r = best[lane];
+        for (int v = 1; v < P.warps; ++v) {
+          const ABest& o = best[v * kAGroup + lane];
+          if (o.e < r.e || (o.e == r.e && o.k < r.k)) r = o;
+        }
+        for (int x = 0; x < 4; ++x) out_w[(i0 + lane) * 4 + x] = r.w[x];
+        out_e[i0 + lane] = r.e;
+      }
+    }
+  }
+}
+
 #ifndef __CUDACC__
 
 // Entry `stage` (0..3 = a..d) on n blocks on the CPU, arrays sized by the
@@ -1636,14 +1799,19 @@ template <int MT>
 inline void encode_stage_t(int stage, const int* d, const float* blocks, int n, uint32_t* words,
                            float* err) {
   const int T = d[H_T];
+  if (stage == 0) {
+    const APlan P = a_plan<MT>(d);
+    unsigned char* smem = (unsigned char*)aligned_alloc(16, align16(P.smem_bytes));
+    for (int i0 = 0; i0 < n; i0 += kAGroup)
+      encode_group_a<MT>(d, P, blocks, i0, n - i0 < kAGroup ? n - i0 : kAGroup, smem, words, err);
+    free(smem);
+    return;
+  }
   if (!warp_entry(stage, MT)) {
     for (int i = 0; i < n; ++i) {
       Blk<MT> B;
       load_block(blocks + (size_t)i * T * 4, T, B);
-      if (stage == 0)
-        body_a(d, B, words + 4 * i, err[i]);
-      else
-        body_b(d, B, words + 4 * i, err[i]);
+      body_b(d, B, words + 4 * i, err[i]);
     }
     return;
   }
@@ -1676,24 +1844,34 @@ inline void encode_stage(int stage, const int* d, const float* blocks, int n, ui
 
 #ifdef __CUDACC__
 
-// Entry A, and B at 4x4: one thread per block.
-template <int S, int MT>
+// Entry B at 4x4: one thread per block.
 __global__ void __launch_bounds__(kThreads)
-    astc_kernel(const float* __restrict__ blocks, const int* __restrict__ desc,
-                uint4* __restrict__ words, float* __restrict__ err, int n) {
+    astc_b4x4_kernel(const float* __restrict__ blocks, const int* __restrict__ desc,
+                     uint4* __restrict__ words, float* __restrict__ err, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int T = desc[H_T];
-  Blk<MT> B;
-  load_block(blocks + (size_t)i * T * 4, T, B);
+  Blk<16> B;
+  load_block(blocks + (size_t)i * 16 * 4, 16, B);
   uint32_t w[4];
   float e;
-  if (S == 0)
-    body_a(desc, B, w, e);
-  else
-    body_b(desc, B, w, e);
+  body_b(desc, B, w, e);
   words[i] = make_uint4(w[0], w[1], w[2], w[3]);
   err[i] = e;
+}
+
+// Entry A: a CTA per group of kAGroup blocks, a_plan's warps.  The bounds
+// ask for 3 CTAs of 8 warps an SM at 4x4 (80 registers, 96 B of spills: 5 %
+// faster than 126 registers there, 7-25 % slower above 4x4) and 2 above
+// (at most 128 registers, so that two 8-warp CTAs fit).
+template <int MT>
+__global__ void __launch_bounds__(kAMaxWarps * 32, MT == 16 ? 3 : 2)
+    astc_a_kernel(const float* __restrict__ blocks, const int* __restrict__ desc,
+                  uint32_t* __restrict__ words, float* __restrict__ err, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const APlan P = a_plan<MT>(desc);
+  const long long i0 = (long long)blockIdx.x * kAGroup;
+  const int ng = n - i0 < kAGroup ? (int)(n - i0) : kAGroup;
+  encode_group_a<MT>(desc, P, blocks, i0, ng, smem, words, err);
 }
 
 // Entries B above 4x4 (S = 1), C (S = 2) and D (S = 3): kWarps warps a CTA,
@@ -1716,11 +1894,11 @@ __global__ void __launch_bounds__(kWarps * 32)
                       P.global_blk ? scratch + i0 : nullptr, words, err);
 }
 
-// Raises the dynamic shared memory limit of astc_warp_kernel<S, MT> to
-// `bytes` where it is above the default 48 KB: once per instance, device
-// and size, since the limit stays set for later launches.  Static, so that
-// each library (an earlier build loaded beside this one) keeps its own
-// record for its own kernels.
+// Raises the dynamic shared memory limit of the entry's kernel
+// (astc_a_kernel<MT>, astc_warp_kernel<S, MT>) to `bytes` where it is above
+// the default 48 KB: once per instance, device and size, since the limit
+// stays set for later launches.  Static, so that each library (an earlier
+// build loaded beside this one) keeps its own record for its own kernels.
 template <int S, int MT>
 static cudaError_t allow_smem(int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -1731,8 +1909,11 @@ static cudaError_t allow_smem(int bytes) {
   if (rc != cudaSuccess) return rc;
   std::lock_guard<std::mutex> lock(mu);
   if (dev < 64 && bytes <= allowed[dev]) return cudaSuccess;
-  rc = cudaFuncSetAttribute(astc_warp_kernel<S, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                            bytes);
+  if constexpr (S == 0)
+    rc = cudaFuncSetAttribute(astc_a_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  else
+    rc = cudaFuncSetAttribute(astc_warp_kernel<S, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
   if (rc == cudaSuccess && dev < 64) allowed[dev] = bytes;
   return rc;
 }
@@ -1740,8 +1921,15 @@ static cudaError_t allow_smem(int bytes) {
 template <int S, int MT>
 int launch_mt(const void* blocks, const void* desc, const int* hdr, void* words, void* err,
               void* scratch, int n, cudaStream_t stream) {
-  if constexpr (!warp_entry(S, MT)) {
-    astc_kernel<S, MT><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+  if constexpr (S == 0) {
+    const APlan P = a_plan<MT>(hdr);
+    const cudaError_t rc = allow_smem<S, MT>(P.smem_bytes);
+    if (rc != cudaSuccess) return (int)rc;
+    astc_a_kernel<MT><<<(unsigned)((n + kAGroup - 1) / kAGroup), P.warps * 32, P.smem_bytes,
+                        stream>>>((const float*)blocks, (const int*)desc, (uint32_t*)words,
+                                  (float*)err, n);
+  } else if constexpr (!warp_entry(S, MT)) {  // B at 4x4
+    astc_b4x4_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
         (const float*)blocks, (const int*)desc, (uint4*)words, (float*)err, n);
   } else {
     const WarpPlan P = warp_plan<MT>(S, hdr);
@@ -1779,9 +1967,8 @@ int launch(const void* blocks, const void* desc, const void* hdr, void* words, v
 // launch is not synchronised).  blocks: [n, T, 4] float32; desc: the int32
 // descriptor of astc_cuda.py:descriptor on the device, hdr: the same on
 // the host (the launch reads its header); words: [n, 4] uint32; err: [n]
-// float32; scratch (last, so that the launchers of files without it take
-// the same call): n times astc_warp_plan's scratch bytes a block of device
-// memory (entry B above 16 texels), else unused.
+// float32; scratch: n times astc_warp_plan's scratch bytes a block of
+// device memory (entry B above 16 texels), else unused.
 extern "C" int astc_a_launch(const void* blocks, const void* desc, const void* hdr, void* words,
                              void* err, int n, void* stream, void* scratch) {
   return astcx::launch<0>(blocks, desc, hdr, words, err, scratch, n, stream);
@@ -1799,20 +1986,29 @@ extern "C" int astc_d_launch(const void* blocks, const void* desc, const void* h
   return astcx::launch<3>(blocks, desc, hdr, words, err, scratch, n, stream);
 }
 
-// The warp plan of entry B (stage 1), C (2) or D (3) for the host
-// descriptor hdr: out = {blocks a warp, dynamic shared memory bytes a CTA,
-// of it the staged masks, scratch bytes a block}; all 0 where the entry
-// runs a thread per block (B at 4x4).
+// The plan of entry A (stage 0), B (1), C (2) or D (3) for the host
+// descriptor hdr: out = {blocks a warp (A: a CTA), dynamic shared memory
+// bytes a CTA, of it the staged masks, scratch bytes a block, warps a CTA};
+// all 0 where the entry runs a thread per block (B at 4x4).
 extern "C" void astc_warp_plan(int stage, const void* hdr, int* out) {
   const int* h = (const int*)hdr;
   astcx::by_texel_class(h[astcx::H_T], [&](auto c) {
     constexpr int MT = decltype(c)::value;
+    if (stage == 0) {
+      const astcx::APlan A = astcx::a_plan<MT>(h);
+      out[0] = astcx::kAGroup;
+      out[1] = A.smem_bytes;
+      out[2] = out[3] = 0;
+      out[4] = A.warps;
+      return;
+    }
     const bool warp = astcx::warp_entry(stage, MT);
     const astcx::WarpPlan P = astcx::warp_plan<MT>(stage, h);
     out[0] = warp ? P.group : 0;
     out[1] = warp ? P.smem_bytes : 0;
     out[2] = warp ? P.masks_bytes : 0;
     out[3] = warp && P.global_blk ? (int)sizeof(astcx::Blk<MT>) : 0;
+    out[4] = warp ? astcx::kWarps : 0;
   });
 }
 

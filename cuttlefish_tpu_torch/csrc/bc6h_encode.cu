@@ -14,42 +14,73 @@
 // The plain PyTorch version of the same algorithm is
 // cuttlefish_tpu_torch/kernels/bc6h.py; the two are compared on the card.
 //
-// Design: one thread per 4x4 block, 128 threads per CTA, grid =
-// ceil(N / 128).  The wrapper turns the f16-wire texels into the proxy with
-// the plain version's own torch ops (_to_proxy), so the kernel reads the
-// same bits.  The TPU kernel screened the partitions as MXU matmuls; here
-// the screen loops over 32 uint16 membership masks in __constant__ memory
-// and sums the same moments in texel order, keeping the top k with ties to
-// the lowest partition.  The ten two-region modes' scrambled bit layouts
-// are one flat __constant__ table filled by the host from the Python table
-// (kernels/bc6h_tables.py), read by one packing loop.
+// Design: a warp per group of 32 blocks, 4 warps per CTA, grid =
+// ceil(N / 128).  The warp stages its group's texels in shared memory by
+// one coalesced copy of the [32,16,3] floats, turning each into its
+// half-bit proxy on the way (to_proxy: round to half, nearest even, clamp
+// to the largest finite half, the sign rule; the plain version's _to_proxy
+// as torch ops), a block's [channel][texel] rows at a 49-float stride, so
+// that 32 lanes on 32 blocks read 32 banks; no texel array lives in a
+// thread's local frame.  A texel's selection-domain value and
+// linearisation scale are made from its proxy where they are read
+// (proxy_to_value, proxy_scale).  Each phase of encode_block is a loop of
+// lane tasks, block-minor; with 32 blocks a warp, lane b takes every task
+// of block b (modes 11 and 12, the screen over the 32 partitions with its
+// top-k, the shallow fits of the screened partitions, fit_regions of the
+// winner and the first, the two-region modes of the plan) and keeps the
+// running best in registers, so the phases need no shared memory beyond
+// the texels; each phase is a non-inlined function.  Its sums over texels
+// are each folded in one pass with the others, masks are bit sets, indices
+// packed 4 bits a texel, and a texel's chosen palette entry is decoded
+// once.  The texel loops of the float fits (pca_seed, ls, texel_line) stay
+// rolled: unrolled, they held the block's texels in registers across
+// their passes, 217 registers a thread and 8 warps an SM; rolled, 96 and
+// 20 (5 CTAs of 12,544 B).  The TPU kernel screened the partitions as MXU
+// matmuls; here the screen loops over 32 uint16 membership masks in
+// __constant__ memory and sums the same moments in texel order, keeping the
+// top k with ties to the lowest partition.  The ten two-region modes'
+// scrambled bit layouts are one flat __constant__ table filled by the host
+// from the Python table (kernels/bc6h_tables.py), read by one packing loop.
 //
 // What bounds it: arithmetic.  A block reads 192 bytes and writes 16, but
-// runs up to 13 endpoint fits and 13 mode quantisations at quality 4.  The
-// texels in three forms (proxy, value, scale) take 144 registers, so each
-// stage is its own non-inlined function whose state lives in its frame
-// (local memory, cached in L1 where it spills).
+// runs up to 13 endpoint fits and 13 mode quantisations at quality 4, each
+// a 3-candidate index search per texel.
 //
 // Numerics, so that the kernel agrees with the plain version bit for bit:
 // every sum over texels runs in texel order; rounding is rintf (half to
-// even); 2^(e-25) is written into the float32 exponent field
-// (__int_as_float), not computed by exp2f; unquantisation and finalisation
-// are integer shifts on int; the build passes --fmad=false; division and
-// sqrtf stay IEEE.  Ties keep the first minimum (strict <, ascending).
+// even), the float-to-half conversion integer arithmetic; 2^(e-25) is
+// written into the float32 exponent field (__int_as_float), not computed by
+// exp2f; unquantisation and finalisation are integer shifts on int; the
+// build passes --fmad=false; division and sqrtf stay IEEE.  Ties keep the first minimum (strict <, ascending).
 //
 // The device functions are plain C++: the __global__ kernel and the
-// launchers need nvcc and sit under __CUDACC__.
+// launchers need nvcc and sit under __CUDACC__, and a CPU build runs a
+// group's lanes one after another (bc6h_cpu).
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace bc6h {
 
-constexpr int kThreads = 128;
 constexpr int kMaxSeeds = 6;
+constexpr int kGroup = 32;    // blocks a warp: one a lane
+constexpr int kWarps = 4;      // warps a CTA
+constexpr int kStride = 49;   // floats of a block's proxies in shared memory (48, odd)
+
+// The lanes of a warp.  On the card each lane runs the body once, and
+// WARP_SYNC orders the warp's shared memory between phases; in a CPU build
+// the 32 lanes run one after another.
+#ifdef __CUDACC__
+#define FOR_LANES(lane) for (int lane = (int)(threadIdx.x & 31u), lane##_once = 1; lane##_once; lane##_once = 0)
+#define WARP_SYNC() __syncwarp()
+#else
+#define FOR_LANES(lane) for (int lane = 0; lane < 32; ++lane)
+#define WARP_SYNC()
+#endif
 
 // Bit t of c_part32[p]: texel t lies in region 1 of BPTC partition p.
 __constant__ uint16_t c_part32[32];
@@ -88,13 +119,6 @@ __device__ __forceinline__ int w64(int k) {
 __device__ __forceinline__ float rt(const float (&x)[16]) {
   float s = x[0];
   for (int t = 1; t < 16; ++t) s += x[t];
-  return s;
-}
-
-__device__ __forceinline__ float rt_mul(const float (&a)[16],
-                                        const float (&b)[16]) {
-  float s = a[0] * b[0];
-  for (int t = 1; t < 16; ++t) s += a[t] * b[t];
   return s;
 }
 
@@ -179,6 +203,49 @@ __device__ __forceinline__ float proxy_scale(float b) {
   return a < 1024.0f ? 5.9604644775390625e-08f : p2;
 }
 
+// The IEEE binary16 bits of a float32, rounded to nearest even (subnormal
+// halves included, 65520 and above to infinity, NaN to 0x7E00), sign kept:
+// what torch's .to(torch.float16) gives, in integer arithmetic.
+__device__ __forceinline__ uint32_t half_bits(float f) {
+  uint32_t x;
+#ifdef __CUDACC__
+  x = __float_as_uint(f);
+#else
+  memcpy(&x, &f, 4);
+#endif
+  const uint32_t ax = x & 0x7FFFFFFFu;
+  uint32_t h;
+  if (ax > 0x7F800000u) {
+    h = 0x7E00u;
+  } else if (ax >= 0x477FF000u) {
+    h = 0x7C00u;
+  } else if (ax >= 0x38800000u) {  // a normal half: 2^-14 and above
+    h = (ax >> 13) - (112u << 10);
+    const uint32_t rem = ax & 0x1FFFu;
+    if (rem > 0x1000u || (rem == 0x1000u && (h & 1u))) ++h;
+  } else if (ax <= 0x33000000u) {  // at most 2^-25: rounds to 0
+    h = 0u;
+  } else {  // a subnormal half, m * 2^-24
+    const uint32_t m = (ax & 0x7FFFFFu) | 0x800000u;
+    const int sh = 126 - (int)(ax >> 23);  // 14 .. 24
+    h = m >> sh;
+    const uint32_t rem = m & ((1u << sh) - 1u), half = 1u << (sh - 1);
+    if (rem > half || (rem == half && (h & 1u))) ++h;
+  }
+  return ((x >> 16) & 0x8000u) | h;
+}
+
+// The half-bit proxy of a texel value (kernels/bc6h.py:_to_proxy): its
+// half's magnitude bits clamped to the largest finite half (0x7BFF),
+// negated where the half is negative (signed), else 0 there.
+template <bool S>
+__device__ __forceinline__ float to_proxy(float f) {
+  const uint32_t h = half_bits(f);
+  const int m = (int)(h & 0x7FFFu) < 0x7BFF ? (int)(h & 0x7FFFu) : 0x7BFF;
+  const bool neg = (h & 0x8000u) != 0u;
+  return (float)(S ? (neg ? -m : m) : (neg ? 0 : m));
+}
+
 // The best of round +/-1 of a proxy target under the exact decode model.
 template <bool S>
 __device__ __forceinline__ int quant(float e, int bits) {
@@ -202,65 +269,92 @@ __device__ __forceinline__ int quant(float e, int bits) {
   return best_q;
 }
 
-// Texels: proxy px, selection-domain value pxv, linearisation scale pxs.
+// A block's texels: its proxy rows px[c][t] in the warp's shared memory;
+// the selection-domain value pxv and the linearisation scale pxs are made
+// from the proxy where they are read.  The function needs them once a
+// texel: the counting build of chip_smoke.py defines TEXEL_FORM to leave
+// these repeats out of its count, and counts each texel's once.
+#ifndef TEXEL_FORM
+#define TEXEL_FORM(v) (v)
+#endif
+
 struct Texels {
-  float px[3][16], pxv[3][16], pxs[3][16];
+  const float (*px)[16];
+  bool code;
 };
 
+__device__ __forceinline__ float pxv(const Texels& x, int c, int t) {
+  return x.code ? x.px[c][t] : TEXEL_FORM(proxy_to_value(x.px[c][t]));
+}
+
+__device__ __forceinline__ float pxs(const Texels& x, int c, int t) {
+  return x.code ? 1.0f : TEXEL_FORM(proxy_scale(x.px[c][t]));
+}
+
+// The palette entry at index k: each channel's finalised value.
+template <bool S, int L>
+__device__ __forceinline__ void entry(const int (&u0)[3], const int (&u1)[3], int k,
+                                      float (&dec)[3]) {
+  const int w = w64<L>(k);
+  for (int c = 0; c < 3; ++c) dec[c] = decoded<S>(u0[c], u1[c], w);
+}
+
 // Index of one texel on the endpoint line: projection, then the best of
-// the 3 nearest indices by the linearised error.
+// the 3 nearest indices by the linearised error; dec gets its palette
+// entry.
 template <bool S, int L>
 __device__ __forceinline__ int nearest_index(const Texels& x, int t,
                                              const int (&u0)[3],
                                              const int (&u1)[3],
                                              const float (&lof)[3],
                                              const float (&dd)[3],
-                                             float denom) {
+                                             float denom, float (&dec)[3]) {
   float s = (x.px[0][t] - lof[0]) * dd[0];
   s += (x.px[1][t] - lof[1]) * dd[1];
   s += (x.px[2][t] - lof[2]) * dd[2];
   const float tt = clampf(s / denom, 0.0f, 1.0f);
   const int k = (int)clampf(rintf(tt * (float)(L - 1)), 0.0f, (float)(L - 1));
+  const float sc[3] = {pxs(x, 0, t), pxs(x, 1, t), pxs(x, 2, t)};
   int best_k = 0;
   float best_e = 0.0f;
   for (int dk = -1; dk <= 1; ++dk) {
     const int kk = clampi(k + dk, 0, L - 1);
-    const int w = w64<L>(kk);
-    float e = 0.0f;
+    float e = 0.0f, dv[3];
+    entry<S, L>(u0, u1, kk, dv);
     for (int c = 0; c < 3; ++c) {
-      const float d = (x.px[c][t] - decoded<S>(u0[c], u1[c], w)) * x.pxs[c][t];
+      const float d = (x.px[c][t] - dv[c]) * sc[c];
       e = c == 0 ? d * d : e + d * d;
     }
     if (dk == -1 || e < best_e) {
       best_k = kk;
       best_e = e;
+      for (int c = 0; c < 3; ++c) dec[c] = dv[c];
     }
   }
   return best_k;
 }
 
-// Exact selection-domain error of one texel at index k.
-template <bool S, int L>
-__device__ __forceinline__ float texel_error(const Texels& x, int t,
-                                             const int (&u0)[3],
-                                             const int (&u1)[3], int k,
+// Exact selection-domain error of one texel whose palette entry is dv.
+__device__ __forceinline__ float texel_error(const Texels& x, int t, const float (&dv)[3],
                                              bool code) {
-  const int w = w64<L>(k);
   float ev = 0.0f;
   for (int c = 0; c < 3; ++c) {
-    float dec = decoded<S>(u0[c], u1[c], w);
-    if (!code) dec = proxy_to_value(dec);
-    const float d = x.pxv[c][t] - dec;
+    const float dec = code ? dv[c] : proxy_to_value(dv[c]);
+    const float d = pxv(x, c, t) - dec;
     ev = c == 0 ? d * d : ev + d * d;
   }
   return ev;
 }
 
-// 16-level indices and the exact block error (bc6h_pallas.py:_assign_full).
+// Index of texel t in indices packed 4 bits a texel.
+__device__ __forceinline__ int idx_at(uint64_t idx, int t) { return (int)((idx >> (4 * t)) & 15u); }
+
+// 16-level indices (packed) and the exact block error
+// (bc6h_pallas.py:_assign_full).
 template <bool S>
 __device__ __forceinline__ float assign_full(const Texels& x, const int (&q0)[3],
                                              const int (&q1)[3], int bits,
-                                             bool code, int (&idx)[16]) {
+                                             bool code, uint64_t& idx) {
   int u0[3], u1[3];
   float lof[3], dd[3];
   for (int c = 0; c < 3; ++c) {
@@ -274,27 +368,51 @@ __device__ __forceinline__ float assign_full(const Texels& x, const int (&q0)[3]
   denom += dd[2] * dd[2];
   denom = denom + 1e-6f;
   float err = 0.0f;
+  idx = 0;
   for (int t = 0; t < 16; ++t) {
-    idx[t] = nearest_index<S, 16>(x, t, u0, u1, lof, dd, denom);
-    const float ev = texel_error<S, 16>(x, t, u0, u1, idx[t], code);
+    float dec[3];
+    const int k = nearest_index<S, 16>(x, t, u0, u1, lof, dd, denom, dec);
+    idx |= (uint64_t)k << (4 * t);
+    const float ev = texel_error(x, t, dec, code);
     err = t == 0 ? ev : err + ev;
   }
   return err;
 }
 
-// Principal-axis extremes of the masked texels, power iteration from
-// (1,1,1) (bc6h_pallas.py:_pca_seed).
-__device__ __forceinline__ void pca_seed(const float (*px)[16],
-                                         const float (&mask)[16],
+// The 0/1 mask value of texel t of a 16-bit mask.
+__device__ __forceinline__ float mask_at(uint32_t m, int t) { return ((m >> t) & 1u) ? 1.0f : 0.0f; }
+
+// Principal-axis extremes of the texels of mask m, power iteration from
+// (1,1,1) (bc6h_pallas.py:_pca_seed).  Each sum is its own left fold in
+// texel order, taken in one pass with the others; the centred texels are
+// made again where read.
+__device__ __forceinline__ void pca_seed(const float (*px)[16], uint32_t m,
                                          float (&hi)[3], float (&lo)[3]) {
-  const float cnt = rt(mask) + 1e-6f;
-  float mean[3], cent[3][16], cov[3][3];
-  for (int c = 0; c < 3; ++c) {
-    mean[c] = rt_mul(px[c], mask) / cnt;
-    for (int t = 0; t < 16; ++t) cent[c][t] = (px[c][t] - mean[c]) * mask[t];
+  float cnt = 0.0f, mean[3], cov[3][3];
+#pragma unroll 1
+  for (int t = 0; t < 16; ++t) {
+    const float mk = mask_at(m, t);
+    cnt = t == 0 ? mk : cnt + mk;
+    for (int c = 0; c < 3; ++c) {
+      const float y = px[c][t] * mk;
+      mean[c] = t == 0 ? y : mean[c] + y;
+    }
+  }
+  cnt = cnt + 1e-6f;
+  for (int c = 0; c < 3; ++c) mean[c] = mean[c] / cnt;
+#pragma unroll 1
+  for (int t = 0; t < 16; ++t) {
+    const float mk = mask_at(m, t);
+    float a[3];
+    for (int c = 0; c < 3; ++c) a[c] = (px[c][t] - mean[c]) * mk;
+    for (int c = 0; c < 3; ++c)
+      for (int d = c; d < 3; ++d) {
+        const float y = a[c] * a[d];
+        cov[c][d] = t == 0 ? y : cov[c][d] + y;
+      }
   }
   for (int c = 0; c < 3; ++c)
-    for (int d = 0; d < 3; ++d) cov[c][d] = rt_mul(cent[c], cent[d]);
+    for (int d = 0; d < c; ++d) cov[c][d] = cov[d][c];
   float v[3] = {1.0f, 1.0f, 1.0f};
   for (int it = 0; it < 3; ++it) {
     float nv[3];
@@ -312,11 +430,13 @@ __device__ __forceinline__ void pca_seed(const float (*px)[16],
       for (int c = 0; c < 3; ++c) v[c] = nv[c] / (nn + 1e-20f);
   }
   float tmax = -1e30f, tmin = 1e30f;
+#pragma unroll 1
   for (int t = 0; t < 16; ++t) {
-    float s = cent[0][t] * v[0];
-    s += cent[1][t] * v[1];
-    s += cent[2][t] * v[2];
-    if (mask[t] > 0.0f) {
+    const float mk = mask_at(m, t);
+    float s = ((px[0][t] - mean[0]) * mk) * v[0];
+    s += ((px[1][t] - mean[1]) * mk) * v[1];
+    s += ((px[2][t] - mean[2]) * mk) * v[2];
+    if (mk > 0.0f) {
       tmax = fmaxf(tmax, s);
       tmin = fminf(tmin, s);
     }
@@ -327,29 +447,35 @@ __device__ __forceinline__ void pca_seed(const float (*px)[16],
   }
 }
 
-// Least-squares endpoints for fixed weights (bc6h_pallas.py:_ls).
-__device__ __forceinline__ void ls(const float (*px)[16], const float (&w)[16],
-                                   const float (&mask)[16], float (&e1)[3],
-                                   float (&e0)[3]) {
-  float wv[16], uv[16], om[16];
+// Least-squares endpoints for fixed weights on the texels of mask m
+// (bc6h_pallas.py:_ls): every sum a left fold in texel order, in one pass.
+__device__ __forceinline__ void ls(const float (*px)[16], const float (&w)[16], uint32_t m,
+                                   float (&e1)[3], float (&e0)[3]) {
+  float a11 = 0.0f, a12 = 0.0f, a22 = 0.0f, cnt = 0.0f, b1[3], b0[3], sm[3];
+#pragma unroll 1
   for (int t = 0; t < 16; ++t) {
-    om[t] = 1.0f - w[t];
-    wv[t] = w[t] * mask[t];
-    uv[t] = om[t] * mask[t];
+    const float mk = mask_at(m, t);
+    const float om = 1.0f - w[t], wv = w[t] * mk, uv = om * mk;
+    const float x11 = wv * w[t], x12 = wv * om, x22 = uv * om;
+    a11 = t == 0 ? x11 : a11 + x11;
+    a12 = t == 0 ? x12 : a12 + x12;
+    a22 = t == 0 ? x22 : a22 + x22;
+    cnt = t == 0 ? mk : cnt + mk;
+    for (int c = 0; c < 3; ++c) {
+      const float y1 = wv * px[c][t], y0 = uv * px[c][t], ym = px[c][t] * mk;
+      b1[c] = t == 0 ? y1 : b1[c] + y1;
+      b0[c] = t == 0 ? y0 : b0[c] + y0;
+      sm[c] = t == 0 ? ym : sm[c] + ym;
+    }
   }
-  const float a11 = rt_mul(wv, w);
-  const float a12 = rt_mul(wv, om);
-  const float a22 = rt_mul(uv, om);
   const float det = a11 * a22 - a12 * a12;
   const bool ok = fabsf(det) > 1e-6f;
   const float safe = ok ? det : 1.0f;
-  const float cnt = rt(mask) + 1e-6f;
+  cnt = cnt + 1e-6f;
   for (int c = 0; c < 3; ++c) {
-    const float b1 = rt_mul(wv, px[c]);
-    const float b0 = rt_mul(uv, px[c]);
-    const float mean = rt_mul(px[c], mask) / cnt;
-    e1[c] = ok ? (a22 * b1 - a12 * b0) / safe : mean;
-    e0[c] = ok ? (a11 * b0 - a12 * b1) / safe : mean;
+    const float mean = sm[c] / cnt;
+    e1[c] = ok ? (a22 * b1[c] - a12 * b0[c]) / safe : mean;
+    e0[c] = ok ? (a11 * b0[c] - a12 * b1[c]) / safe : mean;
   }
 }
 
@@ -363,7 +489,7 @@ __device__ __forceinline__ float mode_candidate(const Texels& x,
                                                 const float (&e1)[3], int bits,
                                                 int delta_bits, bool code,
                                                 int (&q0)[3], int (&q1)[3],
-                                                int (&idx)[16]) {
+                                                uint64_t& idx) {
   for (int c = 0; c < 3; ++c) {
     q0[c] = quant<S>(e0[c], bits);
     q1[c] = quant<S>(e1[c], bits);
@@ -380,18 +506,18 @@ template <bool S>
 __device__ __noinline__ float one_region(const Texels& x, int bits,
                                          int delta_bits, int iters, bool code,
                                          Bits& out) {
-  float ones[16];
-  for (int t = 0; t < 16; ++t) ones[t] = 1.0f;
   float hi[3], lo[3];
-  pca_seed(x.px, ones, hi, lo);
-  int q0[3], q1[3], idx[16];
+  pca_seed(x.px, 0xFFFFu, hi, lo);
+  int q0[3], q1[3];
+  uint64_t idx;
   float err = mode_candidate<S>(x, hi, lo, bits, delta_bits, code, q0, q1, idx);
   for (int it = 0; it < iters; ++it) {
     float w[16];
-    for (int t = 0; t < 16; ++t) w[t] = (float)w64<16>(idx[t]) * (1.0f / 64.0f);
+    for (int t = 0; t < 16; ++t) w[t] = (float)w64<16>(idx_at(idx, t)) * (1.0f / 64.0f);
     float e1[3], e0[3];
-    ls(x.px, w, ones, e1, e0);
-    int c0[3], c1[3], cidx[16];
+    ls(x.px, w, 0xFFFFu, e1, e0);
+    int c0[3], c1[3];
+    uint64_t cidx;
     const float e = mode_candidate<S>(x, e0, e1, bits, delta_bits, code, c0, c1, cidx);
     if (e < err) {
       err = e;
@@ -399,11 +525,11 @@ __device__ __noinline__ float one_region(const Texels& x, int bits,
         q0[c] = c0[c];
         q1[c] = c1[c];
       }
-      for (int t = 0; t < 16; ++t) idx[t] = cidx[t];
+      idx = cidx;
     }
   }
   // Texel 0 anchors: a set index MSB swaps the endpoints.
-  const bool swap = idx[0] >= 8;
+  const bool swap = idx_at(idx, 0) >= 8;
   out.clear();
   out.put(delta_bits ? 0x07 : 0x03, 5);
   for (int c = 0; c < 3; ++c) out.put(swap ? q1[c] : q0[c], 10);
@@ -417,7 +543,7 @@ __device__ __noinline__ float one_region(const Texels& x, int bits,
       out.put(b, 10);
     }
   }
-  for (int t = 0; t < 16; ++t) out.put(swap ? 15 - idx[t] : idx[t], t ? 4 : 3);
+  for (int t = 0; t < 16; ++t) out.put(swap ? 15 - idx_at(idx, t) : idx_at(idx, t), t ? 4 : 3);
   return err;
 }
 
@@ -484,17 +610,17 @@ struct Regions {
   float e0[2][3], e1[2][3];
 };
 
-__device__ __forceinline__ float texel_line(const float (*px)[16],
-                                            const float (*pxs)[16],
-                                            const float (&m1)[16],
+__device__ __forceinline__ float texel_line(const Texels& x, uint32_t m1bits,
                                             const Regions& r, float (&w)[16]) {
+  const float (*px)[16] = x.px;
   float sse = 0.0f;
+#pragma unroll 1
   for (int t = 0; t < 16; ++t) {
-    const float m0 = 1.0f - m1[t];
+    const float m1 = mask_at(m1bits, t), m0 = 1.0f - m1;
     float e0t[3], dd[3];
     for (int c = 0; c < 3; ++c) {
-      e0t[c] = r.e0[0][c] * m0 + r.e0[1][c] * m1[t];
-      const float e1t = r.e1[0][c] * m0 + r.e1[1][c] * m1[t];
+      e0t[c] = r.e0[0][c] * m0 + r.e0[1][c] * m1;
+      const float e1t = r.e1[0][c] * m0 + r.e1[1][c] * m1;
       dd[c] = e1t - e0t[c];
     }
     float denom = dd[0] * dd[0];
@@ -507,8 +633,8 @@ __device__ __forceinline__ float texel_line(const float (*px)[16],
     w[t] = clampf(s / denom, 0.0f, 1.0f);
     float q = 0.0f;
     for (int c = 0; c < 3; ++c) {
-      const float x = (e0t[c] + w[t] * dd[c] - px[c][t]) * pxs[c][t];
-      q = c == 0 ? x * x : q + x * x;
+      const float y = (e0t[c] + w[t] * dd[c] - px[c][t]) * pxs(x, c, t);
+      q = c == 0 ? y * y : q + y * y;
     }
     sse = t == 0 ? q : sse + q;
   }
@@ -518,19 +644,15 @@ __device__ __forceinline__ float texel_line(const float (*px)[16],
 __device__ __noinline__ float fit_regions(const Texels& x, uint32_t m1bits,
                                           int anchor1, int iters,
                                           Regions& out) {
-  float mk[2][16];
-  for (int t = 0; t < 16; ++t) {
-    mk[1][t] = ((m1bits >> t) & 1u) ? 1.0f : 0.0f;
-    mk[0][t] = 1.0f - mk[1][t];
-  }
+  const uint32_t mk[2] = {~m1bits & 0xFFFFu, m1bits};
   Regions r;
   for (int p = 0; p < 2; ++p) pca_seed(x.px, mk[p], r.e1[p], r.e0[p]);
   float w[16];
-  float best_sse = texel_line(x.px, x.pxs, mk[1], r, w);
+  float best_sse = texel_line(x, m1bits, r, w);
   Regions best = r;
   for (int it = 0; it < iters - 1; ++it) {
     for (int p = 0; p < 2; ++p) ls(x.px, w, mk[p], r.e1[p], r.e0[p]);
-    const float sse = texel_line(x.px, x.pxs, mk[1], r, w);
+    const float sse = texel_line(x, m1bits, r, w);
     if (sse < best_sse) best = r;
     best_sse = fminf(sse, best_sse);
   }
@@ -604,14 +726,18 @@ __device__ __noinline__ float two_region(const Texels& x, uint32_t m1bits,
     dn += dd[p][2] * dd[p][2];
     denom[p] = dn + 1e-6f;
   }
-  int idx[16];
+  uint64_t idx = 0;
   float err = 0.0f;
   for (int t = 0; t < 16; ++t) {
     const int p = (m1bits >> t) & 1u;
-    int k = nearest_index<S, 8>(x, t, u[p][0], u[p][1], lof[p], dd[p], denom[p]);
-    if (t == 0 || t == anchor1) k = min(k, 3);
-    idx[t] = k;
-    const float ev = texel_error<S, 8>(x, t, u[p][0], u[p][1], k, code);
+    float dec[3];
+    int k = nearest_index<S, 8>(x, t, u[p][0], u[p][1], lof[p], dd[p], denom[p], dec);
+    if ((t == 0 || t == anchor1) && k > 3) {  // an anchor's index has 2 bits
+      k = 3;
+      entry<S, 8>(u[p][0], u[p][1], k, dec);
+    }
+    idx |= (uint64_t)k << (4 * t);
+    const float ev = texel_error(x, t, dec, code);
     err = t == 0 ? ev : err + ev;
   }
 
@@ -626,7 +752,7 @@ __device__ __noinline__ float two_region(const Texels& x, uint32_t m1bits,
   for (int i = 0; i < 5; ++i) out.set_bit(77 + i, ((uint32_t)part >> i) & 1u);
   out.pos = 82;
   for (int t = 0; t < 16; ++t)
-    out.put(idx[t], 3 - (t == 0 ? 1 : 0) - (t == anchor1 ? 1 : 0));
+    out.put(idx_at(idx, t), 3 - (t == 0 ? 1 : 0) - (t == anchor1 ? 1 : 0));
   return err;
 }
 
@@ -687,31 +813,61 @@ __device__ __forceinline__ void encode_block(const Texels& x, int quality,
   words[3] = (uint32_t)(best.hi >> 32);
 }
 
-__device__ __forceinline__ void load_texels(const float* proxy, bool code,
-                                            Texels& x) {
-  for (int t = 0; t < 16; ++t) {
-    for (int c = 0; c < 3; ++c) {
-      const float b = proxy[t * 3 + c];
-      x.px[c][t] = b;
-      x.pxv[c][t] = code ? b : proxy_to_value(b);
-      x.pxs[c][t] = code ? 1.0f : proxy_scale(b);
+// Blocks i0 .. i0 + ng - 1 (ng <= kGroup) of blocks [n,16,3] by one warp;
+// px: its kGroup * kStride floats of shared memory.  The texels are staged
+// as proxies by one coalesced copy, then lane b encodes block b.
+template <bool S>
+__device__ void encode_group(const float* blocks, long long i0, int ng, int quality, bool code,
+                             float* px, uint32_t* out) {
+  FOR_LANES(lane) {
+    const float* src = blocks + i0 * 48;
+    for (int x = lane; x < ng * 48; x += 32) {
+      const int b = x / 48, r = x - b * 48, t = r / 3;
+      px[b * kStride + (r - 3 * t) * 16 + t] = to_proxy<S>(src[x]);
     }
   }
+  WARP_SYNC();
+  FOR_LANES(lane) {
+    if (lane < ng) {
+      const Texels x = {(const float (*)[16])(px + lane * kStride), code};
+      uint32_t words[4];
+      encode_block<S>(x, quality, code, words);
+      for (int k = 0; k < 4; ++k) out[(i0 + lane) * 4 + k] = words[k];
+    }
+  }
+  WARP_SYNC();
 }
+
+#ifndef __CUDACC__
+
+// n blocks [n,16,3] -> words [n,4] on the CPU: groups of kGroup blocks, as
+// the card's warps take them, each group's lanes one after another.
+inline void bc6h_cpu(const float* blocks, uint32_t* out, int n, int quality, bool is_signed,
+                     bool code) {
+  static float px[kGroup * kStride];
+  for (long long i0 = 0; i0 < n; i0 += kGroup) {
+    const int ng = n - i0 < kGroup ? (int)(n - i0) : kGroup;
+    if (is_signed)
+      encode_group<true>(blocks, i0, ng, quality, code, px, out);
+    else
+      encode_group<false>(blocks, i0, ng, quality, code, px, out);
+  }
+}
+
+#endif  // !__CUDACC__
 
 #ifdef __CUDACC__
 
 template <bool S>
-__global__ void __launch_bounds__(kThreads)
-    bc6h_kernel(const float* __restrict__ proxy, uint4* __restrict__ out, int n,
+__global__ void __launch_bounds__(kWarps * 32)
+    bc6h_kernel(const float* __restrict__ blocks, uint32_t* __restrict__ out, int n,
                 int quality, int code) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Texels x;
-  load_texels(proxy + (size_t)i * 48, code != 0, x);
-  uint32_t words[4];
-  encode_block<S>(x, quality, code != 0, words);
-  out[i] = make_uint4(words[0], words[1], words[2], words[3]);
+  __shared__ float s_px[kWarps][kGroup * kStride];
+  const int warp = threadIdx.x >> 5;
+  const long long i0 = ((long long)blockIdx.x * kWarps + warp) * kGroup;
+  if (i0 >= n) return;
+  const int ng = n - i0 < kGroup ? (int)(n - i0) : kGroup;
+  encode_group<S>(blocks, i0, ng, quality, code != 0, s_px[warp], out);
 }
 
 #endif  // __CUDACC__
@@ -735,22 +891,23 @@ extern "C" int bc6h_set_tables(const uint16_t* masks, const int* anchors,
   return (int)e;
 }
 
-// proxy: [n,16,3] float32 device pointer (half-bit proxy of the texels);
-// out: [n,4] uint32.  Launches on `stream` and returns cudaGetLastError()
-// (the launch is not synchronised).
-extern "C" int bc6h_encode_launch(const void* proxy, void* out, int n,
+// blocks: [n,16,3] float32 device pointer (the texels; the kernel makes
+// their half-bit proxy); out: [n,4] uint32.  Launches on `stream` and
+// returns cudaGetLastError() (the launch is not synchronised).
+extern "C" int bc6h_encode_launch(const void* blocks, void* out, int n,
                                   int quality, int is_signed, int code,
                                   void* stream) {
   if (n <= 0) return 0;
   if (quality < 0 || quality > 4) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + bc6h::kThreads - 1) / bc6h::kThreads);
+  constexpr int per_cta = bc6h::kWarps * bc6h::kGroup;
+  const dim3 grid((n + per_cta - 1) / per_cta);
   cudaStream_t s = (cudaStream_t)stream;
-  const float* in = (const float*)proxy;
-  uint4* o = (uint4*)out;
+  const float* in = (const float*)blocks;
+  uint32_t* o = (uint32_t*)out;
   if (is_signed)
-    bc6h::bc6h_kernel<true><<<grid, bc6h::kThreads, 0, s>>>(in, o, n, quality, code);
+    bc6h::bc6h_kernel<true><<<grid, bc6h::kWarps * 32, 0, s>>>(in, o, n, quality, code);
   else
-    bc6h::bc6h_kernel<false><<<grid, bc6h::kThreads, 0, s>>>(in, o, n, quality, code);
+    bc6h::bc6h_kernel<false><<<grid, bc6h::kWarps * 32, 0, s>>>(in, o, n, quality, code);
   return (int)cudaGetLastError();
 }
 

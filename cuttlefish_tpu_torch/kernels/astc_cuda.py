@@ -6,9 +6,11 @@ the host, one int32 array per (block size, quality, gray, alpha): a header
 of the plan's depths and of offsets, one record per layout (its fields,
 ISE ranges and the offsets of its quantisation tables), the task lists of
 the four kernels, the colour and weight LUTs, the trit/quint pack tables,
-each decimated grid's C.2.18 infill, pseudo-inverse (float32 bits) and
-footprint, and the partition patterns as texel bitmasks (distinct 2- and
-3-partition patterns with their seed ids, all 1024 4-partition seeds).
+each decimated grid's pseudo-inverse (float32 bits) and the non-zero
+terms of its C.2.18 infill (at most four a texel; a grid point's
+footprint is the texels whose terms name it), and the partition patterns
+as texel bitmasks (distinct 2- and 3-partition patterns with their seed
+ids, all 1024 4-partition seeds).
 It is uploaded once per device and configuration.
 
 Four entries, one per TPU kernel: ``astc_a`` .. ``astc_d``.  Each checks
@@ -16,11 +18,11 @@ device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, launches on the current stream, raises on a non-zero
 launch status and counts its launches in ``launches``.  The launcher also
 reads the host copy of the descriptor's header: it picks the template
-instance of the block's texel class and, for ``astc_b``, ``astc_c`` and
-``astc_d`` (a warp per group of blocks), the group size and the dynamic
-shared memory.  ``astc_b`` runs a thread per block at 4x4 and a warp per
-group above, where it keeps its blocks' texels in a device scratch tensor
-that the wrapper allocates.
+instance of the block's texel class, the group size and the dynamic shared
+memory (``astc_a``: a CTA per 32 blocks, a warp per task; ``astc_b``,
+``astc_c`` and ``astc_d``: a warp per group of blocks).  ``astc_b`` runs a
+thread per block at 4x4 and a warp per group above, where it keeps its
+blocks' texels in a device scratch tensor that the wrapper allocates.
 ``encode_astc_cuda`` runs the entries that ``encode_astc_pallas`` runs and
 merges their words as it does.  The library is built on first use
 (``kernels/_build.py``).
@@ -97,6 +99,18 @@ def _masks(rows: np.ndarray, parts, nw: int) -> np.ndarray:
     return out.view(np.int32)
 
 
+def _infill_terms(a: np.ndarray) -> np.ndarray:
+    """[T,G] infill weights (16ths) -> [T,4] int32 non-zero terms of each
+    row, ``j | weight << 8`` in ascending j, padded with 0 (weight 0)."""
+    out = np.zeros((a.shape[0], 4), np.int32)
+    for t, row in enumerate(a.astype(np.int64)):
+        nz = np.nonzero(row)[0]
+        if len(nz) > 4 or a.shape[1] > 256:
+            raise ValueError("an infill row has more than 4 terms or the grid 256 points")
+        out[t, :len(nz)] = nz | (row[nz] << 8)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def descriptor(bw: int, bh: int, quality: int, gray: bool, alpha: bool) -> np.ndarray:
     """The kernel's int32 descriptor table (see the module docstring)."""
@@ -125,10 +139,9 @@ def descriptor(bw: int, bh: int, quality: int, gray: bool, alpha: bool) -> np.nd
         if prep is None:
             return -1
         if key not in grids:
-            a, pinv, foot = prep
-            off = put(a.astype(np.int32))
-            put(_f32_bits(pinv))
-            put(foot.astype(np.int32))
+            a, pinv, _ = prep
+            off = put(_f32_bits(pinv))
+            put(_infill_terms(a))
             grids[key] = off
         return grids[key]
 
@@ -235,19 +248,20 @@ def _lib() -> ctypes.CDLL:
 
 
 def warp_plan(stage, bw, bh, quality, gray=True, alpha=True) -> dict:
-    """How entry ``"b"``, ``"c"`` or ``"d"`` launches for this
-    configuration: blocks a warp (``group``), dynamic shared memory a CTA
-    (``smem_bytes``), of it the staged pattern masks (``mask_bytes``), and
-    the device memory a block takes for its texels outside shared memory
-    (``scratch_bytes``, 0 where they stay in shared memory); all 0 where the
-    entry runs a thread per block (``"b"`` at 4x4)."""
-    if stage not in ("b", "c", "d"):
-        raise ValueError(f"only entries b, c and d run a warp per group, not {stage!r}")
-    out = (ctypes.c_int * 4)()
+    """How entry ``"a"`` .. ``"d"`` launches for this configuration: blocks
+    a warp (``group``; entry A: a CTA), warps a CTA (``warps``), dynamic
+    shared memory a CTA (``smem_bytes``), of it the staged pattern masks
+    (``mask_bytes``), and the device memory a block takes for its texels
+    outside shared memory (``scratch_bytes``, 0 where they stay in shared
+    memory); all 0 where the entry runs a thread per block (``"b"`` at
+    4x4)."""
+    if stage not in ("a", "b", "c", "d"):
+        raise ValueError(f"no ASTC entry {stage!r}")
+    out = (ctypes.c_int * 5)()
     host = descriptor(int(bw), int(bh), int(quality), bool(gray), bool(alpha))
     _lib().astc_warp_plan("abcd".index(stage), host.ctypes.data, out)
     return {"group": out[0], "smem_bytes": out[1], "mask_bytes": out[2],
-            "scratch_bytes": out[3]}
+            "scratch_bytes": out[3], "warps": out[4]}
 
 
 def _check(blocks: torch.Tensor, t_count: int) -> None:

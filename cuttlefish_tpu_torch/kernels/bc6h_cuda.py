@@ -1,9 +1,9 @@
 """ctypes wrapper of the hand-written BC6H kernel (``csrc/bc6h_encode.cu``).
 
-The wrapper turns the texels into the half-bit proxy with the plain
-version's own torch ops (``bc6h._to_proxy``) on the card and hands the
-proxy to the kernel.  ``launches`` counts kernel launches; it moves only
-where the kernel is launched.  The library is built on first use
+The kernel reads the [N,16,3] float32 texels and makes their half-bit
+proxy itself (the plain version's ``bc6h._to_proxy``, in integer
+arithmetic).  ``launches`` counts kernel launches; it moves only where the
+kernel is launched.  The library is built on first use
 (``kernels/_build.py``).
 """
 
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from cuttlefish_tpu_torch.kernels import _build
-from cuttlefish_tpu_torch.kernels.bc6h import _to_proxy, layout_table
+from cuttlefish_tpu_torch.kernels.bc6h import layout_table
 from cuttlefish_tpu_torch.kernels.bc7 import _texel_bits
 from cuttlefish_tpu_torch.kernels.bc7_cuda import check_blocks
 from cuttlefish_tpu_torch.kernels.bc7_tables import ANCHOR2, PARTITION2
@@ -80,11 +80,10 @@ def encode_bc6h_cuda(
         return out
     lib = _lib()
     _set_tables(lib, device)
-    proxy = _to_proxy(blocks, signed).contiguous()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.bc6h_encode_launch(
-            proxy.data_ptr(), out.data_ptr(), n, quality, int(signed),
+            blocks.data_ptr(), out.data_ptr(), n, quality, int(signed),
             int(metric == "code"), stream,
         )
     if rc != 0:

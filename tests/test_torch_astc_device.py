@@ -12,7 +12,11 @@ and errors must equal the plain version's at 4x4 and 8x8 q4 (block counts
 that leave the last group short), on blocks whose screen estimates tie,
 and the warp's merged top-k must be the sequential scan's.  B runs the
 warp body above 4x4 (its texels in device memory) and a thread per block
-at 4x4: both at the qualities whose plans differ.
+at 4x4: both at the qualities whose plans differ.  Entry A runs as the
+card runs it, a CTA per 32 blocks with a warp per task (``FOR_WARPS`` and
+``FOR_LANES`` loops here): its words and errors must equal the plain
+version's at 4x4, 8x8 and 12x12 on colour and partly near-gray blocks,
+with a short last group, and on blocks whose candidates tie.
 """
 
 import shutil
@@ -120,6 +124,35 @@ def test_entry_b_on_tied_estimates_at_4x4(count_ops, q):
     """Entry B at 4x4 q1/q2 on blocks whose estimates tie: the lowest pattern
     first."""
     _same_as_plain(count_ops, "b", np.concatenate([_tie_blocks(16)] * 3), 4, 4, q)
+
+
+def _mixed_blocks(n: int, t: int) -> np.ndarray:
+    """Colour blocks with alpha, every third one near-gray: the gray tasks
+    run on some lanes of a group only."""
+    b = astc_blocks(n, t, "alpha", seed=17)
+    b[::3] = astc_blocks(n, t, "gray_alpha", seed=19)[::3]
+    return b
+
+
+# Entry A's CTA body (a warp per task, the group's 32 blocks staged at an
+# odd stride, the warps' bests merged in body_a's order) on colour blocks
+# and on colour mixed with near-gray alpha blocks; 45 and 37 blocks leave
+# the last group short.
+@pytest.mark.parametrize("kind", ["color", "mixed"])
+@pytest.mark.parametrize("case", [(4, 2, 45), (4, 4, 37), (8, 2, 37), (12, 2, 37)],
+                         ids=["4x4_q2", "4x4_q4", "8x8_q2", "12x12_q2"])
+def test_entry_a_equals_plain_version(count_ops, case, kind):
+    bw, q, n = case
+    t = bw * bw
+    b = astc_blocks(n, t, "color", seed=15) if kind == "color" else _mixed_blocks(n, t)
+    assert astc_tables.has_gray_blocks(b) == (kind == "mixed")
+    _same_as_plain(count_ops, "a", b, bw, bw, q)
+
+
+def test_entry_a_on_tied_errors(count_ops):
+    """Flat and striped near-gray blocks, whose candidates tie: the first of
+    least error in body_a's order, whichever warp ran it."""
+    _same_as_plain(count_ops, "a", np.concatenate([_tie_blocks(16)] * 3), 4, 4, 4)
 
 
 # (patterns, k, estimates drawn from): many ties, infinities (invalid

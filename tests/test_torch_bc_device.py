@@ -6,7 +6,9 @@ device code of ``csrc/bc7_encode.cu``, ``bc7_hq_encode.cu``,
 counting float type (``bc_op_counter``).  That build must give the plain
 version's words bit for bit: here on seeded blocks (flat, two-tone,
 gradients, random) through the wire each converter uses, for every row
-the smoke run counts.
+the smoke run counts.  The BC7 q3-4 and BC6H builds run the card's warp
+bodies (a warp per 32 blocks, its lanes one after another), BC6H with the
+half-bit proxy made in the kernel.
 """
 
 import shutil
@@ -137,3 +139,65 @@ def test_bc7_hq_warp_body_equals_plain_version(count_bc, quality, perceptual, bl
     _, words = count_bc(f"bc7_q{quality}", x.numpy(), chw=np.asarray(consts.chw, np.float32))
     want = bc7.encode_bc7_plain(x, quality, consts).numpy()
     assert np.array_equal(words, want), (quality, perceptual, blocks)
+
+
+def _hdr(n: int, signed: bool) -> torch.Tensor:
+    """[n,16,3] HDR blocks through the f16 wire, 2^-14 .. 2^10 times the
+    seeded blocks; signed: about a third of the values negative."""
+    b = _blocks(n) * np.exp2(np.linspace(-14, 10, n, dtype=np.float32))[:, None, None]
+    if signed:
+        b = b * np.where(np.random.default_rng(4).random(b.shape) < 0.3, -1.0, 1.0)
+    return dequant(wire(b.astype(np.float32), "f16"))[..., :3].contiguous()
+
+
+# 45 blocks: a group of 32 and one of 13.
+@pytest.mark.parametrize("metric", ["value", "code"])
+@pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
+@pytest.mark.parametrize("quality", [2, 4], ids=["q2", "q4"])
+def test_bc6h_warp_body_equals_plain_version(count_bc, quality, signed, metric):
+    x = _hdr(45, signed)
+    row = f"bc6h{'s' if signed else ''}_q{quality}{'_code' if metric == 'code' else ''}"
+    _, words = count_bc(row, x.numpy())
+    want = bc6h.encode_bc6h_plain(x, quality, signed, metric).numpy()
+    assert np.array_equal(words, want), row
+
+
+@pytest.mark.parametrize("row", ["bc6h_q2", "bc6h_q4", "bc6hs_q4", "bc6h_q2_code"])
+def test_bc6h_needed_count_makes_value_and_scale_once(count_bc, row):
+    """The BC6H bound counts each texel's value and scale once, as the
+    function needs them; the device code makes them at every read.  So
+    under the value metric the needed count is below the device code's,
+    by at least the second making of each texel's pair; under the code
+    metric, which reads the proxy itself, the two are equal.  The words
+    are the same either way."""
+    x = _hdr(45, row.startswith("bc6hs")).numpy()
+    needed, words = count_bc(row, x)
+    device, device_words = count_bc(row, x, device=True)
+    assert np.array_equal(words, device_words), row
+    if row.endswith("_code"):
+        assert needed == device, row
+    else:
+        # A pair costs at least 5 operations (|b|, the segment's floor and
+        # min, the compare, a product): each texel's 48 pairs made twice.
+        assert needed + 48 * 5 <= device, (row, needed, device)
+
+
+def test_bc6h_in_kernel_proxy_equals_to_proxy(count_bc):
+    """The kernel's float-to-half proxy against the plain version's torch
+    ops on the values where rounding is delicate: +-0, subnormal halves and
+    the ties between them, the smallest normal half, 65504 and the values
+    about it that round down or to infinity, infinities, huge values, and
+    negatives (0 when unsigned); then seeded values over the whole range."""
+    f = np.float32
+    tiny = [0.0, -0.0, 2.0**-26, 2.0**-25, 1.5 * 2.0**-25, 2.0**-24, 1.5 * 2.0**-24,
+            2.5 * 2.0**-24, 3 * 2.0**-24, 1023.5 * 2.0**-24, 2.0**-14 - 2.0**-26, 2.0**-14,
+            1.0, 1.0 + 2.0**-11, 1.0 + 3 * 2.0**-11, 65504.0, 65519.0, 65519.99, 65520.0, 65536.0,
+            1e6, 3.0e38, np.inf]
+    v = np.array(tiny + [-x for x in tiny], f)
+    rng = np.random.default_rng(6)
+    v = np.concatenate([v, (rng.standard_normal(4000) * np.exp2(rng.uniform(-30, 18, 4000)))
+                        .astype(f)])
+    for signed in (False, True):
+        want = bc6h._to_proxy(torch.from_numpy(v), signed).numpy()
+        got = count_bc.proxy(v, signed)
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), signed

@@ -82,7 +82,7 @@ def test_hq_kernel_matches_plain_on_card(cuda, quality, perceptual):
 @pytest.mark.gpu
 @pytest.mark.parametrize("quality", [3, 4])
 def test_hq_kernel_at_group_edges(cuda, quality):
-    """BC7 q3-4 runs a warp per 32 blocks, 2 warps a CTA: counts that leave
+    """BC7 q3-4 runs a warp per 32 blocks, 4 warps a CTA: counts that leave
     a warp or a CTA part-filled give the plain version's words, and a view
     off a 16-byte boundary is copied before the launch."""
     x = torch.from_numpy(_blocks(300, seed=4)).to(cuda)
@@ -124,6 +124,31 @@ def test_bc6h_kernel_matches_plain_on_card(cuda, quality, signed, metric):
     k, p = k.cpu().numpy(), p.cpu().numpy()
     assert k.dtype == np.uint32 and k.shape == (2048, 4)
     assert np.all(k == p, axis=1).mean() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "quality,signed,metric",
+    [(2, False, "value"), (4, False, "value"), (2, True, "value"), (4, True, "value"),
+     (2, False, "code"), (4, True, "code")],
+)
+def test_bc6h_warp_kernel_at_group_edges(cuda, quality, signed, metric):
+    """BC6H runs a warp per 32 blocks, 4 warps a CTA, and makes the proxy
+    itself: ragged batches (one block, a short last group, a part-filled
+    CTA, and 300) and edge values (+-0, subnormal halves, 65504, values
+    that round to infinity, negatives) give the plain version's words."""
+    b = _hdr(300, signed)
+    edge = np.float32([0.0, -0.0, 2.0**-24, 1.5 * 2.0**-24, 2.0**-14, 65504.0, 65520.0, 1e6,
+                       -3.0, -65520.0, 0.5, -2.0**-20])
+    b[7] = np.resize(edge, (16, 3))
+    x = torch.from_numpy(b).to(cuda)
+    for n in (1, 31, 33, 300):
+        before = bc6h_cuda.launches
+        k = bc6h.encode_bc6h(x[:n], quality, signed, metric)
+        torch.cuda.synchronize()
+        assert bc6h_cuda.launches == before + 1
+        p = bc6h.encode_bc6h_plain(x[:n], quality, signed, metric)
+        assert torch.equal(k.view(torch.int32).cpu(), p.view(torch.int32).cpu()), n
 
 
 @pytest.mark.gpu
@@ -421,6 +446,32 @@ def test_astc_warp_entries_launch_shapes(cuda, bw):
             assert torch.equal(ek.cpu(), ep.cpu()), (stage, m)
         wk, ek = astc_cuda.stage_cuda(stage, x[:0], bw, bw, 4, gray, alpha)
         assert tuple(wk.shape) == (0, 4) and tuple(ek.shape) == (0,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(4, 2, "color"), (4, 4, "gray_alpha"), (8, 2, "color"),
+                                  (12, 2, "gray_alpha")],
+                         ids=["4x4_q2", "4x4_q4_gray_alpha", "8x8_q2", "12x12_q2_gray_alpha"])
+def test_astc_entry_a_at_group_edges(cuda, case):
+    """Entry A runs a CTA per 32 blocks, a warp per task (the gray tasks on
+    near-gray blocks only), its texels staged in shared memory (above 48 KB
+    at 12x12): ragged batches give the plain version's words and errors."""
+    bw, q, kind = case
+    b = _astc_input(bw, bw, kind, 300)
+    gray, alpha = astc_tables.has_gray_blocks(b), astc_tables.has_alpha_blocks(b)
+    plan = astc_cuda.warp_plan("a", bw, bw, q, gray, alpha)
+    assert plan["group"] == 32 and 1 <= plan["warps"] <= 8
+    if bw == 12:
+        assert plan["smem_bytes"] > 48 * 1024
+    x = torch.from_numpy(b).to(cuda)
+    for n in (1, 31, 33, 300):
+        before = astc_cuda.launches["astc_a"]
+        wk, ek = astc_cuda.stage_cuda("a", x[:n], bw, bw, q, gray, alpha)
+        torch.cuda.synchronize()
+        assert astc_cuda.launches["astc_a"] == before + 1
+        wp, ep = astc.stage_plain("a", x[:n], bw, bw, q, gray, alpha)
+        assert torch.equal(wk.view(torch.int32).cpu(), wp.view(torch.int32).cpu()), n
+        assert torch.equal(ek.view(torch.int32).cpu(), ep.view(torch.int32).cpu()), n
 
 
 @pytest.mark.gpu

@@ -228,9 +228,10 @@ def test_astc_descriptor_holds_reference_tables(case):
     """The descriptor that the ASTC kernel loops over (astc_cuda.descriptor)
     holds the JAX package's plan, its kernels' task lists (layout fields,
     ISE ranges, block modes), the colour and weight LUTs, each decimated
-    grid's infill, pseudo-inverse (float32 bits) and footprint, the
-    partition patterns as texel bitmasks with their seeds, and the trit
-    and quint pack tables."""
+    grid's pseudo-inverse (float32 bits) and its infill as the non-zero
+    terms of each texel's row (whose support is the reference footprint),
+    the partition patterns as texel bitmasks with their seeds, and the
+    trit and quint pack tables."""
     from cuttlefish_tpu.kernels import astc as jastc
     from cuttlefish_tpu.kernels import astc_ise as jise
     from cuttlefish_tpu.kernels import astc_pallas as jp
@@ -277,9 +278,13 @@ def test_astc_descriptor_holds_reference_tables(case):
         if grid is not None:
             g, off = lay.gw * lay.gh, r[L["OFF_GRID"]]
             a, pinv, foot = grid
-            assert np.array_equal(d[off:off + t * g], a.reshape(-1).astype(np.int32))
-            assert np.array_equal(d[off + t * g:off + 2 * t * g], pinv.reshape(-1).view(np.int32))
-            assert np.array_equal(d[off + 2 * t * g:off + 3 * t * g], foot.reshape(-1).astype(np.int32))
+            assert np.array_equal(d[off:off + t * g], pinv.reshape(-1).view(np.int32))
+            terms = d[off + t * g:off + t * g + 4 * t].reshape(t, 4)
+            dense = np.zeros((t, g), np.int64)
+            for k in range(4):  # j | weight << 8, weight 0 for none
+                np.add.at(dense, (np.arange(t), terms[:, k] & 0xFF), terms[:, k] >> 8)
+            assert np.array_equal(dense, a.astype(np.int64))
+            assert np.array_equal(np.asarray(foot) > 0, (a > 0).T)
 
     base, gray_t = jp._tasks_a(bw, bh, q, gray, alpha)
     for key_n, key_off, tasks in (("NA", "OFF_A", base), ("NAG", "OFF_AG", gray_t)):
