@@ -14,8 +14,8 @@ exits non-zero:
    and power limit (nvidia-smi), torch and CUDA versions; TF32 off.
 2. build: one nvcc per csrc/*.cu for sm_90a, all started together, and the
    native codecs with g++; prints the seconds and what ptxas reports
-   (registers, spills) for every kernel entry, a line per BC7 q3-4, BC6H,
-   ASTC and ETC entry (registers, stack, spills, shared memory), the
+   (registers, spills) for every kernel entry, a line per BC1-BC5, BC7,
+   BC6H, ASTC and ETC entry (registers, stack, spills, shared memory), the
    warps and dynamic shared memory a CTA of ASTC entry A, the dynamic
    shared memory and blocks a warp of ASTC entries B, C and D and the
    shared memory a CTA of the BC7 q3-4, BC6H and the ETC RGB and RGBA8
@@ -72,7 +72,9 @@ exits non-zero:
    names goes through the earlier build too (the earlier tree's wrapper
    module, kernels/<name>_cuda.py, bound to it), timed in
    turns with this tree's (earlier, this, this, earlier), words identical
-   (for astc_encode.cu: every ASTC entry case, words and errors).
+   (for astc_encode.cu: every ASTC entry case, words and errors).  The BC1,
+   BC2, BC3 and BC7 q2 rows print their counted operations beside those of
+   the earlier thread-per-block kernels on the same blocks (EARLIER_OPS).
 
 Then one JSON line of kernels (launches from the paths of phase 4; bound_ms
 from this run's inputs: the larger of the bytes the function must move over
@@ -289,6 +291,7 @@ COUNT_PRELUDE = r"""
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
+#include <vector>
 #define __device__
 #define __host__
 #define __forceinline__ inline
@@ -460,6 +463,18 @@ def smem_bytes(entry_line: str) -> int:
     return int(entry_line.rsplit("static shared memory", 1)[1].split("bytes")[0])
 
 
+# Float operations per block of the earlier thread-per-block kernels'
+# device code (commit 8f071ae) on the same 1,024 blocks, counted by this
+# script's bc_op_counter then, and what has left it since.
+EARLIER_OPS = {
+    "bc1_q2": (34805, "each texel's distance to black made once a block, not per 3-colour "
+               "candidate; the sweep's two unchanged channels' terms made once per texel for a "
+               "channel's 8 candidates, not per candidate"),
+    "bc2_q2": (31830, "the sweep's unchanged channels' terms, as BC1's"),
+    "bc3_q2": (36632, "the sweep's unchanged channels' terms, as BC1's"),
+    "bc7_q2": (26891, "mode 1's subset-0 mask made from its bits, not as 1 - m"),
+}
+
 # Code before a source's #include in its counting build.
 BC_COUNT_PRE = {
     # BC6H makes a texel's value and scale where it reads them (TEXEL_FORM):
@@ -488,21 +503,12 @@ extern "C" void set_tables(const uint16_t* m2, const int* a2, const uint16_t*, c
   memcpy(bc7::c_part2, m2, sizeof bc7::c_part2);
   memcpy(bc7::c_anchor2, a2, sizeof bc7::c_anchor2);
 }
+// The warp body the card runs, its lanes one after another.
 extern "C" unsigned long long count(const float* blocks, int n, int q, const float* chw,
                                     uint32_t* out) {
   g_ops = 0;
   const CF w[4] = {chw[0], chw[1], chw[2], chw[3]};
-  for (int i = 0; i < n; ++i) {
-    CF px[4][16];
-    for (int t = 0; t < 16; ++t)
-      for (int c = 0; c < 4; ++c)
-        px[c][t] = bc7::clampf(CF(blocks[(i * 16 + t) * 4 + c]), 0.0f, 1.0f) * 255.0f;
-    uint32_t words[4];
-    if (q == 0) bc7::encode_block<0>(px, w, words);
-    else if (q == 1) bc7::encode_block<1>(px, w, words);
-    else bc7::encode_block<2>(px, w, words);
-    memcpy(out + 4 * i, words, 16);
-  }
+  bc7::bc7_cpu((const CF*)blocks, out, n, q, w);
   return g_ops;
 }
 """,
@@ -523,40 +529,61 @@ extern "C" unsigned long long count(const float* blocks, int n, int q, const flo
 }
 """,
     "bc_encode": r"""
-// kind 1..5 = BC1 (opaque, black allowed), BC2, BC3, BC4 unsigned, BC5
-// signed, at quality 2; blocks [n,16,4] (BC4: [n,16]).
-extern "C" unsigned long long count(const float* blocks, int n, int kind, const float* chw,
+// BC1 (kind 1: black allowed, or with punch-through), BC2 and BC3 through
+// the CTA body the card runs (its texels staged, then its threads one after
+// another); BC4 unsigned, BC5 signed and BC4 signed (kinds 4, 5, 6) a block
+// at a time.
+// arg = kind | quality << 4 | punch-through << 8; blocks [n,16,4] (BC4:
+// [n,16]); out [n,4].
+template <int KIND, int Q, bool PUNCH, bool UW>
+static void cta(const float* blocks, int n, const CF* w, uint32_t* out) {
+  constexpr int nw = KIND == 1 ? 2 : 4;
+  std::vector<uint32_t> o((size_t)n * nw);
+  bcx::bc_cpu<KIND, Q, PUNCH, KIND == 1 && !PUNCH, UW>((const CF*)blocks, o.data(), n, w);
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j < nw; ++j) out[4 * i + j] = o[nw * i + j];
+}
+extern "C" unsigned long long count(const float* blocks, int n, int arg, const float* chw,
                                     uint32_t* out) {
   g_ops = 0;
   const CF w[3] = {chw[0], chw[1], chw[2]};
-  for (int i = 0; i < n; ++i) {
-    CF px[3][16], a[16], g[16];
-    for (int t = 0; t < 16; ++t) {
-      const float* v = kind == 4 ? blocks + i * 16 + t : blocks + (i * 16 + t) * 4;
-      for (int c = 0; c < 3; ++c) px[c][t] = CF(kind == 4 ? 0.0f : v[c]);
-      a[t] = CF(kind == 4 ? v[0] : v[3]);
-      g[t] = CF(kind == 4 ? 0.0f : v[1]);
+  const int kind = arg & 15, q = (arg >> 4) & 15, punch = (arg >> 8) & 1;
+  const bool unit = chw[0] == 1.0f && chw[1] == 1.0f && chw[2] == 1.0f;
+  if (kind == 1 && unit && !punch) {
+    if (q == 0) cta<1, 0, false, true>(blocks, n, w, out);
+    else if (q == 1) cta<1, 1, false, true>(blocks, n, w, out);
+    else if (q == 2) cta<1, 2, false, true>(blocks, n, w, out);
+    else if (q == 3) cta<1, 3, false, true>(blocks, n, w, out);
+    else cta<1, 4, false, true>(blocks, n, w, out);
+  } else if (kind == 1 && !unit && !punch && q == 2) {
+    cta<1, 2, false, false>(blocks, n, w, out);
+  } else if (kind == 1 && unit && punch && q == 2) {
+    cta<1, 2, true, true>(blocks, n, w, out);
+  } else if (kind == 2 && unit && q == 2) {
+    cta<2, 2, false, true>(blocks, n, w, out);
+  } else if (kind == 3 && unit && q == 2) {
+    cta<3, 2, false, true>(blocks, n, w, out);
+  } else if (kind >= 4 && q == 2) {
+    for (int i = 0; i < n; ++i) {
+      CF r[16], g[16];
+      uint32_t x[2], y[2] = {0u, 0u};
+      for (int t = 0; t < 16; ++t) {
+        r[t] = CF(kind != 5 ? blocks[i * 16 + t] : blocks[(i * 16 + t) * 4]);
+        g[t] = CF(kind != 5 ? 0.0f : blocks[(i * 16 + t) * 4 + 1]);
+      }
+      if (kind == 4) {
+        bcx::bc4_block<2, false>(r, x);
+      } else if (kind == 6) {
+        bcx::bc4_block<2, true>(r, x);
+      } else {
+        bcx::bc4_block<2, true>(r, x);
+        bcx::bc4_block<2, true>(g, y);
+      }
+      const uint32_t o[4] = {x[0], x[1], y[0], y[1]};
+      memcpy(out + 4 * i, o, 16);
     }
-    uint32_t o[4] = {0u, 0u, 0u, 0u}, x[2], y[2];
-    if (kind == 1) {
-      bcx::bc1_block<2, false, true>(px, 0xFFFFu, w, x);
-      o[0] = x[0], o[1] = x[1];
-    } else if (kind == 2 || kind == 3) {
-      if (kind == 2) bcx::bc2_alpha(a, x);
-      else bcx::bc4_block<2, false>(a, x);
-      bcx::bc1_block<2, false, false>(px, 0xFFFFu, w, y);
-      o[0] = x[0], o[1] = x[1], o[2] = y[0], o[3] = y[1];
-    } else if (kind == 4) {
-      bcx::bc4_block<2, false>(a, x);
-      o[0] = x[0], o[1] = x[1];
-    } else {
-      CF r[16];
-      for (int t = 0; t < 16; ++t) r[t] = px[0][t];
-      bcx::bc4_block<2, true>(r, x);
-      bcx::bc4_block<2, true>(g, y);
-      o[0] = x[0], o[1] = x[1], o[2] = y[0], o[3] = y[1];
-    }
-    memcpy(out + 4 * i, o, 16);
+  } else {
+    abort();  // no such instance in this build
   }
   return g_ops;
 }
@@ -601,14 +628,15 @@ extern "C" void proxy(const float* in, int n, int is_signed, float* out) {
 
 def bc_op_counter(csrc: str, tmp: str):
     """-> count(row, host input, chw=None, device=False): (float operations
-    per block, the device code's words [n, 4]) for the rows bc7_q2, bc7_q3,
-    bc7_q4, bc1_q2, bc2_q2, bc3_q2, bc4_q2, bc5s_q2, and BC6H's
+    per block, the device code's words [n, 4]) for the rows bc7_q0 .. bc7_q4,
+    bc1_q0 .. bc1_q4 (black allowed), bc1_q2_punch, bc2_q2, bc3_q2, bc4_q2,
+    bc4s_q2, bc5s_q2, and BC6H's
     bc6h[s]_q{2,4}[_code] (s: signed; _code: the code metric) (BC4: [n,16]
     values; BC6H: [n,16,3] RGB through the f16 wire; the others [n,16,4]
     RGBA); chw: other channel weights than the row's (BC7: the perceptual
-    ones).  BC6H counts each texel's value and scale once, as the function
-    needs them, or with device=True at every read, as its device code makes
-    them.  count.proxy(values, signed): the BC6H kernel's half-bit proxy of
+    ones; BC1 at q2: any, through the weighted instance).  BC6H counts each
+    texel's value and scale once, as the function needs them, or with
+    device=True at every read, as its device code makes them.  count.proxy(values, signed): the BC6H kernel's half-bit proxy of
     a float32 array."""
     import ctypes
 
@@ -653,10 +681,15 @@ def bc_op_counter(csrc: str, tmp: str):
     libs["bc6h_encode"].set_tables(*(t.ctypes.data for t in tabs6))
     chw7 = np.ascontiguousarray(consts.chw, np.float32)
     chw1 = np.ascontiguousarray(bc.channel_weights(None), np.float32)
-    rows = {"bc7_q2": ("bc7_encode", 2, chw7), "bc7_q3": ("bc7_hq_encode", 3, chw7),
-            "bc7_q4": ("bc7_hq_encode", 4, chw7), "bc1_q2": ("bc_encode", 1, chw1),
-            "bc2_q2": ("bc_encode", 2, chw1), "bc3_q2": ("bc_encode", 3, chw1),
-            "bc4_q2": ("bc_encode", 4, chw1), "bc5s_q2": ("bc_encode", 5, chw1)}
+    rows = {"bc7_q0": ("bc7_encode", 0, chw7), "bc7_q1": ("bc7_encode", 1, chw7),
+            "bc7_q2": ("bc7_encode", 2, chw7), "bc7_q3": ("bc7_hq_encode", 3, chw7),
+            "bc7_q4": ("bc7_hq_encode", 4, chw7),
+            "bc1_q2_punch": ("bc_encode", 1 | 2 << 4 | 1 << 8, chw1),
+            "bc2_q2": ("bc_encode", 2 | 2 << 4, chw1), "bc3_q2": ("bc_encode", 3 | 2 << 4, chw1),
+            "bc4_q2": ("bc_encode", 4 | 2 << 4, chw1), "bc4s_q2": ("bc_encode", 6 | 2 << 4, chw1),
+            "bc5s_q2": ("bc_encode", 5 | 2 << 4, chw1)}
+    for q in range(5):
+        rows[f"bc1_q{q}"] = ("bc_encode", 1 | q << 4, chw1)
     for q in (2, 4):
         for sgn in (0, 1):
             for code in (0, 1):
@@ -671,7 +704,7 @@ def bc_op_counter(csrc: str, tmp: str):
         x = np.ascontiguousarray(blocks, np.float32)
         words = np.zeros((x.shape[0], 4), np.uint32)
         ops = libs[name].count(x.ctypes.data, x.shape[0], arg, chw.ctypes.data, words.ctypes.data)
-        nw = 2 if row in ("bc1_q2", "bc4_q2") else 4
+        nw = 2 if row.startswith(("bc1", "bc4")) else 4
         return ops / max(x.shape[0], 1), words[:, :nw]
 
     def proxy(values, signed):
@@ -763,6 +796,14 @@ def main(argv: list[str]) -> int:
             f"{info['seconds']:.2f} s)")
         for line in ptxas_lines(info["log"]):
             log("build", f"ptxas {name}: {line}")
+    for line in ptxas_entries(_build.build_info["bc7_encode"]["log"]):
+        log("build", f"ptxas bc7_encode entry {line}")
+    log("build", "bc7_kernel: 4 warps a CTA, 32 blocks a warp, its blocks' texels and phase "
+        "results in static shared memory (above)")
+    for line in ptxas_entries(_build.build_info["bc_encode"]["log"]):
+        log("build", f"ptxas bc_encode entry {line}")
+    log("build", "bc1_kernel, bc23_kernel: 128 threads a CTA, its blocks' texels in static shared "
+        "memory (above)")
     for line in ptxas_entries(_build.build_info["bc7_hq_encode"]["log"]):
         log("build", f"ptxas bc7_hq_encode entry {line}")
     log("build", f"bc7_hq_kernel: 4 warps a CTA, 32 blocks a warp, {bc7_hq_cuda.shared_bytes()} "
@@ -1363,20 +1404,22 @@ def main(argv: list[str]) -> int:
 
     # 5. times on the card
     # (row name, counter, case timed for the row, source, TPU kernel, input
-    # bytes per block, other cases timed alongside)
+    # bytes per block, other cases timed alongside: the row's other cases of
+    # phase 3)
     kernel_rows = [
         ("bc7_encode_q0_2", "bc7", "bc7_q2", "cuttlefish_tpu_torch/csrc/bc7_encode.cu",
-         "cuttlefish_tpu/kernels/bc7_pallas.py:1044", 256, ()),
+         "cuttlefish_tpu/kernels/bc7_pallas.py:1044", 256, ("bc7_q0", "bc7_q1p", "bc7_q2p")),
         ("bc7_hq_encode_q3_4", "bc7_hq", "bc7_q4", "cuttlefish_tpu_torch/csrc/bc7_hq_encode.cu",
          "cuttlefish_tpu/kernels/bc7_pallas.py:1085", 256, ("bc7_q3",)),
         ("bc1_encode", "bc1", "bc1_q2", "cuttlefish_tpu_torch/csrc/bc_encode.cu",
-         "cuttlefish_tpu/kernels/bc_pallas.py:452", 192, ()),
+         "cuttlefish_tpu/kernels/bc_pallas.py:452", 192,
+         ("bc1_q0", "bc1_q1", "bc1_q3", "bc1_q4", "bc1_q2_punch", "bc1_q2_srgb")),
         ("bc2_encode", "bc2", "bc2_q2", "cuttlefish_tpu_torch/csrc/bc_encode.cu",
          "cuttlefish_tpu/kernels/bc_pallas.py:491", 256, ()),
         ("bc3_encode", "bc3", "bc3_q2", "cuttlefish_tpu_torch/csrc/bc_encode.cu",
          "cuttlefish_tpu/kernels/bc_pallas.py:517", 256, ()),
         ("bc4_encode", "bc4", "bc4_q2", "cuttlefish_tpu_torch/csrc/bc_encode.cu",
-         "cuttlefish_tpu/kernels/bc_pallas.py:477", 64, ()),
+         "cuttlefish_tpu/kernels/bc_pallas.py:477", 64, ("bc4s_q2",)),
         ("bc5_encode", "bc5", "bc5s_q2", "cuttlefish_tpu_torch/csrc/bc_encode.cu",
          "cuttlefish_tpu/kernels/bc_pallas.py:539", 128, ()),
         ("bc6h_encode", "bc6h", "bc6h_q4", "cuttlefish_tpu_torch/csrc/bc6h_encode.cu",
@@ -1399,7 +1442,11 @@ def main(argv: list[str]) -> int:
 
     # BC: the float operations of the device code (bc_op_counter) on 1,024
     # of the run's blocks, whose words must be the plain version's there.
+    # A case with other channel weights than its row's counts that row with
+    # its weights.
     bc_samp = torch.arange(0, n, n // 1024, device=dev)
+    count_as = {"bc1_q2_srgb": ("bc1_q2", srgb), "bc7_q1p": ("bc7_q1", _constants(True, dev).chw),
+                "bc7_q2p": ("bc7_q2", _constants(True, dev).chw)}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         count_bc = bc_op_counter(str(_build.CSRC), tmp)
@@ -1418,10 +1465,14 @@ def main(argv: list[str]) -> int:
                             f"{n * weighted_ops[case] / F32_OPS_PER_S * 1e3:.4f} ms")
         else:
             xs = x[bc_samp].contiguous()
-            ops, words = count_bc(case, xs.cpu().numpy())
+            row, chw = count_as.get(case, (case, None))
+            ops, words = count_bc(row, xs.cpu().numpy(), chw)
             check(np.array_equal(words, plain(xs).cpu().numpy()),
                   f"{case}: the counting build's words differ from the plain version's")
             counted = f"device code's, counted on {bc_samp.numel()} blocks"
+            if case in EARLIER_OPS:
+                ops9, left = EARLIER_OPS[case]
+                counted += f"; the earlier device code's {ops9} ({ops / ops9 - 1:+.1%}: {left})"
             if case.startswith("bc6h"):
                 device_ops, _ = count_bc(case, xs.cpu().numpy(), device=True)
                 counted = (f"needed (each texel's value and scale made once), counted on "

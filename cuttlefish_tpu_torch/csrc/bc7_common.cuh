@@ -2,8 +2,11 @@
 // 0-2, csrc/bc7_hq_encode.cu for 3-4): the per-block primitives of
 // cuttlefish_tpu/kernels/bc7_pallas.py (PCA seed, endpoint quantisers,
 // index assignment, least squares, the fit loop, the alpha fit) and the
-// single-subset modes 6, 5 and 4.  One thread encodes one 4x4 block; its
-// texels px[c][t] hold clip(x,0,1)*255 for channel c and texel t.
+// single-subset modes 6, 5 and 4.  One lane encodes one 4x4 block; its
+// texels px[c][t] hold clip(x,0,1)*255 for channel c and texel t.  Both
+// kernels run a warp per group of 32 blocks whose texels are staged in
+// shared memory (stage_texels), their phases as loops of lane tasks
+// (FOR_LANES).
 //
 // Numerics, so that the kernels agree with the plain PyTorch version
 // (cuttlefish_tpu_torch/kernels/bc7.py) bit for bit: every sum over texels
@@ -26,8 +29,30 @@
 
 namespace bc7 {
 
+constexpr int kGroup = 32;   // blocks a warp
+constexpr int kStride = 65;  // floats of a block's texels in shared memory
 
-constexpr int kThreads = 128;
+// The lanes of a warp.  On the card each lane runs the body once, and
+// WARP_SYNC orders the warp's shared memory between phases; in a CPU build
+// the 32 lanes run one after another.
+#ifdef __CUDACC__
+#define FOR_LANES(lane) for (int lane = (int)(threadIdx.x & 31u), lane##_once = 1; lane##_once; lane##_once = 0)
+#define WARP_SYNC() __syncwarp()
+#else
+#define FOR_LANES(lane) for (int lane = 0; lane < 32; ++lane)
+#define WARP_SYNC()
+#endif
+
+struct Chw {
+  float w[4];
+};
+
+// Channel weights as the fits take them: an array (const float*), or Unit
+// for unit weights, whose products are skipped (w * x == x for w = 1, so
+// both give the same floats).
+struct Unit {};
+__device__ __forceinline__ float wmul(const float* w, int c, float x) { return w[c] * x; }
+__device__ __forceinline__ float wmul(Unit, int, float x) { return x; }
 
 // Bit t of c_part2[p]: texel t lies in subset 1 of 2-subset partition p.
 __constant__ uint16_t c_part2[64];
@@ -88,6 +113,37 @@ struct Bits {
     pos += n;
   }
 };
+
+// A fit's result: its packed block and its error.
+struct Res {
+  Bits bits;
+  float err;
+};
+
+// The texels of blocks i0 .. i0 + ng - 1 of blocks [n,16,4] into a warp's
+// px (block b, channel c, texel t at b * kStride + c * 16 + t: 32 lanes on
+// 32 blocks read 32 banks): one coalesced copy, clamped and scaled as the
+// reference does.
+static __device__ __noinline__ void stage_texels(const float* blocks, long long i0, int ng, float* px) {
+  FOR_LANES(lane) {
+    for (int x = lane; x < ng * 16; x += 32) {
+      const int b = x >> 4, t = x & 15;
+#ifdef __CUDACC__
+      const float4 v = reinterpret_cast<const float4*>(blocks)[i0 * 16 + x];
+      const float q[4] = {v.x, v.y, v.z, v.w};
+#else
+      const float* q = blocks + (i0 * 16 + x) * 4;
+#endif
+#pragma unroll
+      for (int c = 0; c < 4; ++c) px[b * kStride + c * 16 + t] = clampf(q[c], 0.0f, 1.0f) * 255.0f;
+    }
+  }
+}
+
+// Block b's texels in a warp's staged px.
+__device__ __forceinline__ const float (*block_texels(const float* px, int b))[16] {
+  return (const float (*)[16])(px + b * kStride);
+}
 
 // Principal-axis extremes of the masked texel set (bc7_pallas.py:_pca_seed).
 template <int CHN>
@@ -185,9 +241,9 @@ __device__ __forceinline__ void pca_seed(const float (*px)[16],
 // ---------------------------------------------------------------------------
 
 // Per-endpoint p-bit (bc7_pallas.py:_quant_pbit_each).
-template <int BITS, int CHN>
+template <int BITS, int CHN, class CW>
 __device__ __forceinline__ void quant_pbit_each(const float (&e)[CHN],
-                                                const float* chw,
+                                                CW chw,
                                                 int (&v)[CHN], int& p,
                                                 int (&dec)[CHN]) {
   constexpr int maxv = (1 << BITS) - 1;
@@ -203,7 +259,7 @@ __device__ __forceinline__ void quant_pbit_each(const float (&e)[CHN],
       vv[c] = qround((e[c] * scale - (float)pp) * 0.5f, maxv);
       dd[c] = replicate((vv[c] << 1) | pp, BITS + 1);
       const float d = e[c] - (float)dd[c];
-      const float term = chw[c] * (d * d);
+      const float term = wmul(chw, c, d * d);
       err = c == 0 ? term : err + term;
     }
     if (pp == 0 || err < best) {
@@ -219,9 +275,9 @@ __device__ __forceinline__ void quant_pbit_each(const float (&e)[CHN],
 }
 
 // One p-bit shared by both endpoints (bc7_pallas.py:_quant_pbit_shared).
-template <int BITS>
+template <int BITS, class CW>
 __device__ __forceinline__ void quant_pbit_shared(
-    const float (&e0)[3], const float (&e1)[3], const float* chw,
+    const float (&e0)[3], const float (&e1)[3], CW chw,
     int (&v0)[3], int (&v1)[3], int& p, int (&d0)[3], int (&d1)[3]) {
   constexpr int maxv = (1 << BITS) - 1;
   constexpr int full = (1 << (BITS + 1)) - 1;
@@ -239,7 +295,7 @@ __device__ __forceinline__ void quant_pbit_shared(
       b1[c] = replicate((a1[c] << 1) | pp, BITS + 1);
       const float x0 = e0[c] - (float)b0[c];
       const float x1 = e1[c] - (float)b1[c];
-      const float term = chw[c] * (x0 * x0 + x1 * x1);
+      const float term = wmul(chw, c, x0 * x0 + x1 * x1);
       err = c == 0 ? term : err + term;
     }
     if (pp == 0 || err < best) {
@@ -273,9 +329,9 @@ __device__ __forceinline__ void quant_plain(const float (&e)[3], int (&v)[3],
 template <int BITS, int CHN>
 struct QPbitEach {
   int v0[CHN], v1[CHN], p0, p1, d0[CHN], d1[CHN];
+  template <class CW>
   __device__ __forceinline__ void quant(const float (&e0)[CHN],
-                                        const float (&e1)[CHN],
-                                        const float* chw) {
+                                        const float (&e1)[CHN], CW chw) {
     quant_pbit_each<BITS, CHN>(e0, chw, v0, p0, d0);
     quant_pbit_each<BITS, CHN>(e1, chw, v1, p1, d1);
   }
@@ -283,9 +339,9 @@ struct QPbitEach {
 
 struct QMode1 {
   int v0[3], v1[3], p, d0[3], d1[3];
+  template <class CW>
   __device__ __forceinline__ void quant(const float (&e0)[3],
-                                        const float (&e1)[3],
-                                        const float* chw) {
+                                        const float (&e1)[3], CW chw) {
     quant_pbit_shared<6>(e0, e1, chw, v0, v1, p, d0, d1);
   }
 };
@@ -293,9 +349,9 @@ struct QMode1 {
 template <int BITS>
 struct QPlain {
   int v0[3], v1[3], d0[3], d1[3];
+  template <class CW>
   __device__ __forceinline__ void quant(const float (&e0)[3],
-                                        const float (&e1)[3],
-                                        const float*) {
+                                        const float (&e1)[3], CW) {
     quant_plain<BITS>(e0, v0, d0);
     quant_plain<BITS>(e1, v1, d1);
   }
@@ -307,25 +363,25 @@ struct QPlain {
 
 // Nearest palette index by line projection plus a 3-candidate exact check
 // (bc7_pallas.py:_assign).  Returns the masked block error.
-template <int CHN, int L>
+template <int CHN, int L, class CW>
 __device__ __forceinline__ float assign(const float (*px)[16],
                                         const int (&d0)[CHN],
                                         const int (&d1)[CHN],
                                         const float (&mask)[16],
-                                        const float* chw, int (&idx)[16]) {
+                                        CW chw, int (&idx)[16]) {
   float df[CHN];
 #pragma unroll
   for (int c = 0; c < CHN; ++c) df[c] = (float)(d1[c] - d0[c]);
-  float cw = chw[0] * df[0] * df[0];
+  float cw = wmul(chw, 0, df[0]) * df[0];
 #pragma unroll
-  for (int c = 1; c < CHN; ++c) cw += chw[c] * df[c] * df[c];
+  for (int c = 1; c < CHN; ++c) cw += wmul(chw, c, df[c]) * df[c];
   const float den = cw + 1e-10f;
   float err = 0.0f;
 #pragma unroll
   for (int t = 0; t < 16; ++t) {
-    float b = chw[0] * (px[0][t] - (float)d0[0]) * df[0];
+    float b = wmul(chw, 0, px[0][t] - (float)d0[0]) * df[0];
 #pragma unroll
-    for (int c = 1; c < CHN; ++c) b += chw[c] * (px[c][t] - (float)d0[c]) * df[c];
+    for (int c = 1; c < CHN; ++c) b += wmul(chw, c, px[c][t] - (float)d0[c]) * df[c];
     const int k = qround(b / den * (float)(L - 1), L - 1);
     int best_k = 0;
     float best_e = 0.0f;
@@ -338,7 +394,7 @@ __device__ __forceinline__ float assign(const float (*px)[16],
       for (int c = 0; c < CHN; ++c) {
         const int pal = (d0[c] * (64 - w) + d1[c] * w + 32) >> 6;
         const float d = px[c][t] - (float)pal;
-        const float term = chw[c] * (d * d);
+        const float term = wmul(chw, c, d * d);
         e = c == 0 ? term : e + term;
       }
       if (dk == -1 || e < best_e) {
@@ -384,10 +440,10 @@ __device__ __forceinline__ void ls(const float (*px)[16],
 }
 
 // Seed -> quantise -> assign -> LS refine (bc7_pallas.py:_fit).
-template <int CHN, int L, class Q>
+template <int CHN, int L, class Q, class CW>
 __device__ __forceinline__ float fit(const float (*px)[16],
                                      const float (&mask)[16],
-                                     const float* chw, int iters,
+                                     CW chw, int iters,
                                      const float (&hi)[CHN],
                                      const float (&lo)[CHN], Q& best,
                                      int (&best_idx)[16]) {
@@ -500,13 +556,13 @@ __device__ __forceinline__ void fill_ones(float (&m)[16]) {
 }
 
 // Error of decoding alpha as 255, for the modes without alpha.
-__device__ __forceinline__ float alpha_penalty(const float (*px)[16],
-                                               const float* chw) {
+template <class CW>
+__device__ __forceinline__ float alpha_penalty(const float (*px)[16], CW chw) {
   float apen = 0.0f;
 #pragma unroll
   for (int t = 0; t < 16; ++t) {
     const float d = px[3][t] - 255.0f;
-    const float term = chw[3] * (d * d);
+    const float term = wmul(chw, 3, d * d);
     apen = t == 0 ? term : apen + term;
   }
   return apen;
@@ -514,13 +570,13 @@ __device__ __forceinline__ float alpha_penalty(const float (*px)[16],
 
 // Within-subset residual of one subset of a partition screen, from its
 // moments (bc7_pallas.py:_screen_2subset / _mode_3subset).
-template <int CHN>
+template <int CHN, class CW>
 __device__ __forceinline__ float sub_err(float tot, const float (&s1)[CHN],
                                          float pss, float ps2, float ns,
-                                         const float* cw) {
-  float mt = cw[0] * s1[0] * s1[0];
+                                         CW cw) {
+  float mt = wmul(cw, 0, s1[0]) * s1[0];
 #pragma unroll
-  for (int c = 1; c < CHN; ++c) mt += cw[c] * s1[c] * s1[c];
+  for (int c = 1; c < CHN; ++c) mt += wmul(cw, c, s1[c]) * s1[c];
   mt = mt / ns;
   const float along = ps2 - pss * pss / ns;
   return tot - mt - fmaxf(along, 0.0f);
@@ -560,8 +616,8 @@ __device__ __forceinline__ void seed_of(const float (*px)[16],
 // Single-subset modes
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float mode6(const float (*px)[16], int iters,
-                                       const float* chw, Bits& out) {
+template <class CW>
+__device__ __forceinline__ float mode6(const float (*px)[16], int iters, CW chw, Bits& out) {
   float ones[16];
   fill_ones(ones);
   float hi[4], lo[4], axis[4], mean[4];
@@ -586,8 +642,9 @@ __device__ __forceinline__ float mode6(const float (*px)[16], int iters,
 
 // Mode 5: 7-bit colour with 2-bit indices, 8-bit alpha.  px and chw are
 // already in the channel order of rotation rot, which is only packed here.
-__device__ __forceinline__ float mode5(const float (*px)[16], int iters,
-                                       const float* chw, int rot, Bits& out) {
+template <class CW>
+__device__ __forceinline__ float mode5(const float (*px)[16], int iters, CW chw, int rot,
+                                       Bits& out) {
   float ones[16];
   fill_ones(ones);
   float hi[3], lo[3], axis[3], mean[3];
@@ -598,7 +655,7 @@ __device__ __forceinline__ float mode5(const float (*px)[16], int iters,
   const bool cswap = cidx[0] >= 2;
   int a0, a1, aidx[16];
   const float aerr = fit_alpha<4, 8>(px[3], iters, a0, a1, aidx);
-  const float err = cerr + chw[3] * aerr;
+  const float err = cerr + wmul(chw, 3, aerr);
 
   out.clear();
   out.put(32, 6);
@@ -620,9 +677,9 @@ __device__ __forceinline__ float mode5(const float (*px)[16], int iters,
 // Mode 4: 5-bit colour, 6-bit alpha.  Index mode IDX 0 gives colour the
 // 2-bit and alpha the 3-bit indices, IDX 1 the reverse.  px and chw are
 // already in the channel order of rotation rot.
-template <int IDX>
-__device__ __forceinline__ float mode4(const float (*px)[16], int iters,
-                                       const float* chw, int rot, Bits& out) {
+template <int IDX, class CW>
+__device__ __forceinline__ float mode4(const float (*px)[16], int iters, CW chw, int rot,
+                                       Bits& out) {
   constexpr int CL = IDX == 0 ? 4 : 8;
   constexpr int AL = IDX == 0 ? 8 : 4;
   float ones[16];
@@ -635,7 +692,7 @@ __device__ __forceinline__ float mode4(const float (*px)[16], int iters,
   const bool cswap = cidx[0] >= CL / 2;
   int a0, a1, aidx[16];
   const float aerr = fit_alpha<AL, 6>(px[3], iters, a0, a1, aidx);
-  const float err = cerr + chw[3] * aerr;
+  const float err = cerr + wmul(chw, 3, aerr);
 
   out.clear();
   out.put(16, 5);

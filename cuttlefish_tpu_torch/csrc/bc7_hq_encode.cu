@@ -60,24 +60,7 @@ __constant__ uint16_t c_part3[64][3];
 __constant__ int c_anchor3[64][2];
 
 constexpr int kMaxTopk = 4;
-constexpr int kGroup = 32;   // blocks a warp
 constexpr int kHqWarps = 4;  // warps a CTA
-constexpr int kStride = 65;  // floats of a block's texels in shared memory
-
-// The lanes of a warp.  On the card each lane runs the body once, and
-// WARP_SYNC orders the warp's shared memory between phases; in a CPU build
-// the 32 lanes run one after another.
-#ifdef __CUDACC__
-#define FOR_LANES(lane) for (int lane = (int)(threadIdx.x & 31u), lane##_once = 1; lane##_once; lane##_once = 0)
-#define WARP_SYNC() __syncwarp()
-#else
-#define FOR_LANES(lane) for (int lane = 0; lane < 32; ++lane)
-#define WARP_SYNC()
-#endif
-
-struct Chw {
-  float w[4];
-};
 
 // The plan of a quality (bc7_pallas.py:_HQ_PLAN): refinement rounds and
 // the top-k of each partitioned mode (0: the mode is not tried).  A list of
@@ -215,12 +198,6 @@ __device__ __forceinline__ bool anchor_fix(int (&idx)[16], uint32_t m,
     if (swap && ((m >> t) & 1u)) idx[t] = (L - 1) - idx[t];
   return swap;
 }
-
-// A fit's result: its packed block and its error.
-struct Res {
-  Bits bits;
-  float err;
-};
 
 // A block's principal axis, passed by value.
 struct Axis {
@@ -654,7 +631,7 @@ __device__ __noinline__ Res rotated_mode4(const float (*px)[16], Chw chw, int r,
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ const float (*texels(const HqWarp& W, int b))[16] {
-  return (const float (*)[16])(W.px + b * kStride);
+  return block_texels(W.px, b);
 }
 
 __device__ __forceinline__ Axis axis_of(const HqWarp& W, int b) {
@@ -736,24 +713,6 @@ __device__ __noinline__ void full_fits(const HqWarp& W, int b, Chw chw, uint32_t
   o[3] = (uint32_t)(best.bits.hi >> 32);
 }
 
-// The texels of blocks i0 .. i0 + ng - 1 of blocks [n,16,4]: one coalesced
-// copy, clamped and scaled as the reference does.
-__device__ __noinline__ void stage_texels(const float* blocks, long long i0, int ng, HqWarp& W) {
-  FOR_LANES(lane) {
-    for (int x = lane; x < ng * 16; x += 32) {
-      const int b = x >> 4, t = x & 15;
-#ifdef __CUDACC__
-      const float4 v = reinterpret_cast<const float4*>(blocks)[i0 * 16 + x];
-      const float q[4] = {v.x, v.y, v.z, v.w};
-#else
-      const float* q = blocks + (i0 * 16 + x) * 4;
-#endif
-#pragma unroll
-      for (int c = 0; c < 4; ++c) W.px[b * kStride + c * 16 + t] = clampf(q[c], 0.0f, 1.0f) * 255.0f;
-    }
-  }
-}
-
 // Phase 1: the partition screens a lane per block; at quality 4 the
 // rotation screens a lane per (block, rotation), then a lane per block
 // takes its two best rotations (first on ties).
@@ -823,7 +782,7 @@ __device__ __noinline__ void unrefined_fits(HqWarp& W, int ng, Chw chw) {
 template <int Q>
 __device__ void encode_group_hq(const float* blocks, long long i0, int ng, Chw chw, HqWarp& W,
                                 uint32_t* out) {
-  stage_texels(blocks, i0, ng, W);
+  stage_texels(blocks, i0, ng, W.px);
   WARP_SYNC();
   screens<Q>(W, ng, chw);
   WARP_SYNC();

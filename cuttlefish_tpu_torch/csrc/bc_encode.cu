@@ -13,19 +13,27 @@
 // same algorithms is cuttlefish_tpu_torch/kernels/bc.py; the two are compared
 // on the card.
 //
-// Design: one thread per 4x4 block, its texels in registers, 128 threads per
-// CTA, grid = ceil(N / 128).  The TPU kernels put 1024 blocks on vector lanes
-// and unrolled every candidate sweep over [16, TN] tiles; here each thread
-// runs its block's candidate sweep alone, with the indices packed into one
-// word (2 bits a texel for BC1, 3 for BC4) so that the state of a block fits
-// the registers.  Quality, punch-through, black and signedness are template
-// parameters, so each instantiation has no dead branches.
+// Design: one thread per 4x4 block, 128 threads per CTA, grid = ceil(N /
+// 128).  The TPU kernels put 1024 blocks on vector lanes and unrolled every
+// candidate sweep over [16, TN] tiles; here each thread runs its block's
+// candidate sweep alone, with the indices packed into one word (2 bits a
+// texel for BC1, 3 for BC4).  BC1, BC2 and BC3 first stage their CTA's
+// texels in shared memory with one coalesced copy (a 16-byte load a texel,
+// [channel][texel][block] rows padded to 129 floats, so that a warp reads 32
+// banks): no texel array lives in a thread's frame.  Quality, punch-through,
+// black, signedness and unit channel weights are template parameters, so
+// each instantiation has no dead branches.
 //
 // What bounds it: arithmetic.  A block reads 256 bytes (64 for BC4) and
-// writes 8 or 16, but a BC1 block at quality 2 tries some 60 palettes, each
-// 16 texels x 4 entries x ~12 float operations, and a BC4 block about 9
-// palettes of 8 entries.  Loads are per thread and not coalesced across a
-// warp; shared-memory staging is later work.
+// writes 8 or 16, but a BC1 block at quality 2 tries some 56 palettes of 16
+// texels x 4 entries, 48 of them in the 565 sweep, and a BC4 block about 9
+// palettes of 8 entries.  The BC1 body does only the work its function
+// needs: the unit-weight instance (every timed case) skips the products by
+// 1; each texel's distance to black is made once a block; and a sweep
+// candidate changes one channel of the pass's base pair, so a texel's terms
+// in the two other channels are made once for the channel's 8 candidates
+// and only channel ch's are made per candidate (the texel loop outside,
+// the candidates inside).  BC4 and BC5 keep their texels in registers.
 //
 // Numerics, so that the kernel agrees with the plain version bit for bit:
 // every sum over texels runs in texel order and every sum over channels in
@@ -92,6 +100,60 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
 
 __device__ __forceinline__ float sq(float x) { return x * x; }
 
+// A compiler barrier: texels read from shared memory before it are read
+// again after it, not held in registers across it.
+#ifdef __CUDACC__
+#define RELOAD_TEXELS() asm volatile("" ::: "memory")
+#else
+#define RELOAD_TEXELS()
+#endif
+
+// ---------------------------------------------------------------------------
+// A CTA's texels in shared memory (BC1-BC3)
+// ---------------------------------------------------------------------------
+
+#ifndef __CUDACC__
+struct float4 {
+  float x, y, z, w;
+};
+#endif
+
+// A shared-memory row holds one texel value of each of a CTA's blocks,
+// padded by one so that a staging warp's two blocks fall on other banks.
+constexpr int kStride = kThreads + 1;
+
+// A CTA's texels, [channel][texel][block]: RGB, then alpha (BC1 with
+// black: each texel's error against black).
+__shared__ float s_px[64 * kStride];
+
+// Texel (c, t) of thread `tid`'s block.
+struct Px {
+  int tid;
+  __device__ __forceinline__ float operator()(int c, int t) const {
+    return s_px[(16 * c + t) * kStride + tid];
+  }
+  __device__ __forceinline__ void set(int c, int t, float v) const {
+    s_px[(16 * c + t) * kStride + tid] = v;
+  }
+};
+
+// Thread tid's share of staging blocks [first, first + nb) of blocks
+// [n,16,4] into s_px, NC channels (RGB, or RGBA): neighbouring threads read
+// neighbouring texels as float4 (the wrapper hands over 16-byte aligned
+// storage, bc_cuda.launch).
+template <int NC>
+__device__ __forceinline__ void stage(const float* blocks, int first, int nb, int tid) {
+  const float4* src = (const float4*)blocks + (size_t)first * 16;
+  for (int f = tid; f < nb * 16; f += kThreads) {
+    const float4 q = src[f];
+    float* d = s_px + (f & 15) * kStride + (f >> 4);
+    d[0] = q.x;
+    d[16 * kStride] = q.y;
+    d[32 * kStride] = q.z;
+    if (NC == 4) d[48 * kStride] = q.w;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Least squares (bc_pallas.py:_ls1 / _ls3)
 // ---------------------------------------------------------------------------
@@ -133,8 +195,8 @@ __device__ __forceinline__ void ls1(const float (&v)[16], const float (&w)[16],
 }
 
 // Three channels sharing the weights.
-__device__ __forceinline__ void ls3(const float (&px)[3][16], const float (&w)[16],
-                                    const float (&p)[16], float (&e0)[3], float (&e1)[3]) {
+__device__ __forceinline__ void ls3(Px px, const float (&w)[16], const float (&p)[16],
+                                    float (&e0)[3], float (&e1)[3]) {
   LsSums s = {0.0f, 0.0f, 0.0f};
   float b0[3] = {0.0f, 0.0f, 0.0f}, b1[3] = {0.0f, 0.0f, 0.0f};
   float msum[3] = {0.0f, 0.0f, 0.0f}, psum = 0.0f;
@@ -144,9 +206,10 @@ __device__ __forceinline__ void ls3(const float (&px)[3][16], const float (&w)[1
     ls_accumulate(s, w[t], p[t], wv, uv);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      b0[c] = b0[c] + wv * px[c][t];
-      b1[c] = b1[c] + uv * px[c][t];
-      msum[c] = msum[c] + px[c][t] * p[t];
+      const float v = px(c, t);
+      b0[c] = b0[c] + wv * v;
+      b1[c] = b1[c] + uv * v;
+      msum[c] = msum[c] + v * p[t];
     }
     psum = psum + p[t];
   }
@@ -168,18 +231,17 @@ __device__ __forceinline__ void ls3(const float (&px)[3][16], const float (&w)[1
 
 // Principal-axis extremes over all 16 texels (bc_pallas.py:_pca_seed3 with
 // an all-ones mask): 6 power iterations from the first texel of largest norm.
-__device__ __forceinline__ void pca_seed3(const float (&px)[3][16], float (&hi)[3],
-                                          float (&lo)[3]) {
+__device__ __forceinline__ void pca_seed3(Px px, float (&hi)[3], float (&lo)[3]) {
   const float cnt = 16.0f + 1e-12f;
   float mean[3], cent[3][16];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float s = 0.0f;
 #pragma unroll
-    for (int t = 0; t < 16; ++t) s = s + px[c][t];
+    for (int t = 0; t < 16; ++t) s = s + px(c, t);
     mean[c] = s / cnt;
 #pragma unroll
-    for (int t = 0; t < 16; ++t) cent[c][t] = px[c][t] - mean[c];
+    for (int t = 0; t < 16; ++t) cent[c][t] = px(c, t) - mean[c];
   }
   float cov[3][3];
 #pragma unroll
@@ -237,11 +299,16 @@ __device__ __forceinline__ void pca_seed3(const float (&px)[3][16], float (&hi)[
   }
 }
 
+// A 5- or 6-bit field of channel CH, expanded to 8 bits and scaled to 0..1.
+template <int CH>
+__device__ __forceinline__ float expand565(int v) {
+  return (float)(CH == 1 ? (v << 2) | (v >> 4) : (v << 3) | (v >> 2)) * kInv255;
+}
+
 __device__ __forceinline__ void dq565(int c16, float (&d)[3]) {
-  const int r = (c16 >> 11) & 31, g = (c16 >> 5) & 63, b = c16 & 31;
-  d[0] = (float)((r << 3) | (r >> 2)) * kInv255;
-  d[1] = (float)((g << 2) | (g >> 4)) * kInv255;
-  d[2] = (float)((b << 3) | (b >> 2)) * kInv255;
+  d[0] = expand565<0>((c16 >> 11) & 31);
+  d[1] = expand565<1>((c16 >> 5) & 63);
+  d[2] = expand565<2>(c16 & 31);
 }
 
 __device__ __forceinline__ int quant565(const float (&e)[3]) {
@@ -251,19 +318,40 @@ __device__ __forceinline__ int quant565(const float (&e)[3]) {
   return (r << 11) | (g << 5) | b;
 }
 
+// Channel c's share of a texel's error for a difference x: w_c * x^2, or
+// x^2 with unit weights (UW), which is the same float.
+template <bool UW>
+__device__ __forceinline__ float term(const float* chw, int c, float x) {
+  return UW ? sq(x) : chw[c] * sq(x);
+}
+
+// A texel's error against black, (w_c * p) * p summed in channel order.
+template <bool UW>
+__device__ __forceinline__ float black_err(Px px, const float* chw, int t) {
+  float e = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float p = px(c, t);
+    const float x = UW ? p * p : chw[c] * p * p;
+    e = c == 0 ? x : e + x;
+  }
+  return e;
+}
+
 struct Bc1Cand {
   int c0, c1;
   uint32_t idx;  // 2 bits a texel, texel t at bits 2t
   float err;
 };
 
-// Nearest of NW palette entries (+ black when BLACK) per texel, first
-// minimum in table order; the block error is the texel errors (times the
-// opaque mask when PV) summed in texel order (bc_pallas.py:_bc1_assign).
-template <class T, int NW, bool BLACK, bool PV>
-__device__ __forceinline__ float bc1_assign(const float (&px)[3][16], uint32_t opaque,
-                                            const float (&d0)[3], const float (&d1)[3],
-                                            const float (&chw)[3], uint32_t& idx) {
+// Nearest of NW palette entries (+ black, its error per texel in the
+// block's fourth row, when BLACK) per texel, first minimum in table order;
+// the block error is the texel errors (times the opaque mask when PV)
+// summed in texel order (bc_pallas.py:_bc1_assign).
+template <class T, int NW, bool BLACK, bool PV, bool UW>
+__device__ __forceinline__ float bc1_assign(Px px, uint32_t opaque, const float (&d0)[3],
+                                            const float (&d1)[3], const float* chw,
+                                            uint32_t& idx) {
   float pal[NW][3];
 #pragma unroll
   for (int k = 0; k < NW; ++k) {
@@ -278,16 +366,16 @@ __device__ __forceinline__ float bc1_assign(const float (&px)[3][16], uint32_t o
     uint32_t bi = 0;
 #pragma unroll
     for (int k = 0; k < NW; ++k) {
-      const float e = (chw[0] * sq(px[0][t] - pal[k][0]) + chw[1] * sq(px[1][t] - pal[k][1])) +
-                      chw[2] * sq(px[2][t] - pal[k][2]);
+      const float e = (term<UW>(chw, 0, px(0, t) - pal[k][0]) +
+                       term<UW>(chw, 1, px(1, t) - pal[k][1])) +
+                      term<UW>(chw, 2, px(2, t) - pal[k][2]);
       if (k == 0 || e < best) {
         best = e;
         bi = (uint32_t)k;
       }
     }
     if (BLACK) {
-      const float e = (chw[0] * px[0][t] * px[0][t] + chw[1] * px[1][t] * px[1][t]) +
-                      chw[2] * px[2][t] * px[2][t];
+      const float e = px(3, t);
       if (e < best) {
         best = e;
         bi = (uint32_t)NW;
@@ -306,24 +394,24 @@ __device__ __forceinline__ void take_if_better(Bc1Cand& best, const Bc1Cand& can
 }
 
 // 4-colour candidate from float endpoints.
-__device__ __forceinline__ Bc1Cand cand4(const float (&px)[3][16], const float (&e0)[3],
-                                         const float (&e1)[3], const float (&chw)[3]) {
+template <bool UW>
+__device__ __forceinline__ Bc1Cand cand4(Px px, const float (&e0)[3], const float (&e1)[3],
+                                         const float* chw) {
   Bc1Cand r;
   r.c0 = quant565(e0);
   r.c1 = quant565(e1);
   float d0[3], d1[3];
   dq565(r.c0, d0);
   dq565(r.c1, d1);
-  r.err = bc1_assign<W4, 4, false, false>(px, 0u, d0, d1, chw, r.idx);
+  r.err = bc1_assign<W4, 4, false, false, UW>(px, 0u, d0, d1, chw, r.idx);
   return r;
 }
 
 // 3-colour candidate: with black as entry 3, or (PUNCH) with the
 // transparent texels forced to index 3 and left out of the error.
-template <bool PUNCH>
-__device__ __forceinline__ Bc1Cand cand3(const float (&px)[3][16], uint32_t opaque,
-                                         const float (&e0)[3], const float (&e1)[3],
-                                         const float (&chw)[3]) {
+template <bool PUNCH, bool UW>
+__device__ __forceinline__ Bc1Cand cand3(Px px, uint32_t opaque, const float (&e0)[3],
+                                         const float (&e1)[3], const float* chw) {
   Bc1Cand r;
   r.c0 = quant565(e0);
   r.c1 = quant565(e1);
@@ -331,9 +419,9 @@ __device__ __forceinline__ Bc1Cand cand3(const float (&px)[3][16], uint32_t opaq
   dq565(r.c0, d0);
   dq565(r.c1, d1);
   if (!PUNCH) {
-    r.err = bc1_assign<W3, 3, true, false>(px, opaque, d0, d1, chw, r.idx);
+    r.err = bc1_assign<W3, 3, true, false, UW>(px, opaque, d0, d1, chw, r.idx);
   } else {
-    r.err = bc1_assign<W3, 3, false, true>(px, opaque, d0, d1, chw, r.idx);
+    r.err = bc1_assign<W3, 3, false, true, UW>(px, opaque, d0, d1, chw, r.idx);
 #pragma unroll
     for (int t = 0; t < 16; ++t)
       if (!((opaque >> t) & 1u)) r.idx |= 3u << (2 * t);
@@ -341,12 +429,99 @@ __device__ __forceinline__ Bc1Cand cand3(const float (&px)[3][16], uint32_t opaq
   return r;
 }
 
+// The 8 candidates of channel CH in one 565 sweep pass around (base0,
+// base1), offered to best in candidate order.  Candidate i moves channel
+// CH's field of the two endpoints by (j0 - 1, j1 - 1), (j0, j1) the i-th
+// pair of {0,1,2}^2 without (1,1); the other channels keep the base pair's
+// palette (bpal), so a texel's terms there are made once for all 8, and
+// each entry's error is its three channel terms summed in channel order, as
+// bc1_assign sums them.  Entries 0 and 1 are the endpoints themselves (w = 1
+// and 0: 1 * d0 + 0 * d1 == d0 for d in 0..1), so their terms take 3 values
+// each.
+template <int CH, bool UW>
+__device__ __forceinline__ void sweep_channel(Px px, const float* chw, int base0, int base1,
+                                              const float (&bpal)[4][3], Bc1Cand& best) {
+  constexpr int shift = CH == 0 ? 11 : CH == 1 ? 5 : 0;
+  constexpr int maxv = CH == 1 ? 63 : 31;
+  constexpr int ca = CH == 0 ? 1 : 0, cb = CH == 2 ? 1 : 2;  // the other channels
+  int f0[3], f1[3];
+  float v0[3], v1[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    f0[j] = min(max(((base0 >> shift) & maxv) + j - 1, 0), maxv);
+    f1[j] = min(max(((base1 >> shift) & maxv) + j - 1, 0), maxv);
+    v0[j] = expand565<CH>(f0[j]);
+    v1[j] = expand565<CH>(f1[j]);
+  }
+  float p2[8], p3[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int nb = i < 4 ? i : i + 1, j0 = nb / 3, j1 = nb % 3;
+    p2[i] = W4::w(2) * v0[j0] + W4::ow(2) * v1[j1];
+    p3[i] = W4::w(3) * v0[j0] + W4::ow(3) * v1[j1];
+  }
+  float err[8];
+  uint32_t idx[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    err[i] = 0.0f;
+    idx[i] = 0u;
+  }
+#pragma unroll 1
+  for (int t = 0; t < 16; ++t) {
+    const float pc = px(CH, t), pa = px(ca, t), pb = px(cb, t);
+    // The other channels' terms, and for CH = 2 their sum, per entry.
+    float ta[4], tb[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      ta[k] = term<UW>(chw, ca, pa - bpal[k][ca]);
+      tb[k] = term<UW>(chw, cb, pb - bpal[k][cb]);
+      if (CH == 2) ta[k] = ta[k] + tb[k];
+    }
+    float u0[3], u1[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      u0[j] = term<UW>(chw, CH, pc - v0[j]);
+      u1[j] = term<UW>(chw, CH, pc - v1[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int nb = i < 4 ? i : i + 1, j0 = nb / 3, j1 = nb % 3;
+      const float tc[4] = {u0[j0], u1[j1], term<UW>(chw, CH, pc - p2[i]),
+                           term<UW>(chw, CH, pc - p3[i])};
+      float best_e = 0.0f;
+      uint32_t bi = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float e = CH == 0 ? (tc[k] + ta[k]) + tb[k]
+                      : CH == 1 ? (ta[k] + tc[k]) + tb[k]
+                                : ta[k] + tc[k];
+        if (k == 0 || e < best_e) {
+          best_e = e;
+          bi = (uint32_t)k;
+        }
+      }
+      err[i] = err[i] + best_e;
+      idx[i] |= bi << (2 * t);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int nb = i < 4 ? i : i + 1, j0 = nb / 3, j1 = nb % 3;
+    Bc1Cand c;
+    c.c0 = (base0 & ~(maxv << shift)) | (f0[j0] << shift);
+    c.c1 = (base1 & ~(maxv << shift)) | (f1[j1] << shift);
+    c.idx = idx[i];
+    c.err = err[i];
+    take_if_better(best, c);
+  }
+}
+
 // Returns (c0, c1, packed 2-bit indices) of the chosen mode.  `opaque` has
 // bit t set when texel t has alpha >= 0.5 (all set unless PUNCH).
-template <int Q, bool PUNCH, bool BLACK>
-__device__ __forceinline__ void bc1_tile(const float (&px)[3][16], uint32_t opaque,
-                                         const float (&chw)[3], int& c0o, int& c1o,
-                                         uint32_t& idxo) {
+template <int Q, bool PUNCH, bool BLACK, bool UW>
+__device__ __forceinline__ void bc1_tile(Px px, uint32_t opaque, const float* chw, int& c0o,
+                                         int& c1o, uint32_t& idxo) {
   constexpr int iters = Iters<Q>::value;
   float hi[3], lo[3];
   pca_seed3(px, hi, lo);
@@ -354,7 +529,7 @@ __device__ __forceinline__ void bc1_tile(const float (&px)[3][16], uint32_t opaq
 #pragma unroll
   for (int t = 0; t < 16; ++t) ones[t] = 1.0f;
 
-  Bc1Cand best4 = cand4(px, hi, lo, chw);
+  Bc1Cand best4 = cand4<UW>(px, hi, lo, chw);
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
     float w[16];
@@ -362,7 +537,7 @@ __device__ __forceinline__ void bc1_tile(const float (&px)[3][16], uint32_t opaq
     for (int t = 0; t < 16; ++t) w[t] = W4::w((int)((best4.idx >> (2 * t)) & 3u));
     float e0[3], e1[3];
     ls3(px, w, ones, e0, e1);
-    take_if_better(best4, cand4(px, e0, e1, chw));
+    take_if_better(best4, cand4<UW>(px, e0, e1, chw));
   }
   if (Q >= 2) {
     // Per-channel +-1 sweep of both 565 endpoints around the pass's
@@ -370,26 +545,17 @@ __device__ __forceinline__ void bc1_tile(const float (&px)[3][16], uint32_t opaq
 #pragma unroll 1
     for (int pass = 0; pass < 2; ++pass) {
       const int base0 = best4.c0, base1 = best4.c1;
-#pragma unroll 1
-      for (int ch = 0; ch < 3; ++ch) {
-        const int shift = ch == 0 ? 11 : ch == 1 ? 5 : 0;
-        const int maxv = ch == 1 ? 63 : 31;
-#pragma unroll 1
-        for (int nb = 0; nb < 9; ++nb) {
-          const int dd0 = nb / 3 - 1, dd1 = nb % 3 - 1;
-          if (dd0 == 0 && dd1 == 0) continue;
-          const int f0 = min(max(((base0 >> shift) & maxv) + dd0, 0), maxv);
-          const int f1 = min(max(((base1 >> shift) & maxv) + dd1, 0), maxv);
-          Bc1Cand c;
-          c.c0 = (base0 & ~(maxv << shift)) | (f0 << shift);
-          c.c1 = (base1 & ~(maxv << shift)) | (f1 << shift);
-          float d0[3], d1[3];
-          dq565(c.c0, d0);
-          dq565(c.c1, d1);
-          c.err = bc1_assign<W4, 4, false, false>(px, 0u, d0, d1, chw, c.idx);
-          take_if_better(best4, c);
-        }
+      float d0[3], d1[3], bpal[4][3];
+      dq565(base0, d0);
+      dq565(base1, d1);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) bpal[k][c] = W4::w(k) * d0[c] + W4::ow(k) * d1[c];
       }
+      sweep_channel<0, UW>(px, chw, base0, base1, bpal, best4);
+      sweep_channel<1, UW>(px, chw, base0, base1, bpal, best4);
+      sweep_channel<2, UW>(px, chw, base0, base1, bpal, best4);
     }
   }
   // 4-colour mode needs c0 > c1: swapping flips each index's low bit; equal
@@ -407,7 +573,16 @@ __device__ __forceinline__ void bc1_tile(const float (&px)[3][16], uint32_t opaq
     idxo = idx_4;
     return;
   }
-  Bc1Cand best3 = cand3<PUNCH>(px, opaque, hi, lo, chw);
+  // The 3-colour half reads its texels afresh: held from the rounds through
+  // the sweep they took the black instance from 128 registers to 214.
+  RELOAD_TEXELS();
+  // Each texel's error against black, made once for every 3-colour
+  // candidate, in the block's fourth row (with black, alpha is not staged).
+  if (!PUNCH) {
+#pragma unroll
+    for (int t = 0; t < 16; ++t) px.set(3, t, black_err<UW>(px, chw, t));
+  }
+  Bc1Cand best3 = cand3<PUNCH, UW>(px, opaque, hi, lo, chw);
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
     float w[16], pv[16];
@@ -419,7 +594,7 @@ __device__ __forceinline__ void bc1_tile(const float (&px)[3][16], uint32_t opaq
     }
     float e0[3], e1[3];
     ls3(px, w, pv, e0, e1);
-    take_if_better(best3, cand3<PUNCH>(px, opaque, e0, e1, chw));
+    take_if_better(best3, cand3<PUNCH, UW>(px, opaque, e0, e1, chw));
   }
   // 3-colour mode needs c0 <= c1: swapping exchanges entries 0 and 1 only.
   const bool swap3 = best3.c0 > best3.c1;
@@ -613,12 +788,19 @@ __device__ __forceinline__ void bc4_words(int q0, int q1, uint64_t idx, uint32_t
   hi = (uint32_t)(idx >> 16);
 }
 
-template <int Q, bool PUNCH, bool BLACK>
-__device__ __forceinline__ void bc1_block(const float (&px)[3][16], uint32_t opaque,
-                                          const float (&chw)[3], uint32_t (&w)[2]) {
+// Thread px.tid's BC1 block after staging: its two words.  With PUNCH, bit
+// t of the opaque mask is set when texel t has alpha >= 0.5.
+template <int Q, bool PUNCH, bool BLACK, bool UW>
+__device__ __forceinline__ void bc1_block(Px px, const float* chw, uint32_t (&w)[2]) {
+  uint32_t opaque = 0xFFFFu;
+  if (PUNCH) {
+    opaque = 0u;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) opaque |= (px(3, t) >= 0.5f ? 1u : 0u) << t;
+  }
   int c0, c1;
   uint32_t idx;
-  bc1_tile<Q, PUNCH, BLACK>(px, opaque, chw, c0, c1, idx);
+  bc1_tile<Q, PUNCH, BLACK, UW>(px, opaque, chw, c0, c1, idx);
   w[0] = (uint32_t)c0 | ((uint32_t)c1 << 16);
   w[1] = idx;
 }
@@ -641,67 +823,81 @@ __device__ __forceinline__ void bc4_block(const float (&v)[16], uint32_t (&w)[2]
   bc4_words(q0, q1, idx, w[0], w[1]);
 }
 
-#ifdef __CUDACC__
-
-// [n,16,4] float32 RGBA -> px (r, g, b) and the alpha channel.
-__device__ __forceinline__ void load_rgba(const float4* __restrict__ src, float (&px)[3][16],
-                                          float (&a)[16]) {
+// Thread px.tid's BC2 (KIND 2: explicit 4-bit alpha) or BC3 (KIND 3: BC4
+// alpha) block after staging: two alpha words, then two colour words.
+template <int KIND, int Q, bool UW>
+__device__ __forceinline__ void bc23_block(Px px, const float* chw, uint32_t (&w)[4]) {
+  float a[16];
 #pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    const float4 q = src[t];
-    px[0][t] = q.x;
-    px[1][t] = q.y;
-    px[2][t] = q.z;
-    a[t] = q.w;
+  for (int t = 0; t < 16; ++t) a[t] = px(3, t);
+  uint32_t aw[2], cw[2];
+  if (KIND == 2)
+    bc2_alpha(a, aw);
+  else
+    bc4_block<Q, false>(a, aw);
+  bc1_block<Q, false, false, UW>(px, chw, cw);
+  w[0] = aw[0];
+  w[1] = aw[1];
+  w[2] = cw[0];
+  w[3] = cw[1];
+}
+
+#ifndef __CUDACC__
+
+// BC1 (KIND 1), BC2 or BC3 words of blocks [n,16,4] on the CPU, as the card
+// computes them: each CTA's staging, then its threads one after another.
+// out: [n, 2] (BC1) or [n, 4] words.
+template <int KIND, int Q, bool PUNCH, bool BLACK, bool UW>
+inline void bc_cpu(const float* blocks, uint32_t* out, int n, const float* chw) {
+  for (int first = 0; first < n; first += kThreads) {
+    const int nb = n - first < kThreads ? n - first : kThreads;
+    for (int tid = 0; tid < kThreads; ++tid) stage<KIND == 1 && !PUNCH ? 3 : 4>(blocks, first, nb, tid);
+    for (int tid = 0; tid < nb; ++tid) {
+      if (KIND == 1) {
+        uint32_t w[2];
+        bc1_block<Q, PUNCH, BLACK, UW>(Px{tid}, chw, w);
+        out[2 * (first + tid)] = w[0];
+        out[2 * (first + tid) + 1] = w[1];
+      } else {
+        uint32_t w[4];
+        bc23_block<KIND, Q, UW>(Px{tid}, chw, w);
+        for (int j = 0; j < 4; ++j) out[4 * (first + tid) + j] = w[j];
+      }
+    }
   }
 }
+
+#endif  // !__CUDACC__
+
+#ifdef __CUDACC__
 
 struct Chw {
   float w[3];
 };
 
-template <int Q, bool PUNCH, bool BLACK>
+template <int Q, bool PUNCH, bool BLACK, bool UW>
 __global__ void __launch_bounds__(kThreads)
-    bc1_kernel(const float4* __restrict__ blocks, uint2* __restrict__ out, int n, Chw chw) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float px[3][16], a[16];
-  load_rgba(blocks + (size_t)i * 16, px, a);
-  uint32_t opaque = 0xFFFFu;
-  if (PUNCH) {
-    opaque = 0u;
-#pragma unroll
-    for (int t = 0; t < 16; ++t) opaque |= (a[t] >= 0.5f ? 1u : 0u) << t;
-  }
+    bc1_kernel(const float* __restrict__ blocks, uint2* __restrict__ out, int n, Chw chw) {
+  const int first = blockIdx.x * kThreads, nb = min(kThreads, n - first);
+  stage<PUNCH ? 4 : 3>(blocks, first, nb, threadIdx.x);
+  __syncthreads();
+  if ((int)threadIdx.x >= nb) return;
   uint32_t w[2];
-  bc1_block<Q, PUNCH, BLACK>(px, opaque, chw.w, w);
-  out[i] = make_uint2(w[0], w[1]);
+  bc1_block<Q, PUNCH, BLACK, UW>(Px{(int)threadIdx.x}, chw.w, w);
+  out[first + threadIdx.x] = make_uint2(w[0], w[1]);
 }
 
-template <int Q>
+// KIND 2: BC2, KIND 3: BC3.
+template <int KIND, int Q, bool UW>
 __global__ void __launch_bounds__(kThreads)
-    bc2_kernel(const float4* __restrict__ blocks, uint4* __restrict__ out, int n, Chw chw) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float px[3][16], a[16];
-  load_rgba(blocks + (size_t)i * 16, px, a);
-  uint32_t aw[2], cw[2];
-  bc2_alpha(a, aw);
-  bc1_block<Q, false, false>(px, 0xFFFFu, chw.w, cw);
-  out[i] = make_uint4(aw[0], aw[1], cw[0], cw[1]);
-}
-
-template <int Q>
-__global__ void __launch_bounds__(kThreads)
-    bc3_kernel(const float4* __restrict__ blocks, uint4* __restrict__ out, int n, Chw chw) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float px[3][16], a[16];
-  load_rgba(blocks + (size_t)i * 16, px, a);
-  uint32_t aw[2], cw[2];
-  bc4_block<Q, false>(a, aw);
-  bc1_block<Q, false, false>(px, 0xFFFFu, chw.w, cw);
-  out[i] = make_uint4(aw[0], aw[1], cw[0], cw[1]);
+    bc23_kernel(const float* __restrict__ blocks, uint4* __restrict__ out, int n, Chw chw) {
+  const int first = blockIdx.x * kThreads, nb = min(kThreads, n - first);
+  stage<4>(blocks, first, nb, threadIdx.x);
+  __syncthreads();
+  if ((int)threadIdx.x >= nb) return;
+  uint32_t w[4];
+  bc23_block<KIND, Q, UW>(Px{(int)threadIdx.x}, chw.w, w);
+  out[first + threadIdx.x] = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 template <int Q, bool SIGNED>
@@ -754,72 +950,84 @@ inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
 // Each launcher launches on `stream` and returns cudaGetLastError() (the
 // launch is not synchronised); quality is 0-4.
 
-// blocks: [n,16,4] float32; out: [n,2] uint32.
+// blocks: [n,16,4] float32; out: [n,2] uint32.  Unit channel weights take
+// the instance without the weight products.
 extern "C" int bc1_encode_launch(const void* blocks, void* out, int n, int quality,
                                  int punch_through, int allow_black, float w0, float w1,
                                  float w2, void* stream) {
   if (n <= 0) return 0;
   const bcx::Chw chw = {{w0, w1, w2}};
   cudaStream_t s = (cudaStream_t)stream;
-  const float4* in = (const float4*)blocks;
+  const float* in = (const float*)blocks;
   uint2* o = (uint2*)out;
   const dim3 g = bcx::grid_for(n);
   const int variant = punch_through ? 2 : allow_black ? 1 : 0;
-#define CF_BC1(Q)                                                                    \
-  case Q:                                                                            \
-    if (variant == 2)                                                                \
-      bcx::bc1_kernel<Q, true, false><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw);    \
-    else if (variant == 1)                                                           \
-      bcx::bc1_kernel<Q, false, true><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw);    \
-    else                                                                             \
-      bcx::bc1_kernel<Q, false, false><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw);   \
+  const bool unit = w0 == 1.0f && w1 == 1.0f && w2 == 1.0f;
+#define CF_BC1V(Q, UW)                                                                  \
+  if (variant == 2)                                                                     \
+    bcx::bc1_kernel<Q, true, false, UW><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw);     \
+  else if (variant == 1)                                                                \
+    bcx::bc1_kernel<Q, false, true, UW><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw);     \
+  else                                                                                  \
+    bcx::bc1_kernel<Q, false, false, UW><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw);
+#define CF_BC1(Q)      \
+  case Q:              \
+    if (unit) {        \
+      CF_BC1V(Q, true) \
+    } else {           \
+      CF_BC1V(Q, false) \
+    }                  \
     break;
   switch (quality) {
     CF_BC1(0) CF_BC1(1) CF_BC1(2) CF_BC1(3) CF_BC1(4)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CF_BC1
+#undef CF_BC1V
   return (int)cudaGetLastError();
 }
 
-// blocks: [n,16,4] float32; out: [n,4] uint32 (2 alpha words, 2 colour words).
+// BC2 (kind 2) or BC3 (kind 3): blocks [n,16,4] float32; out: [n,4] uint32
+// (2 alpha words, 2 colour words).
+static int bc23_launch(int kind, const void* blocks, void* out, int n, int quality, float w0,
+                       float w1, float w2, void* stream) {
+  if (n <= 0) return 0;
+  const bcx::Chw chw = {{w0, w1, w2}};
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* in = (const float*)blocks;
+  uint4* o = (uint4*)out;
+  const dim3 g = bcx::grid_for(n);
+  const bool unit = w0 == 1.0f && w1 == 1.0f && w2 == 1.0f;
+#define CF_BC23V(Q, UW)                                                              \
+  if (kind == 2)                                                                     \
+    bcx::bc23_kernel<2, Q, UW><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw);           \
+  else                                                                               \
+    bcx::bc23_kernel<3, Q, UW><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw);
+#define CF_BC23(Q)       \
+  case Q:                \
+    if (unit) {          \
+      CF_BC23V(Q, true)  \
+    } else {             \
+      CF_BC23V(Q, false) \
+    }                    \
+    break;
+  switch (quality) {
+    CF_BC23(0) CF_BC23(1) CF_BC23(2) CF_BC23(3) CF_BC23(4)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CF_BC23
+#undef CF_BC23V
+  return (int)cudaGetLastError();
+}
+
 extern "C" int bc2_encode_launch(const void* blocks, void* out, int n, int quality, float w0,
                                  float w1, float w2, void* stream) {
-  if (n <= 0) return 0;
-  const bcx::Chw chw = {{w0, w1, w2}};
-  cudaStream_t s = (cudaStream_t)stream;
-  const float4* in = (const float4*)blocks;
-  uint4* o = (uint4*)out;
-  const dim3 g = bcx::grid_for(n);
-  switch (quality) {
-    case 0: bcx::bc2_kernel<0><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
-    case 1: bcx::bc2_kernel<1><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
-    case 2: bcx::bc2_kernel<2><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
-    case 3: bcx::bc2_kernel<3><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
-    case 4: bcx::bc2_kernel<4><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return bc23_launch(2, blocks, out, n, quality, w0, w1, w2, stream);
 }
 
-// blocks: [n,16,4] float32; out: [n,4] uint32 (2 BC4 alpha words, 2 colour words).
 extern "C" int bc3_encode_launch(const void* blocks, void* out, int n, int quality, float w0,
                                  float w1, float w2, void* stream) {
-  if (n <= 0) return 0;
-  const bcx::Chw chw = {{w0, w1, w2}};
-  cudaStream_t s = (cudaStream_t)stream;
-  const float4* in = (const float4*)blocks;
-  uint4* o = (uint4*)out;
-  const dim3 g = bcx::grid_for(n);
-  switch (quality) {
-    case 0: bcx::bc3_kernel<0><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
-    case 1: bcx::bc3_kernel<1><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
-    case 2: bcx::bc3_kernel<2><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
-    case 3: bcx::bc3_kernel<3><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
-    case 4: bcx::bc3_kernel<4><<<g, bcx::kThreads, 0, s>>>(in, o, n, chw); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return bc23_launch(3, blocks, out, n, quality, w0, w1, w2, stream);
 }
 
 // vals: [n,16] float32; out: [n,2] uint32.

@@ -6,9 +6,11 @@ device code of ``csrc/bc7_encode.cu``, ``bc7_hq_encode.cu``,
 counting float type (``bc_op_counter``).  That build must give the plain
 version's words bit for bit: here on seeded blocks (flat, two-tone,
 gradients, random) through the wire each converter uses, for every row
-the smoke run counts.  The BC7 q3-4 and BC6H builds run the card's warp
-bodies (a warp per 32 blocks, its lanes one after another), BC6H with the
-half-bit proxy made in the kernel.
+the smoke run counts.  The BC7 q0-2, q3-4 and BC6H builds run the card's
+warp bodies (a warp per 32 blocks, its lanes one after another), BC6H with
+the half-bit proxy made in the kernel; the BC1-BC3 build runs the card's
+CTA body (128 blocks staged in shared memory, then its threads one after
+another), with the unit-weight instance and the weighted one.
 """
 
 import shutil
@@ -85,6 +87,74 @@ def test_counting_build_equals_plain_version(count_bc, row):
     assert words.dtype == want.dtype == np.uint32
     assert np.array_equal(words, want), row
     assert ops > 1000, row
+
+
+@pytest.mark.parametrize("blocks", ["mixed", "ties"])
+@pytest.mark.parametrize("quality,perceptual", [(0, False), (1, False), (2, False), (2, True)],
+                         ids=["q0", "q1", "q2", "q2_perceptual"])
+def test_bc7_warp_body_equals_plain_version(count_bc, quality, perceptual, blocks):
+    """The BC7 q0-2 warp body (a warp per 32 blocks; mode 6, mode 1's
+    screen, its two subset fits, then modes 1, 5 and 4 offered in order)
+    gives the plain version's words on a group of 32 and a short one, and
+    on blocks whose partition screens tie."""
+    b = _HQ_BLOCKS[blocks]()
+    x = dequant(wire(b, "u8"))
+    consts = bc7._constants(perceptual, "cpu")
+    _, words = count_bc(f"bc7_q{quality}", x.numpy(), chw=np.asarray(consts.chw, np.float32))
+    want = bc7.encode_bc7_plain(x, quality, consts).numpy()
+    assert np.array_equal(words, want), (quality, perceptual, blocks)
+
+
+def _bc1_input(kind: str, n: int = 130) -> torch.Tensor:
+    """n blocks through the u8 wire: a CTA of 128 and a short one.  "hard":
+    alpha 0 or 1 (punch-through); "rgba": opaque; "alpha": smooth alpha."""
+    b = _blocks(n)
+    if kind == "hard":
+        b[..., 3] = (np.random.default_rng(5).random((n, 16)) > 0.3).astype(np.float32)
+    elif kind == "rgba":
+        b[..., 3] = 1.0
+    return dequant(wire(b, "u8"))
+
+
+_SRGB = np.asarray(bc.channel_weights(np.float32([0.3, 0.59, 0.11]) * np.float32(3)), np.float32)
+# case -> (counting row, input kind, channel weights or None, plain version)
+_BC1_CASES = {
+    **{f"bc1_q{q}_black": (f"bc1_q{q}", "rgba", None,
+                           lambda x, q=q: bc.encode_bc1_plain(x, q)) for q in range(5)},
+    "bc1_q2_punch": ("bc1_q2_punch", "hard", None,
+                     lambda x: bc.encode_bc1_plain(x, 2, True, False)),
+    "bc1_q2_srgb": ("bc1_q2", "rgba", _SRGB,
+                    lambda x: bc.encode_bc1_plain(x, 2, chw=tuple(map(float, _SRGB)))),
+    "bc2_q2": ("bc2_q2", "alpha", None, lambda x: bc.encode_bc2_plain(x, 2)),
+    "bc3_q2": ("bc3_q2", "alpha", None, lambda x: bc.encode_bc3_plain(x, 2)),
+}
+
+
+@pytest.mark.parametrize("case", list(_BC1_CASES))
+def test_bc1_cta_body_equals_plain_version(count_bc, case):
+    """The BC1 colour body the card runs (its CTA's texels staged, unit
+    weights without their products, black distances made once, the 565
+    sweep texel-outer) gives the plain version's words at every quality,
+    with punch-through, with sRGB weights (the weighted instance), and
+    under BC2's and BC3's alpha, across a CTA edge."""
+    row, kind, chw, plain = _BC1_CASES[case]
+    x = _bc1_input(kind)
+    _, words = count_bc(row, x.numpy(), chw=chw)
+    want = plain(x).numpy()
+    assert np.array_equal(words, want), case
+
+
+def test_bc1_sweep_counts_fewer_operations(count_bc):
+    """Sweeping texel-outer makes the unchanged channels' terms once for a
+    channel's 8 candidates: what BC1 q2 counts above q1 stays under two
+    thirds of the 48 sweep candidates' full palettes (each 16 texels x (4
+    entries x (3 differences, 3 squares, 2 sums) + 3 compares + a sum)),
+    plus 4 full palettes for q2's third round and its 3-colour half."""
+    x = _bc1_input("rgba").numpy()
+    q1, _ = count_bc("bc1_q1", x)
+    q2, _ = count_bc("bc1_q2", x)
+    palette = 16 * (4 * 8 + 3 + 1)
+    assert q2 - q1 < (2 / 3) * 48 * palette + 4 * palette, (q1, q2)
 
 
 def _tie_blocks() -> np.ndarray:

@@ -257,6 +257,54 @@ def test_bc_kernels_reject_bad_input(cuda):
     assert tuple(bc.encode_bc2(x[:0], 2).shape) == (0, 4)
 
 
+# BC1 (every quality with black, punch-through, sRGB weights), BC2 and BC3
+# at q2: (kernel call, plain call, input, launch counter).
+_BC1_EDGE_CASES = {
+    **{f"bc1_q{q}_black": (lambda x, q=q: bc.encode_bc1(x, q),
+                           lambda x, q=q: bc.encode_bc1_plain(x, q), "rgba", "bc1") for q in range(5)},
+    "bc1_q2_punch": (lambda x: bc.encode_bc1(x, 2, True, False),
+                     lambda x: bc.encode_bc1_plain(x, 2, True, False), "hard", "bc1"),
+    "bc1_q2_srgb": (lambda x: bc.encode_bc1(x, 2, ch_weights=_SRGB),
+                    lambda x: bc.encode_bc1_plain(x, 2, chw=_SRGB), "rgba", "bc1"),
+    "bc2_q2": (lambda x: bc.encode_bc2(x, 2), lambda x: bc.encode_bc2_plain(x, 2), "rgba", "bc2"),
+    "bc3_q2": (lambda x: bc.encode_bc3(x, 2), lambda x: bc.encode_bc3_plain(x, 2), "rgba", "bc3"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_BC1_EDGE_CASES))
+def test_bc1_staged_kernels_at_cta_edges(cuda, case):
+    """BC1, BC2 and BC3 stage 128 blocks a CTA in shared memory: one block,
+    part-filled warps and CTAs, and 300 = 2 x 128 + 44 give the plain
+    version's words, one launch each, with the unit-weight instance and
+    the weighted one (sRGB)."""
+    kernel, plain, kind, name = _BC1_EDGE_CASES[case]
+    x = torch.from_numpy(_bc_input(kind, 300)).to(cuda)
+    for n in (1, 31, 33, 127, 129, 300):
+        before = bc_cuda.launches[name]
+        k = kernel(x[:n])
+        torch.cuda.synchronize()
+        assert bc_cuda.launches[name] == before + 1
+        assert torch.equal(k.view(torch.int32).cpu(), plain(x[:n]).view(torch.int32).cpu()), n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quality,perceptual", [(0, False), (1, True), (2, False), (2, True)])
+def test_bc7_kernel_at_group_edges(cuda, quality, perceptual):
+    """BC7 q0-2 runs a warp per 32 blocks, 4 warps a CTA: one block,
+    part-filled warps and CTAs, and 300 blocks give the plain version's
+    words, one launch each."""
+    x = torch.from_numpy(_blocks(300, seed=4)).to(cuda)
+    consts = _constants(perceptual, cuda)
+    for n in (1, 31, 33, 127, 129, 300):
+        before = bc7_cuda.launches
+        k = bc7_cuda.encode_bc7_cuda(x[:n].contiguous(), quality, consts)
+        torch.cuda.synchronize()
+        assert bc7_cuda.launches == before + 1
+        p = encode_bc7_plain(x[:n], quality, consts)
+        assert torch.equal(k.view(torch.int32).cpu(), p.view(torch.int32).cpu()), n
+
+
 # (name, kernel call, plain call, input) for each ETC/EAC entry on the card.
 _SRGB709 = tuple(float(w) for w in np.array([0.2126, 0.7152, 0.0722], np.float32) * np.float32(3))
 _ETC_CASES = {
