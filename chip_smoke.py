@@ -28,7 +28,9 @@ exits non-zero:
    blocks, |dPSNR| <= 0.05 dB on a decoded sample of 4,096 blocks.  BC7 q0,
    q1 and q2 perceptual, q2, q3, q4 and q4 perceptual; BC1 q0-q4 (with
    black), BC1 q2 punch-through on a hard-alpha surface, BC2, BC3, BC4
-   unsigned at q2; BC4 and BC5 signed at q2 on 2x-1 through the f16 wire;
+   unsigned at q2 and q4, BC5 unsigned at q2 on the alpha surface through
+   the u8 wire; BC4 signed at q2 and q4 and BC5 signed at q2 on 2x-1
+   through the f16 wire;
    BC6H q0-q4 unsigned, q2 and q4 signed (value metric) and q2 code metric
    on the HDR surfaces through the f16 wire; ETC1 q0, q1, q2, q4, ETC2 q2,
    q4 and q2 with the Rec.709 x 3 sRGB weights, ETC2 RGBA8 q2 and q4 on the
@@ -74,7 +76,8 @@ exits non-zero:
    turns with this tree's (earlier, this, this, earlier), words identical
    (for astc_encode.cu: every ASTC entry case, words and errors).  The BC1,
    BC2, BC3 and BC7 q2 rows print their counted operations beside those of
-   the earlier thread-per-block kernels on the same blocks (EARLIER_OPS).
+   the earlier kernels on the same blocks, as do BC4, BC4 signed and BC5
+   signed (EARLIER_OPS).
 
 Then one JSON line of kernels (launches from the paths of phase 4; bound_ms
 from this run's inputs: the larger of the bytes the function must move over
@@ -82,7 +85,10 @@ from this run's inputs: the larger of the bytes the function must move over
 operations the function needs on those inputs, etc_rgb_ops (no products
 by unit channel weights) and eac_ops, for BC and ASTC
 those of its device code on a sample of the blocks, bc_op_counter and
-astc_op_counter, BC6H's with each texel's value and scale once),
+astc_op_counter, BC6H's with each texel's value and scale once and the BC4
+body's (BC3, BC4, BC5) with a mode's rounds ended at the first candidate
+not taken at every quality, the device code's count printed beside: see
+NEEDED_WHY),
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -463,16 +469,29 @@ def smem_bytes(entry_line: str) -> int:
     return int(entry_line.rsplit("static shared memory", 1)[1].split("bytes")[0])
 
 
-# Float operations per block of the earlier thread-per-block kernels'
-# device code (commit 8f071ae) on the same 1,024 blocks, counted by this
-# script's bc_op_counter then, and what has left it since.
+# Float operations per block of earlier kernels' device code on the same
+# 1,024 blocks, counted by this script's bc_op_counter then (the commit),
+# and what has left it since.
 EARLIER_OPS = {
-    "bc1_q2": (34805, "each texel's distance to black made once a block, not per 3-colour "
-               "candidate; the sweep's two unchanged channels' terms made once per texel for a "
-               "channel's 8 candidates, not per candidate"),
-    "bc2_q2": (31830, "the sweep's unchanged channels' terms, as BC1's"),
-    "bc3_q2": (36632, "the sweep's unchanged channels' terms, as BC1's"),
-    "bc7_q2": (26891, "mode 1's subset-0 mask made from its bits, not as 1 - m"),
+    "bc1_q2": (34805, "8f071ae", "each texel's distance to black made once a block, not per "
+               "3-colour candidate; the sweep's two unchanged channels' terms made once per texel "
+               "for a channel's 8 candidates, not per candidate"),
+    "bc2_q2": (31830, "8f071ae", "the sweep's unchanged channels' terms, as BC1's"),
+    "bc3_q2": (22986, "f476058", "the alpha's least squares make a texel's 1 - w once, not three "
+               "times, and skip the texels at the fixed extremes"),
+    "bc4_q2": (4865, "f476058", "as BC3's alpha"),
+    "bc4s_q2": (4756, "f476058", "as BC3's alpha"),
+    "bc5s_q2": (9574, "f476058", "as BC3's alpha, on both channels"),
+    "bc7_q2": (26891, "8f071ae", "mode 1's subset-0 mask made from its bits, not as 1 - m"),
+}
+
+# The rows whose bound counts fewer operations than their device code
+# makes (bc_op_counter's device=False), and why.
+NEEDED_WHY = {
+    "bc6h": "each texel's value and scale made once",
+    "bc3": "the alpha's rounds end at the first candidate not taken",
+    "bc4": "a mode's rounds end at the first candidate not taken",
+    "bc5": "a mode's rounds end at the first candidate not taken",
 }
 
 # Code before a source's #include in its counting build.
@@ -490,6 +509,13 @@ static inline CF once_a_texel(F f) {
   return v;
 }
 #define TEXEL_FORM(v) once_a_texel([&]() { return CF(v); })
+""",
+    # The BC4 body ends a mode's rounds at the first candidate not taken
+    # from q3 on (BC4_EXIT_FROM): count sets it to 0 for the rounds the
+    # function needs at every quality, or to the kernel's 3.
+    "bc_encode": r"""
+static int g_bc4_exit_from = 3;
+#define BC4_EXIT_FROM g_bc4_exit_from
 """,
 }
 
@@ -531,10 +557,11 @@ extern "C" unsigned long long count(const float* blocks, int n, int q, const flo
     "bc_encode": r"""
 // BC1 (kind 1: black allowed, or with punch-through), BC2 and BC3 through
 // the CTA body the card runs (its texels staged, then its threads one after
-// another); BC4 unsigned, BC5 signed and BC4 signed (kinds 4, 5, 6) a block
-// at a time.
-// arg = kind | quality << 4 | punch-through << 8; blocks [n,16,4] (BC4:
-// [n,16]); out [n,4].
+// another); so do BC4 unsigned, BC5 signed, BC4 signed and BC5 unsigned
+// (kinds 4, 5, 6, 7) at any quality.
+// arg = kind | quality << 4 | punch-through << 8 | needed << 9 (the BC4
+// body's rounds end at the first candidate not taken at every quality, not
+// only from q3 as on the card); blocks [n,16,4] (BC4: [n,16]); out [n,4].
 template <int KIND, int Q, bool PUNCH, bool UW>
 static void cta(const float* blocks, int n, const CF* w, uint32_t* out) {
   constexpr int nw = KIND == 1 ? 2 : 4;
@@ -543,11 +570,24 @@ static void cta(const float* blocks, int n, const CF* w, uint32_t* out) {
   for (int i = 0; i < n; ++i)
     for (int j = 0; j < nw; ++j) out[4 * i + j] = o[nw * i + j];
 }
+template <int Q>
+struct QualityTag {
+  static constexpr int value = Q;
+};
+template <class F>
+static void q_instance(int q, F f) {
+  if (q == 0) f(QualityTag<0>());
+  else if (q == 1) f(QualityTag<1>());
+  else if (q == 2) f(QualityTag<2>());
+  else if (q == 3) f(QualityTag<3>());
+  else f(QualityTag<4>());
+}
 extern "C" unsigned long long count(const float* blocks, int n, int arg, const float* chw,
                                     uint32_t* out) {
   g_ops = 0;
   const CF w[3] = {chw[0], chw[1], chw[2]};
   const int kind = arg & 15, q = (arg >> 4) & 15, punch = (arg >> 8) & 1;
+  g_bc4_exit_from = (arg >> 9) & 1 ? 0 : 3;
   const bool unit = chw[0] == 1.0f && chw[1] == 1.0f && chw[2] == 1.0f;
   if (kind == 1 && unit && !punch) {
     if (q == 0) cta<1, 0, false, true>(blocks, n, w, out);
@@ -563,25 +603,21 @@ extern "C" unsigned long long count(const float* blocks, int n, int arg, const f
     cta<2, 2, false, true>(blocks, n, w, out);
   } else if (kind == 3 && unit && q == 2) {
     cta<3, 2, false, true>(blocks, n, w, out);
-  } else if (kind >= 4 && q == 2) {
-    for (int i = 0; i < n; ++i) {
-      CF r[16], g[16];
-      uint32_t x[2], y[2] = {0u, 0u};
-      for (int t = 0; t < 16; ++t) {
-        r[t] = CF(kind != 5 ? blocks[i * 16 + t] : blocks[(i * 16 + t) * 4]);
-        g[t] = CF(kind != 5 ? 0.0f : blocks[(i * 16 + t) * 4 + 1]);
-      }
-      if (kind == 4) {
-        bcx::bc4_block<2, false>(r, x);
-      } else if (kind == 6) {
-        bcx::bc4_block<2, true>(r, x);
+  } else if (kind >= 4 && kind <= 7) {
+    q_instance(q, [&](auto qc) {
+      constexpr int Q = decltype(qc)::value;
+      if (kind == 4 || kind == 6) {
+        std::vector<uint32_t> o((size_t)n * 2);
+        if (kind == 4) bcx::bc4_cpu<Q, false>((const CF*)blocks, o.data(), n);
+        else bcx::bc4_cpu<Q, true>((const CF*)blocks, o.data(), n);
+        for (int i = 0; i < n; ++i)
+          for (int j = 0; j < 4; ++j) out[4 * i + j] = j < 2 ? o[2 * i + j] : 0u;
+      } else if (kind == 5) {
+        bcx::bc5_cpu<Q, true>((const CF*)blocks, out, n, 4);
       } else {
-        bcx::bc4_block<2, true>(r, x);
-        bcx::bc4_block<2, true>(g, y);
+        bcx::bc5_cpu<Q, false>((const CF*)blocks, out, n, 4);
       }
-      const uint32_t o[4] = {x[0], x[1], y[0], y[1]};
-      memcpy(out + 4 * i, o, 16);
-    }
+    });
   } else {
     abort();  // no such instance in this build
   }
@@ -629,15 +665,18 @@ extern "C" void proxy(const float* in, int n, int is_signed, float* out) {
 def bc_op_counter(csrc: str, tmp: str):
     """-> count(row, host input, chw=None, device=False): (float operations
     per block, the device code's words [n, 4]) for the rows bc7_q0 .. bc7_q4,
-    bc1_q0 .. bc1_q4 (black allowed), bc1_q2_punch, bc2_q2, bc3_q2, bc4_q2,
-    bc4s_q2, bc5s_q2, and BC6H's
+    bc1_q0 .. bc1_q4 (black allowed), bc1_q2_punch, bc2_q2, bc3_q2, bc4_q0 ..
+    bc4_q4, bc4s_q0 .. bc4s_q4 (signed), bc5_q2, bc5s_q2, and BC6H's
     bc6h[s]_q{2,4}[_code] (s: signed; _code: the code metric) (BC4: [n,16]
     values; BC6H: [n,16,3] RGB through the f16 wire; the others [n,16,4]
     RGBA); chw: other channel weights than the row's (BC7: the perceptual
     ones; BC1 at q2: any, through the weighted instance).  BC6H counts each
     texel's value and scale once, as the function needs them, or with
-    device=True at every read, as its device code makes them.  count.proxy(values, signed): the BC6H kernel's half-bit proxy of
-    a float32 array."""
+    device=True at every read, as its device code makes them; the BC4 body
+    (bc3, bc4, bc5 rows) ends a mode's rounds at the first candidate not
+    taken at every quality, or with device=True only from q3, as its device
+    code does.  count.proxy(values, signed): the BC6H kernel's half-bit
+    proxy of a float32 array."""
     import ctypes
 
     from cuttlefish_tpu_torch.kernels import bc, bc6h, bc7
@@ -686,10 +725,11 @@ def bc_op_counter(csrc: str, tmp: str):
             "bc7_q4": ("bc7_hq_encode", 4, chw7),
             "bc1_q2_punch": ("bc_encode", 1 | 2 << 4 | 1 << 8, chw1),
             "bc2_q2": ("bc_encode", 2 | 2 << 4, chw1), "bc3_q2": ("bc_encode", 3 | 2 << 4, chw1),
-            "bc4_q2": ("bc_encode", 4 | 2 << 4, chw1), "bc4s_q2": ("bc_encode", 6 | 2 << 4, chw1),
-            "bc5s_q2": ("bc_encode", 5 | 2 << 4, chw1)}
+            "bc5s_q2": ("bc_encode", 5 | 2 << 4, chw1), "bc5_q2": ("bc_encode", 7 | 2 << 4, chw1)}
     for q in range(5):
         rows[f"bc1_q{q}"] = ("bc_encode", 1 | q << 4, chw1)
+        rows[f"bc4_q{q}"] = ("bc_encode", 4 | q << 4, chw1)
+        rows[f"bc4s_q{q}"] = ("bc_encode", 6 | q << 4, chw1)
     for q in (2, 4):
         for sgn in (0, 1):
             for code in (0, 1):
@@ -700,6 +740,8 @@ def bc_op_counter(csrc: str, tmp: str):
         name, arg, row_chw = rows[row]
         if name == "bc6h_encode" and not device:
             arg |= 1 << 5
+        if name == "bc_encode" and not device:
+            arg |= 1 << 9
         chw = row_chw if chw is None else np.ascontiguousarray(chw, np.float32)
         x = np.ascontiguousarray(blocks, np.float32)
         words = np.zeros((x.shape[0], 4), np.uint32)
@@ -839,7 +881,9 @@ def main(argv: list[str]) -> int:
         for stage, q in (("b", 2), ("b", 4), ("c", 4), ("d", 4)):
             plan = astc_cuda.warp_plan(stage, bw, bh, q, True, True)
             if not plan["group"]:
-                continue  # a thread per block
+                log("build", f"astc_{stage} {bw}x{bh} q{q}: a thread per block, 64 a CTA, its "
+                    f"blocks' texels in static shared memory (astc_b4x4_kernel above)")
+                continue
             log("build", f"astc_{stage} {bw}x{bh} q{q} gray alpha: {plan['group']} blocks a warp, "
                 f"4 warps a CTA, {plan['smem_bytes']} bytes of dynamic shared memory a CTA "
                 f"({plan['mask_bytes']} of pattern masks); {plan['scratch_bytes']} bytes of device "
@@ -872,6 +916,9 @@ def main(argv: list[str]) -> int:
         "shdr": dequant(wire(host["shdr"], "f16").to(dev))[..., :3].contiguous(),
     }
     dev_in["alpha1"] = dev_in["alpha"][..., 3].contiguous()  # BC4 unsigned, EAC A8: alpha
+    # BC5 unsigned: the alpha surface through the u8 wire, as Bc5Converter
+    # hands it on.
+    dev_in["alpha8"] = dequant(wire(host["alpha"], "u8").to(dev))
     dev_in["signed1"] = dev_in["signed"][..., 0].contiguous()  # BC4, EAC R11 signed: red
     # EAC R11/RG11 unsigned: the surface through the f16 wire, as
     # EacR11Converter hands it on.
@@ -905,9 +952,17 @@ def main(argv: list[str]) -> int:
         "bc4s_q2": (lambda x: bc.encode_bc4(x, 2, True),
                     lambda x: bc.encode_bc4_plain(x, 2, True),
                     "signed1", lambda r: decode_bc4(r, signed=True), None, 2.0),
+        # q3-q4 take the other side of the rounds' exit (bc4_tile).
+        "bc4_q4": (lambda x: bc.encode_bc4(x, 4), lambda x: bc.encode_bc4_plain(x, 4),
+                   "alpha1", decode_bc4, None, 1.0),
+        "bc4s_q4": (lambda x: bc.encode_bc4(x, 4, True),
+                    lambda x: bc.encode_bc4_plain(x, 4, True),
+                    "signed1", lambda r: decode_bc4(r, signed=True), None, 2.0),
         "bc5s_q2": (lambda x: bc.encode_bc5(x, 2, True),
                     lambda x: bc.encode_bc5_plain(x, 2, True),
                     "signed", lambda r: decode_bc5(r, signed=True), slice(0, 2), 2.0),
+        "bc5_q2": (lambda x: bc.encode_bc5(x, 2), lambda x: bc.encode_bc5_plain(x, 2),
+                   "alpha8", decode_bc5, slice(0, 2), 1.0),
         "bc1_q2_punch": (lambda x: bc.encode_bc1(x, 2, True, False),
                          lambda x: bc.encode_bc1_plain(x, 2, True, False),
                          "hard", decode_bc1, slice(0, 4), 255.0),
@@ -1001,7 +1056,7 @@ def main(argv: list[str]) -> int:
     def target_of(kind, chans):
         """What the sample should decode to: 8-bit texels of the source for
         the colour formats, the float input for BC4, BC5, BC6H and EAC."""
-        if kind in ("alpha1", "signed1", "signed", "hdr", "shdr", "red16", "rgba16"):
+        if kind in ("alpha1", "alpha8", "signed1", "signed", "hdr", "shdr", "red16", "rgba16"):
             vals = dev_in[kind].cpu().numpy()[sample].astype(np.float64)
             return vals if chans is None else vals[..., chans]
         src = host[kind][sample]
@@ -1419,9 +1474,9 @@ def main(argv: list[str]) -> int:
         ("bc3_encode", "bc3", "bc3_q2", "cuttlefish_tpu_torch/csrc/bc_encode.cu",
          "cuttlefish_tpu/kernels/bc_pallas.py:517", 256, ()),
         ("bc4_encode", "bc4", "bc4_q2", "cuttlefish_tpu_torch/csrc/bc_encode.cu",
-         "cuttlefish_tpu/kernels/bc_pallas.py:477", 64, ("bc4s_q2",)),
+         "cuttlefish_tpu/kernels/bc_pallas.py:477", 64, ("bc4s_q2", "bc4_q4", "bc4s_q4")),
         ("bc5_encode", "bc5", "bc5s_q2", "cuttlefish_tpu_torch/csrc/bc_encode.cu",
-         "cuttlefish_tpu/kernels/bc_pallas.py:539", 128, ()),
+         "cuttlefish_tpu/kernels/bc_pallas.py:539", 128, ("bc5_q2",)),
         ("bc6h_encode", "bc6h", "bc6h_q4", "cuttlefish_tpu_torch/csrc/bc6h_encode.cu",
          "cuttlefish_tpu/kernels/bc6h_pallas.py:584", 192, ("bc6h_q2", "bc6hs_q4", "bc6h_q2_code")),
         # This slice: the five entries of csrc/etc_encode.cu.
@@ -1466,17 +1521,25 @@ def main(argv: list[str]) -> int:
         else:
             xs = x[bc_samp].contiguous()
             row, chw = count_as.get(case, (case, None))
+            want = plain(xs).cpu().numpy()
             ops, words = count_bc(row, xs.cpu().numpy(), chw)
-            check(np.array_equal(words, plain(xs).cpu().numpy()),
+            check(np.array_equal(words, want),
                   f"{case}: the counting build's words differ from the plain version's")
-            counted = f"device code's, counted on {bc_samp.numel()} blocks"
+            device_ops = ops
+            why = next((w for p, w in NEEDED_WHY.items() if case.startswith(p)), None)
+            if why:
+                device_ops, words = count_bc(row, xs.cpu().numpy(), chw, device=True)
+                check(np.array_equal(words, want),
+                      f"{case}: the device code's counting build's words differ from the plain "
+                      f"version's")
+                counted = (f"needed ({why}), counted on {bc_samp.numel()} blocks; the device "
+                           f"code's {device_ops:.0f}")
+            else:
+                counted = f"device code's, counted on {bc_samp.numel()} blocks"
             if case in EARLIER_OPS:
-                ops9, left = EARLIER_OPS[case]
-                counted += f"; the earlier device code's {ops9} ({ops / ops9 - 1:+.1%}: {left})"
-            if case.startswith("bc6h"):
-                device_ops, _ = count_bc(case, xs.cpu().numpy(), device=True)
-                counted = (f"needed (each texel's value and scale made once), counted on "
-                           f"{bc_samp.numel()} blocks; the device code's {device_ops:.0f}")
+                ops0, commit, left = EARLIER_OPS[case]
+                counted += (f"; the device code of {commit} {ops0} ({device_ops / ops0 - 1:+.1%}: "
+                            f"{left})")
         bytes_ = n * (in_bytes + out_bytes.get(key, 16))
         t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, n * ops / F32_OPS_PER_S * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"

@@ -39,9 +39,17 @@
 // block gave about 7 warps an SM, with each block's tasks one after
 // another; a warp per task gives up to 8 times the warps.
 //
-// Entry B at 4x4: one thread per ASTC block, 64 threads per CTA, the
-// block's texels in the thread's local memory, where a warp's loads of one
-// texel of its 32 blocks coalesce.
+// Entry B at 4x4: one thread per ASTC block, 64 threads per CTA, the CTA's
+// blocks staged once, coalesced, in shared memory at the odd stride of
+// entry A (Blk<16, 0>: 32 threads on 32 blocks read 32 banks).  The screen
+// holds the block's 64 texels in registers for its 438 patterns.  The rest
+// of its time is the reranks and fits, whose frames live in local memory
+// (1 KB a thread), so the kernel asks for a shared-memory carveout that
+// leaves L1 room for them.  The warp body of B above 4x4 was tried here
+// and kept out: at 4x4 it gives each lane the screens, reranks and fits a
+// thread has, adds the top-k merges, and its 70 KB of shared memory a CTA
+// leave L1 less room (0.73x the earlier thread per block, its texels in
+// local memory, at q2; 1.00x at q4).
 //
 // Entries B above 4x4, C and D, whose pattern screens took most of their
 // time: a warp per group of G blocks, 4 warps per CTA.  The entry's
@@ -65,7 +73,12 @@
 // but a 4x4 block at quality 2 runs some twenty layout fits of several
 // refinement rounds each and screens 438 partition patterns; at 12x12 a
 // screen covers 144 texels per pattern, and a decimated fit runs 17
-// footprint scorings a Gauss-Seidel pass.
+// footprint scorings a Gauss-Seidel pass.  So the shared bodies do no
+// work twice: a fit's refinement rounds end at the first candidate not
+// taken (the next round's least squares would start from the same best
+// and make it again), the continuous SSE and the block error fold each
+// texel's centred values and endpoints once for all their sums, and a
+// weight search reads its levels' weights once.
 //
 // Numerics, so that the kernel agrees with the plain version bit for bit:
 // every sum over texels is a left fold in texel order, except the
@@ -270,10 +283,11 @@ __device__ __forceinline__ float memb(const Part<MT>& P, int p, int t) {
 }
 
 // Decoded byte of the exact decoder model (16-bit endpoint expansion,
-// 64-weight interpolation, top byte).
+// 64-weight interpolation, top byte): ((d0 * 257 * (64 - w) + d1 * 257 * w
+// + 32) >> 6) >> 8, the same integer written as one product by w of the
+// texel's constants (a non-negative sum: the two shifts are one).
 __device__ __forceinline__ float dec8(int d0, int d1, int w) {
-  const int c16 = (d0 * 257 * (64 - w) + d1 * 257 * w + 32) >> 6;
-  return (float)(c16 >> 8);
+  return (float)((((d1 - d0) * 257) * w + (d0 * 16448 + 32)) >> 14);
 }
 
 __device__ __forceinline__ float sq(float x) { return x * x; }
@@ -484,13 +498,18 @@ __device__ __noinline__ void wquant_exact(const Blk<MT, PD>& B, const Ends& E, c
                                           const int* chs, int nc, const Lay& L, uint8_t* gq,
                                           uint8_t* unq) {
   const int T = B.T, levels = L.wlevels;
+  int uq[8];  // the levels' weights, read once for every texel
+#pragma unroll
+  for (int q = 0; q < 8; ++q) uq[q] = q < levels ? L.unq[q] : 0;
   for (int t = 0; t < T; ++t) {
     const TexelEnds R = texel_ends(B, E, P, chs, nc, t);
     if (levels <= 8) {
-      int bq = 0, bu = L.unq[0];
+      int bq = 0, bu = uq[0];
       float be = texel_werr(R, bu);
-      for (int q = 1; q < levels; ++q) {
-        const int w = L.unq[q];
+#pragma unroll
+      for (int q = 1; q < 8; ++q) {
+        if (q >= levels) break;
+        const int w = uq[q];
         const float e = texel_werr(R, w);
         if (e < be) {
           bq = q;
@@ -637,20 +656,22 @@ __device__ __noinline__ void gs_refine(const Blk<MT, PD>& B, const Ends& E, cons
 }
 
 // Block error of texel weights w64 (all 4 channels, per channel a fold
-// over texels, then over channels).
+// over texels, then over channels): one pass over the texels, each
+// texel's partition and weight read once for its four channel folds.
 template <int MT, int PD>
 __device__ __noinline__ float eval_exact(const Blk<MT, PD>& B, const Ends& E, const Part<MT> P,
                                          const uint8_t* w64) {
-  float err = 0.0f;
-  for (int c = 0; c < 4; ++c) {
-    float s = 0.0f;
-    for (int t = 0; t < B.T; ++t) {
-      const float x = sq(dec8(e0c(E, P, c, t), e1c(E, P, c, t), w64[t]) - B.px[c][t]);
-      s = t == 0 ? x : s + x;
+  float s[4];
+  for (int t = 0; t < B.T; ++t) {
+    const int p = part_of(P, t), w = w64[t];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int d0 = c < E.nche ? E.d0[p][c] : 255, d1 = c < E.nche ? E.d1[p][c] : 255;
+      const float x = sq(dec8(d0, d1, w) - B.px[c][t]);
+      s[c] = t == 0 ? x : s[c] + x;
     }
-    err = c == 0 ? s : err + s;
   }
-  return err;
+  return ((s[0] + s[1]) + s[2]) + s[3];
 }
 
 // ---------------------------------------------------------------------------
@@ -744,16 +765,17 @@ __device__ __noinline__ void fit_parts(const Blk<MT, PD>& B, const Lay& L, const
     }
     cand.err = eval_exact(B, E, P, unq);
     const int ng = L.pinv == nullptr ? T : L.g;
-    if (it == 0 || cand.err < best.err) {
-      for (int p = 0; p < nparts; ++p)
-        for (int c = 0; c < nch; ++c) {
-          best.q0[p][c] = cand.q0[p][c];
-          best.q1[p][c] = cand.q1[p][c];
-        }
-      for (int j = 0; j < ng; ++j) best.gq[j] = gq[j];
-      for (int t = 0; t < T; ++t) best_unq[t] = unq[t];
-      best.err = cand.err;
-    }
+    // A candidate not taken leaves best_unq as it was, so every later round
+    // would make the same endpoints and the same candidate again.
+    if (it > 0 && !(cand.err < best.err)) break;
+    for (int p = 0; p < nparts; ++p)
+      for (int c = 0; c < nch; ++c) {
+        best.q0[p][c] = cand.q0[p][c];
+        best.q1[p][c] = cand.q1[p][c];
+      }
+    for (int j = 0; j < ng; ++j) best.gq[j] = gq[j];
+    for (int t = 0; t < T; ++t) best_unq[t] = unq[t];
+    best.err = cand.err;
     if (it + 1 < n_it) {
       for (int t = 0; t < T; ++t) tw[t] = (float)best_unq[t] / 64.0f;
       for (int p = 0; p < nparts; ++p) {
@@ -848,22 +870,22 @@ __device__ __noinline__ void fit_dual(const Blk<MT, PD>& B, const Lay& L, int cc
       }
       err = c == 0 ? s : err + s;
     }
-    if (it == 0 || err < best.err) {
-      for (int c = 0; c < nch; ++c) {
-        best.q0[0][c] = cand.q0[0][c];
-        best.q1[0][c] = cand.q1[0][c];
-      }
-      const int g = L.g;
-      for (int j = 0; j < g; ++j) {
-        best.gq[2 * j] = gq0[j];
-        best.gq[2 * j + 1] = gq1[j];
-      }
-      for (int t = 0; t < T; ++t) {
-        b0[t] = unq0[t];
-        b1[t] = unq1[t];
-      }
-      best.err = err;
+    // A candidate not taken leaves b0 and b1 as they were: every later round
+    // would repeat it (as fit_parts).
+    if (it > 0 && !(err < best.err)) break;
+    for (int c = 0; c < nch; ++c) {
+      best.q0[0][c] = cand.q0[0][c];
+      best.q1[0][c] = cand.q1[0][c];
     }
+    for (int j = 0; j < L.g; ++j) {
+      best.gq[2 * j] = gq0[j];
+      best.gq[2 * j + 1] = gq1[j];
+    }
+    for (int t = 0; t < T; ++t) {
+      b0[t] = unq0[t];
+      b1[t] = unq1[t];
+    }
+    best.err = err;
     if (it + 1 < n_it) {
       float w0[MT];
       for (int t = 0; t < T; ++t) {
@@ -972,13 +994,6 @@ __device__ __noinline__ void pack_fit(const int* d, const Lay& L, const Fit<MT>&
 // ---------------------------------------------------------------------------
 // The kernel bodies
 // ---------------------------------------------------------------------------
-
-template <int MT>
-__device__ void load_block(const float* src, int T, Blk<MT>& B) {
-  B.T = T;
-  for (int t = 0; t < T; ++t)
-    for (int c = 0; c < 4; ++c) B.px[c][t] = clampf(src[t * 4 + c], 0.0f, 1.0f) * 255.0f;
-}
 
 template <int MT, int PD>
 __device__ bool is_gray(const int* d, const Blk<MT, PD>& B) {
@@ -1103,31 +1118,38 @@ __device__ __forceinline__ void topk_insert(float* vs, int* ids, int& cnt, int k
 }
 
 // Continuous-SSE estimate of a 2-partition split (subset 0, then 1).
-template <int MT>
-__device__ __noinline__ float cont_sse(const Blk<MT>& B, const Part<MT> P) {
+// Each sum is a fold in texel order; the folds of one pass over the texels
+// share the texel's membership and centred values, made once.
+template <int MT, int PD>
+__device__ __noinline__ float cont_sse(const Blk<MT, PD>& B, const Part<MT> P) {
   const int T = B.T;
   float tot = 0.0f;
   for (int p = 0; p < 2; ++p) {
-    float cnt = memb(P, p, 0);
-    for (int t = 1; t < T; ++t) cnt = cnt + memb(P, p, t);
+    float cnt = 0.0f, s[4];
+    for (int t = 0; t < T; ++t) {
+      const float m = memb(P, p, t);
+      cnt = t == 0 ? m : cnt + m;
+      for (int c = 0; c < 4; ++c) {
+        const float x = B.px[c][t] * m;
+        s[c] = t == 0 ? x : s[c] + x;
+      }
+    }
     cnt = cnt + 1e-6f;
     float mean[4];
-    for (int c = 0; c < 4; ++c) {
-      float s = B.px[c][0] * memb(P, p, 0);
-      for (int t = 1; t < T; ++t) s = s + B.px[c][t] * memb(P, p, t);
-      mean[c] = s / cnt;
-    }
+    for (int c = 0; c < 4; ++c) mean[c] = s[c] / cnt;
     float cov[4][4];
-    for (int a = 0; a < 4; ++a)
-      for (int b = a; b < 4; ++b) {
-        float s = 0.0f;
-        for (int t = 0; t < T; ++t) {
-          const float m = memb(P, p, t);
-          const float x = ((B.px[a][t] - mean[a]) * m) * ((B.px[b][t] - mean[b]) * m);
-          s = t == 0 ? x : s + x;
+    for (int t = 0; t < T; ++t) {
+      const float m = memb(P, p, t);
+      float xc[4];
+      for (int c = 0; c < 4; ++c) xc[c] = (B.px[c][t] - mean[c]) * m;
+      for (int a = 0; a < 4; ++a)
+        for (int b = a; b < 4; ++b) {
+          const float x = xc[a] * xc[b];
+          cov[a][b] = t == 0 ? x : cov[a][b] + x;
         }
-        cov[a][b] = cov[b][a] = s;
-      }
+    }
+    for (int a = 0; a < 4; ++a)
+      for (int b = 0; b < a; ++b) cov[a][b] = cov[b][a];
     float v[4];
     power3(cov, 4, v);
     float e1 = 0.0f, e2 = 0.0f;
@@ -1166,8 +1188,8 @@ __device__ void rank_keep(const int* seeds, const float* ests, int k, int keep, 
   }
 }
 
-template <int MT>
-__device__ void screen_totals(const Blk<MT>& B, float& sq_all, float s_all[4]) {
+template <int MT, int PD>
+__device__ void screen_totals(const Blk<MT, PD>& B, float& sq_all, float s_all[4]) {
   for (int t = 0; t < B.T; ++t) {
     const float x = ((B.px[0][t] * B.px[0][t] + B.px[1][t] * B.px[1][t]) + B.px[2][t] * B.px[2][t]) +
                     B.px[3][t] * B.px[3][t];
@@ -1180,17 +1202,11 @@ __device__ void screen_totals(const Blk<MT>& B, float& sq_all, float s_all[4]) {
   }
 }
 
-// Estimate of kernel B's screen for the 2-partition pattern row m (one
-// mask: partition 1): the block's SSE less what the two partition means
-// explain; invalid (a partition under one texel) is infinite.
-template <int MT>
-__device__ __forceinline__ float screen_b(const Blk<MT>& B, const int* m, int nw, float sq_all,
-                                          const float s_all[4]) {
-  const float tf = (float)B.T;
-  const float ns = popf(m, nw);
-  float sp[1][4];
-  lane_sums_n<MT, 1>(B, m, nw, sp);
-  const float* s1 = sp[0];
+// Kernel B's screen estimate from the masked sums s1 of partition 1 (ns
+// texels): the block's SSE less what the two partition means explain;
+// invalid (a partition under one texel) is infinite.
+__device__ __forceinline__ float screen_b_est(const float s1[4], float ns, float tf, float sq_all,
+                                              const float s_all[4]) {
   const float n1 = ns + 1e-6f, n0 = (tf - ns) + 1e-6f;
   float a = s1[0] * s1[0], b = sq(s_all[0] - s1[0]);
   for (int c = 1; c < 4; ++c) {
@@ -1202,10 +1218,40 @@ __device__ __forceinline__ float screen_b(const Blk<MT>& B, const int* m, int nw
   return sse;
 }
 
-// Kernel B at 4x4, a thread per block: 2-partition screen, top-k, rerank,
-// CEM 8 (12) fits.
+// Estimate of kernel B's screen for the 2-partition pattern row m (one
+// mask: partition 1).
 template <int MT>
-__device__ __noinline__ void body_b(const int* d, const Blk<MT>& B, uint32_t w[4], float& e) {
+__device__ __forceinline__ float screen_b(const Blk<MT>& B, const int* m, int nw, float sq_all,
+                                          const float s_all[4]) {
+  float sp[1][4];
+  lane_sums_n<MT, 1>(B, m, nw, sp);
+  return screen_b_est(sp[0], popf(m, nw), (float)B.T, sq_all, s_all);
+}
+
+// The same at 4x4 with the block's 64 texels in registers (x), read once
+// for all its patterns: lane_sums_n's four texel lanes, in its order.
+__device__ __forceinline__ float screen_b16(const float (&x)[4][16], uint32_t m, float sq_all,
+                                            const float s_all[4]) {
+  float l[4][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) l[c][k] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < 16; ++t)
+    if ((m >> t) & 1u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) l[c][t & 3] = l[c][t & 3] + x[c][t];
+  float s1[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) s1[c] = (l[c][0] + l[c][1]) + (l[c][2] + l[c][3]);
+  return screen_b_est(s1, (float)__popc(m), 16.0f, sq_all, s_all);
+}
+
+// Kernel B at 4x4, a thread per block (its block staged in shared memory):
+// 2-partition screen, top-k, rerank, CEM 8 (12) fits.
+__device__ __noinline__ void body_b(const int* d, const Blk<16, 0>& B, uint32_t w[4], float& e) {
+  constexpr int MT = 16;
   const int nw = d[H_NW], U = d[H_U2];
   const int* masks = d + d[H_OFF_P2];
   const int* smap = d + d[H_OFF_S2];
@@ -1214,8 +1260,13 @@ __device__ __noinline__ void body_b(const int* d, const Blk<MT>& B, uint32_t w[4
   const int topk = d[H_TOPK2], keep = d[H_KEEP2];
   float vs[kMaxTopK];
   int ids[kMaxTopK], cnt = 0;
+  float x[4][16];  // the texels in registers for the screen's 438 patterns (one mask word each)
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int t = 0; t < 16; ++t) x[c][t] = B.px[c][t];
   for (int u = 0; u < U; ++u)
-    topk_insert(vs, ids, cnt, topk, screen_b(B, masks + u * nw, nw, sq_all, s_all), u);
+    topk_insert(vs, ids, cnt, topk, screen_b16(x, (uint32_t)masks[u], sq_all, s_all), u);
   int seeds[kMaxTopK];
   int nseeds = topk;
   if (topk > keep) {
@@ -1543,7 +1594,7 @@ __device__ void encode_group(const int* d, const int* masks, const WarpPlan& P, 
   const int K = P.slots, k = P.topk;
   const int* lays = d + d[S == 1 ? H_OFF_B : S == 2 ? H_OFF_C : H_OFF_D];
 
-  // Texels, read coalesced and scaled as load_block does; then each
+  // Texels, read coalesced and scaled to clip(x, 0, 1) * 255; then each
   // block's gate and screen totals, a lane per block.
   FOR_LANES(lane) {
     const float* src = blocks + i0 * T * 4;
@@ -1789,6 +1840,17 @@ __device__ void encode_group_a(const int* d, const APlan& P, const float* blocks
   }
 }
 
+// Thread tid's share of staging blocks i0 .. i0 + ng - 1 of B at 4x4 (a
+// thread per block, kThreads a CTA): coalesced, scaled to clip(x, 0, 1) *
+// 255, at an odd stride.
+__device__ __forceinline__ void stage_b4x4(const float* blocks, long long i0, int ng, int tid,
+                                           Blk<16, 0>* blk) {
+  const float* src = blocks + i0 * 64;
+  for (int x = tid; x < ng * 64; x += kThreads)
+    blk[x >> 6].px[x & 3][(x & 63) >> 2] = clampf(src[x], 0.0f, 1.0f) * 255.0f;
+  if (tid < ng) blk[tid].T = 16;
+}
+
 #ifndef __CUDACC__
 
 // Entry `stage` (0..3 = a..d) on n blocks on the CPU, arrays sized by the
@@ -1807,11 +1869,15 @@ inline void encode_stage_t(int stage, const int* d, const float* blocks, int n, 
     free(smem);
     return;
   }
-  if (!warp_entry(stage, MT)) {
-    for (int i = 0; i < n; ++i) {
-      Blk<MT> B;
-      load_block(blocks + (size_t)i * T * 4, T, B);
-      body_b(d, B, words + 4 * i, err[i]);
+  if (!warp_entry(stage, MT)) {  // B at 4x4: each CTA's blocks staged, then its threads
+    if constexpr (MT == 16) {
+      Blk<MT, 0>* blk = new Blk<MT, 0>[kThreads];
+      for (int i0 = 0; i0 < n; i0 += kThreads) {
+        const int ng = n - i0 < kThreads ? n - i0 : kThreads;
+        for (int tid = 0; tid < kThreads; ++tid) stage_b4x4(blocks, i0, ng, tid, blk);
+        for (int tid = 0; tid < ng; ++tid) body_b(d, blk[tid], words + 4 * (i0 + tid), err[i0 + tid]);
+      }
+      delete[] blk;
     }
     return;
   }
@@ -1844,19 +1910,22 @@ inline void encode_stage(int stage, const int* d, const float* blocks, int n, ui
 
 #ifdef __CUDACC__
 
-// Entry B at 4x4: one thread per block.
+// Entry B at 4x4 with a thread per block: the CTA's blocks staged once,
+// coalesced, in shared memory at an odd stride.
 __global__ void __launch_bounds__(kThreads)
     astc_b4x4_kernel(const float* __restrict__ blocks, const int* __restrict__ desc,
                      uint4* __restrict__ words, float* __restrict__ err, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Blk<16> B;
-  load_block(blocks + (size_t)i * 16 * 4, 16, B);
+  __shared__ Blk<16, 0> blk[kThreads];
+  const long long i0 = (long long)blockIdx.x * kThreads;
+  const int ng = n - i0 < kThreads ? (int)(n - i0) : kThreads;
+  stage_b4x4(blocks, i0, ng, threadIdx.x, blk);
+  __syncthreads();
+  if ((int)threadIdx.x >= ng) return;
   uint32_t w[4];
   float e;
-  body_b(desc, B, w, e);
-  words[i] = make_uint4(w[0], w[1], w[2], w[3]);
-  err[i] = e;
+  body_b(desc, blk[threadIdx.x], w, e);
+  words[i0 + threadIdx.x] = make_uint4(w[0], w[1], w[2], w[3]);
+  err[i0 + threadIdx.x] = e;
 }
 
 // Entry A: a CTA per group of kAGroup blocks, a_plan's warps.  The bounds
@@ -1918,6 +1987,13 @@ static cudaError_t allow_smem(int bytes) {
   return rc;
 }
 
+// Entry B at 4x4 asks for kB4x4Carveout % of each SM's unified L1 and
+// shared memory as shared memory, the rest left to L1 for the fits' frames
+// in local memory.  A sweep of 10-75 % on the card ran best at 60-75 %;
+// the default, shared memory for as many 16.6 KB CTAs as the registers
+// allow, left L1 too little and ran 1.2x slower at q4.
+constexpr int kB4x4Carveout = 60;
+
 template <int S, int MT>
 int launch_mt(const void* blocks, const void* desc, const int* hdr, void* words, void* err,
               void* scratch, int n, cudaStream_t stream) {
@@ -1929,6 +2005,9 @@ int launch_mt(const void* blocks, const void* desc, const int* hdr, void* words,
                         stream>>>((const float*)blocks, (const int*)desc, (uint32_t*)words,
                                   (float*)err, n);
   } else if constexpr (!warp_entry(S, MT)) {  // B at 4x4
+    const cudaError_t rc = cudaFuncSetAttribute(
+        astc_b4x4_kernel, cudaFuncAttributePreferredSharedMemoryCarveout, kB4x4Carveout);
+    if (rc != cudaSuccess) return (int)rc;
     astc_b4x4_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
         (const float*)blocks, (const int*)desc, (uint4*)words, (float*)err, n);
   } else {

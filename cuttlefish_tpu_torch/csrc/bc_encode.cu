@@ -13,16 +13,17 @@
 // same algorithms is cuttlefish_tpu_torch/kernels/bc.py; the two are compared
 // on the card.
 //
-// Design: one thread per 4x4 block, 128 threads per CTA, grid = ceil(N /
-// 128).  The TPU kernels put 1024 blocks on vector lanes and unrolled every
-// candidate sweep over [16, TN] tiles; here each thread runs its block's
-// candidate sweep alone, with the indices packed into one word (2 bits a
-// texel for BC1, 3 for BC4).  BC1, BC2 and BC3 first stage their CTA's
-// texels in shared memory with one coalesced copy (a 16-byte load a texel,
-// [channel][texel][block] rows padded to 129 floats, so that a warp reads 32
-// banks): no texel array lives in a thread's frame.  Quality, punch-through,
-// black, signedness and unit channel weights are template parameters, so
-// each instantiation has no dead branches.
+// Design: one thread per 4x4 block, 128 blocks per CTA, grid = ceil(N /
+// 128); BC5 a thread per (block, channel), 256 threads per CTA, so that its
+// two independent BC4 bodies run side by side.  The TPU kernels put 1024
+// blocks on vector lanes and unrolled every candidate sweep over [16, TN]
+// tiles; here each thread runs its block's candidate sweep alone, with the
+// indices packed into one word (2 bits a texel for BC1, 3 for BC4).  Every
+// entry first stages its CTA's texels in shared memory with one coalesced
+// copy (16-byte loads, [channel][texel][block] rows padded to 129 floats,
+// so that a warp reads 32 banks): no texel array lives in a thread's frame.
+// Quality, punch-through, black, signedness and unit channel weights are
+// template parameters, so each instantiation has no dead branches.
 //
 // What bounds it: arithmetic.  A block reads 256 bytes (64 for BC4) and
 // writes 8 or 16, but a BC1 block at quality 2 tries some 56 palettes of 16
@@ -33,7 +34,10 @@
 // candidate changes one channel of the pass's base pair, so a texel's terms
 // in the two other channels are made once for the channel's 8 candidates
 // and only channel ch's are made per candidate (the texel loop outside,
-// the candidates inside).  BC4 and BC5 keep their texels in registers.
+// the candidates inside).  The BC4 body's least squares skip the products
+// by 1 and the terms of weight 0, and from quality 3 a mode's rounds end
+// at the first candidate not taken, since every later round would make it
+// again.  Its cost is the 8-entry compare chain of each candidate's texels.
 //
 // Numerics, so that the kernel agrees with the plain version bit for bit:
 // every sum over texels runs in texel order and every sum over channels in
@@ -137,6 +141,13 @@ struct Px {
   }
 };
 
+// One channel of a thread's block in shared memory (BC3's alpha, BC4, a
+// BC5 channel): texel t at p[t * kStride].
+struct Row {
+  const float* p;
+  __device__ __forceinline__ float operator()(int t) const { return p[t * kStride]; }
+};
+
 // Thread tid's share of staging blocks [first, first + nb) of blocks
 // [n,16,4] into s_px, NC channels (RGB, or RGBA): neighbouring threads read
 // neighbouring texels as float4 (the wrapper hands over 16-byte aligned
@@ -151,6 +162,43 @@ __device__ __forceinline__ void stage(const float* blocks, int first, int nb, in
     d[16 * kStride] = q.y;
     d[32 * kStride] = q.z;
     if (NC == 4) d[48 * kStride] = q.w;
+  }
+}
+
+// Thread tid's share (of nth) of staging values [first, first + nb) of
+// vals [n,16] into s, a row of kStride floats per texel: neighbouring
+// threads read neighbouring float4s (four texels of a block).
+__device__ __forceinline__ void stage_bc4(float* s, const float* vals, int first, int nb, int tid,
+                                          int nth) {
+  const float4* src = (const float4*)vals + (size_t)first * 4;
+  for (int f = tid; f < nb * 4; f += nth) {
+    const float4 q = src[f];
+    float* d = s + (4 * (f & 3)) * kStride + (f >> 2);
+    d[0] = q.x;
+    d[kStride] = q.y;
+    d[2 * kStride] = q.z;
+    d[3 * kStride] = q.w;
+  }
+}
+
+// The same for red and green of blocks [n,16,nch] (BC5): rows [channel]
+// [texel], a float4 a texel where nch is 4, else one float a thread.
+__device__ __forceinline__ void stage_bc5(float* s, const float* blocks, int first, int nb, int nch,
+                                          int tid, int nth) {
+  if (nch == 4) {
+    const float4* src = (const float4*)blocks + (size_t)first * 16;
+    for (int f = tid; f < nb * 16; f += nth) {
+      const float4 q = src[f];
+      float* d = s + (f & 15) * kStride + (f >> 4);
+      d[0] = q.x;
+      d[16 * kStride] = q.y;
+    }
+    return;
+  }
+  const float* src = blocks + (size_t)first * 16 * nch;
+  for (int x = tid; x < nb * 16 * nch; x += nth) {
+    const int f = x / nch, c = x - f * nch;
+    if (c < 2) s[(16 * c + (f & 15)) * kStride + (f >> 4)] = src[x];
   }
 }
 
@@ -172,19 +220,28 @@ __device__ __forceinline__ void ls_accumulate(LsSums& s, float w, float p,
   s.a22 = s.a22 + uv * (1.0f - w);
 }
 
-// One channel: returns the endpoints (e0 at w = 1, e1 at w = 0).
-__device__ __forceinline__ void ls1(const float (&v)[16], const float (&w)[16],
-                                    const float (&p)[16], float& e0, float& e1) {
+// One channel: returns the endpoints (e0 at w = 1, e1 at w = 0).  The
+// texels of mask m (bit t) take part with weight 1, the others with weight
+// 0: the floats of the weighted form with those weights, without its
+// products by 1 and its sums of exact zeros (a term of weight 0 adds +0 or
+// -0 to a sum that is never -0).
+template <class V>
+__device__ __forceinline__ void ls1(const V& v, const float (&w)[16], uint32_t m, float& e0,
+                                    float& e1) {
   LsSums s = {0.0f, 0.0f, 0.0f};
   float b0 = 0.0f, b1 = 0.0f, msum = 0.0f, psum = 0.0f;
 #pragma unroll
   for (int t = 0; t < 16; ++t) {
-    float wv, uv;
-    ls_accumulate(s, w[t], p[t], wv, uv);
-    b0 = b0 + wv * v[t];
-    b1 = b1 + uv * v[t];
-    msum = msum + v[t] * p[t];
-    psum = psum + p[t];
+    if ((m >> t) & 1u) {
+      const float u = 1.0f - w[t];
+      s.a11 = s.a11 + w[t] * w[t];
+      s.a12 = s.a12 + w[t] * u;
+      s.a22 = s.a22 + u * u;
+      b0 = b0 + w[t] * v(t);
+      b1 = b1 + u * v(t);
+      msum = msum + v(t);
+      psum = psum + 1.0f;
+    }
   }
   const float det = s.a11 * s.a22 - s.a12 * s.a12;
   const bool ok = fabsf(det) > 1e-8f;
@@ -634,10 +691,11 @@ __device__ __forceinline__ void quant_bc4(float e, int& q, float& d) {
 
 // Nearest of NW interpolated entries, then (EXT) the two fixed extremes
 // with a 1e-12 tie-break towards them; error = clamped minima summed in
-// texel order (bc_pallas.py:_bc4_assign).
-template <class T, int NW, bool EXT, bool SIGNED>
-__device__ __forceinline__ float bc4_assign(const float (&v)[16], float d0, float d1,
-                                            uint64_t& idx) {
+// texel order (bc_pallas.py:_bc4_assign).  RELOAD: the texels are read
+// afresh from shared memory for each candidate, not held in registers.
+template <class T, int NW, bool EXT, bool SIGNED, bool RELOAD, class V>
+__device__ __forceinline__ float bc4_assign(const V& v, float d0, float d1, uint64_t& idx) {
+  if (RELOAD) RELOAD_TEXELS();
   constexpr float lo_ext = SIGNED ? -1.0f : 0.0f;
   constexpr float hi_ext = 1.0f;
   float pal[NW];
@@ -651,19 +709,19 @@ __device__ __forceinline__ float bc4_assign(const float (&v)[16], float d0, floa
     uint32_t bi = 0;
 #pragma unroll
     for (int k = 0; k < NW; ++k) {
-      const float e = sq(v[t] - pal[k]);
+      const float e = sq(v(t) - pal[k]);
       if (k == 0 || e < best) {
         best = e;
         bi = (uint32_t)k;
       }
     }
     if (EXT) {
-      float e = sq(v[t] - lo_ext) - 1e-12f;
+      float e = sq(v(t) - lo_ext) - 1e-12f;
       if (e < best) {
         best = e;
         bi = (uint32_t)NW;
       }
-      e = sq(v[t] - hi_ext) - 1e-12f;
+      e = sq(v(t) - hi_ext) - 1e-12f;
       if (e < best) {
         best = e;
         bi = (uint32_t)NW + 1u;
@@ -676,42 +734,53 @@ __device__ __forceinline__ float bc4_assign(const float (&v)[16], float d0, floa
   return err;
 }
 
-template <class T, int NW, bool EXT, bool SIGNED>
-__device__ __forceinline__ Bc4Cand bc4_cand(const float (&v)[16], float e0, float e1) {
+template <class T, int NW, bool EXT, bool SIGNED, bool RELOAD, class V>
+__device__ __forceinline__ Bc4Cand bc4_cand(const V& v, float e0, float e1) {
   Bc4Cand r;
   quant_bc4<SIGNED>(e0, r.q0, r.d0);
   quant_bc4<SIGNED>(e1, r.q1, r.d1);
-  r.err = bc4_assign<T, NW, EXT, SIGNED>(v, r.d0, r.d1, r.idx);
+  r.err = bc4_assign<T, NW, EXT, SIGNED, RELOAD>(v, r.d0, r.d1, r.idx);
   return r;
 }
 
-// Returns (q0, q1, packed 3-bit indices) of the chosen mode.
-template <int Q, bool SIGNED>
-__device__ __forceinline__ void bc4_tile(const float (&v)[16], int& q0o, int& q1o,
-                                         uint64_t& idxo) {
+// A mode's rounds end at the first candidate not taken from this quality
+// on (see bc4_tile).  The counting build of chip_smoke.py sets it at run
+// time, to 0 for the rounds the function needs at every quality.
+#ifndef BC4_EXIT_FROM
+#define BC4_EXIT_FROM 3
+#endif
+
+// Returns (q0, q1, packed 3-bit indices) of the chosen mode; v(t) is
+// texel t's value (RELOAD: as bc4_assign).
+template <int Q, bool SIGNED, bool RELOAD, class V>
+__device__ __forceinline__ void bc4_tile(const V& v, int& q0o, int& q1o, uint64_t& idxo) {
   constexpr int iters = Iters<Q>::value;
   constexpr double lo_ext_d = SIGNED ? -1.0 : 0.0;
   constexpr double hi_ext_d = 1.0;
-  float hi = v[0], lo = v[0];
+  float hi = v(0), lo = v(0);
 #pragma unroll
   for (int t = 1; t < 16; ++t) {
-    hi = fmaxf(hi, v[t]);
-    lo = fminf(lo, v[t]);
+    hi = fmaxf(hi, v(t));
+    lo = fminf(lo, v(t));
   }
-  float ones[16];
-#pragma unroll
-  for (int t = 0; t < 16; ++t) ones[t] = 1.0f;
 
-  Bc4Cand best8 = bc4_cand<W8, 8, false, SIGNED>(v, hi, lo);
+  Bc4Cand best8 = bc4_cand<W8, 8, false, SIGNED, RELOAD>(v, hi, lo);
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
     float w[16];
 #pragma unroll
     for (int t = 0; t < 16; ++t) w[t] = W8::w((int)((best8.idx >> (3 * t)) & 7u));
     float e0, e1;
-    ls1(v, w, ones, e0, e1);
-    const Bc4Cand c = bc4_cand<W8, 8, false, SIGNED>(v, e0, e1);
-    if (c.err < best8.err) best8 = c;
+    ls1(v, w, 0xFFFFu, e0, e1);
+    const Bc4Cand c = bc4_cand<W8, 8, false, SIGNED, RELOAD>(v, e0, e1);
+    // A candidate not taken leaves best8, whose indices give the next
+    // round's weights: every later round would make it again.  From q3 on
+    // (6 and 10 rounds) the loop ends there; at q0-q2 (1-3 rounds) a warp's
+    // 32 blocks seldom all stop early, and the exit cost more than it saved.
+    if (c.err < best8.err)
+      best8 = c;
+    else if (Q >= BC4_EXIT_FROM)
+      break;
   }
   // 8-value mode needs e0 > e1: swapping maps 0 <-> 1 and k -> 9 - k.
   const bool swap = best8.d0 < best8.d1;
@@ -738,26 +807,30 @@ __device__ __forceinline__ void bc4_tile(const float (&v)[16], int& q0o, int& q1
   float hi_i = -1e30f, lo_i = 1e30f;
 #pragma unroll
   for (int t = 0; t < 16; ++t) {
-    const bool interior = v[t] > lo_tol && v[t] < hi_tol;
-    hi_i = fmaxf(hi_i, interior ? v[t] : -1e30f);
-    lo_i = fminf(lo_i, interior ? v[t] : 1e30f);
+    const bool interior = v(t) > lo_tol && v(t) < hi_tol;
+    hi_i = fmaxf(hi_i, interior ? v(t) : -1e30f);
+    lo_i = fminf(lo_i, interior ? v(t) : 1e30f);
   }
   const float hi_s = hi_i > -1e29f ? hi_i : hi;
   const float lo_s = lo_i < 1e29f ? lo_i : lo;
-  Bc4Cand best6 = bc4_cand<W6, 6, true, SIGNED>(v, hi_s, lo_s);
+  Bc4Cand best6 = bc4_cand<W6, 6, true, SIGNED, RELOAD>(v, hi_s, lo_s);
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
-    float w[16], pv[16];
+    float w[16];
+    uint32_t m = 0u;  // the interpolated entries' texels (the extremes take weight 0)
 #pragma unroll
     for (int t = 0; t < 16; ++t) {
       const int k = (int)((best6.idx >> (3 * t)) & 7u);
       w[t] = W6::w(k);
-      pv[t] = k < 6 ? 1.0f : 0.0f;
+      m |= (k < 6 ? 1u : 0u) << t;
     }
     float e0, e1;
-    ls1(v, w, pv, e0, e1);
-    const Bc4Cand c = bc4_cand<W6, 6, true, SIGNED>(v, e0, e1);
-    if (c.err < best6.err) best6 = c;
+    ls1(v, w, m, e0, e1);
+    const Bc4Cand c = bc4_cand<W6, 6, true, SIGNED, RELOAD>(v, e0, e1);
+    if (c.err < best6.err)  // as in the 8-value mode
+      best6 = c;
+    else if (Q >= BC4_EXIT_FROM)
+      break;
   }
   // 6-value mode needs e0 <= e1: swapping maps 0 <-> 1 and k -> 7 - k
   // for the interpolated entries; the extremes keep their indices.
@@ -805,21 +878,21 @@ __device__ __forceinline__ void bc1_block(Px px, const float* chw, uint32_t (&w)
   w[1] = idx;
 }
 
-__device__ __forceinline__ void bc2_alpha(const float (&a)[16], uint32_t (&w)[2]) {
+__device__ __forceinline__ void bc2_alpha(const Row& a, uint32_t (&w)[2]) {
   w[0] = 0u;
   w[1] = 0u;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    w[0] |= (uint32_t)rintf(clampf(a[i], 0.0f, 1.0f) * 15.0f) << (4 * i);
-    w[1] |= (uint32_t)rintf(clampf(a[i + 8], 0.0f, 1.0f) * 15.0f) << (4 * i);
+    w[0] |= (uint32_t)rintf(clampf(a(i), 0.0f, 1.0f) * 15.0f) << (4 * i);
+    w[1] |= (uint32_t)rintf(clampf(a(i + 8), 0.0f, 1.0f) * 15.0f) << (4 * i);
   }
 }
 
-template <int Q, bool SIGNED>
-__device__ __forceinline__ void bc4_block(const float (&v)[16], uint32_t (&w)[2]) {
+template <int Q, bool SIGNED, bool RELOAD = false, class V>
+__device__ __forceinline__ void bc4_block(const V& v, uint32_t (&w)[2]) {
   int q0, q1;
   uint64_t idx;
-  bc4_tile<Q, SIGNED>(v, q0, q1, idx);
+  bc4_tile<Q, SIGNED, RELOAD>(v, q0, q1, idx);
   bc4_words(q0, q1, idx, w[0], w[1]);
 }
 
@@ -827,11 +900,9 @@ __device__ __forceinline__ void bc4_block(const float (&v)[16], uint32_t (&w)[2]
 // alpha) block after staging: two alpha words, then two colour words.
 template <int KIND, int Q, bool UW>
 __device__ __forceinline__ void bc23_block(Px px, const float* chw, uint32_t (&w)[4]) {
-  float a[16];
-#pragma unroll
-  for (int t = 0; t < 16; ++t) a[t] = px(3, t);
+  const Row a{s_px + 48 * kStride + px.tid};
   uint32_t aw[2], cw[2];
-  if (KIND == 2)
+  if constexpr (KIND == 2)
     bc2_alpha(a, aw);
   else
     bc4_block<Q, false>(a, aw);
@@ -864,6 +935,33 @@ inline void bc_cpu(const float* blocks, uint32_t* out, int n, const float* chw) 
         for (int j = 0; j < 4; ++j) out[4 * (first + tid) + j] = w[j];
       }
     }
+  }
+}
+
+// BC4 words of values [n,16] on the CPU, as the card computes them: each
+// CTA's staging, then its threads one after another.  out: [n, 2].
+template <int Q, bool SIGNED>
+inline void bc4_cpu(const float* vals, uint32_t* out, int n) {
+  for (int first = 0; first < n; first += kThreads) {
+    const int nb = n - first < kThreads ? n - first : kThreads;
+    for (int tid = 0; tid < kThreads; ++tid) stage_bc4(s_px, vals, first, nb, tid, kThreads);
+    for (int tid = 0; tid < nb; ++tid)
+      bc4_block<Q, SIGNED, true>(Row{s_px + tid}, *(uint32_t(*)[2])(out + 2 * (first + tid)));
+  }
+}
+
+// BC5 words of blocks [n,16,nch] (red, green) on the CPU, likewise, a
+// thread per (block, channel).  out: [n, 4].
+template <int Q, bool SIGNED>
+inline void bc5_cpu(const float* blocks, uint32_t* out, int n, int nch) {
+  for (int first = 0; first < n; first += kThreads) {
+    const int nb = n - first < kThreads ? n - first : kThreads;
+    for (int tid = 0; tid < 2 * kThreads; ++tid)
+      stage_bc5(s_px, blocks, first, nb, nch, tid, 2 * kThreads);
+    for (int ch = 0; ch < 2; ++ch)
+      for (int b = 0; b < nb; ++b)
+        bc4_block<Q, SIGNED>(Row{s_px + 16 * ch * kStride + b},
+                             *(uint32_t(*)[2])(out + 4 * (first + b) + 2 * ch));
   }
 }
 
@@ -900,43 +998,37 @@ __global__ void __launch_bounds__(kThreads)
   out[first + threadIdx.x] = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// A thread per block, the CTA's values staged in shared memory and read
+// afresh for each candidate (63 registers, not 96: 8 CTAs an SM).
 template <int Q, bool SIGNED>
 __global__ void __launch_bounds__(kThreads)
-    bc4_kernel(const float4* __restrict__ vals, uint2* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float v[16];
-  const float4* src = vals + (size_t)i * 4;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float4 q = src[j];
-    v[4 * j] = q.x;
-    v[4 * j + 1] = q.y;
-    v[4 * j + 2] = q.z;
-    v[4 * j + 3] = q.w;
-  }
+    bc4_kernel(const float* __restrict__ vals, uint2* __restrict__ out, int n) {
+  __shared__ float s[16 * kStride];
+  const int first = blockIdx.x * kThreads, nb = min(kThreads, n - first);
+  stage_bc4(s, vals, first, nb, threadIdx.x, kThreads);
+  __syncthreads();
+  if ((int)threadIdx.x >= nb) return;
   uint32_t w[2];
-  bc4_block<Q, SIGNED>(v, w);
-  out[i] = make_uint2(w[0], w[1]);
+  bc4_block<Q, SIGNED, true>(Row{s + threadIdx.x}, w);
+  out[first + threadIdx.x] = make_uint2(w[0], w[1]);
 }
 
 // blocks: [n,16,C] float32 with C >= 2; red and green are channels 0, 1.
+// kThreads blocks a CTA, staged in shared memory, and a thread per (block,
+// channel): warps 0-3 on red, 4-7 on green (1.2x a thread per block
+// doing both from shared memory).
 template <int Q, bool SIGNED>
-__global__ void __launch_bounds__(kThreads)
-    bc5_kernel(const float* __restrict__ blocks, uint4* __restrict__ out, int n, int nch) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* src = blocks + (size_t)i * 16 * nch;
-  float r[16], g[16];
-#pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    r[t] = src[t * nch];
-    g[t] = src[t * nch + 1];
-  }
-  uint32_t rw[2], gw[2];
-  bc4_block<Q, SIGNED>(r, rw);
-  bc4_block<Q, SIGNED>(g, gw);
-  out[i] = make_uint4(rw[0], rw[1], gw[0], gw[1]);
+__global__ void __launch_bounds__(2 * kThreads)
+    bc5_kernel(const float* __restrict__ blocks, uint2* __restrict__ out, int n, int nch) {
+  __shared__ float s[32 * kStride];
+  const int first = blockIdx.x * kThreads, nb = min(kThreads, n - first);
+  stage_bc5(s, blocks, first, nb, nch, threadIdx.x, 2 * kThreads);
+  __syncthreads();
+  const int ch = threadIdx.x / kThreads, b = threadIdx.x % kThreads;
+  if (b >= nb) return;
+  uint32_t w[2];
+  bc4_block<Q, SIGNED>(Row{s + 16 * ch * kStride + b}, w);
+  out[2 * (first + b) + ch] = make_uint2(w[0], w[1]);
 }
 
 inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
@@ -1035,7 +1127,7 @@ extern "C" int bc4_encode_launch(const void* vals, void* out, int n, int quality
                                  int is_signed, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const float4* in = (const float4*)vals;
+  const float* in = (const float*)vals;
   uint2* o = (uint2*)out;
   const dim3 g = bcx::grid_for(n);
 #define CF_BC4(Q)                                                                         \
@@ -1060,14 +1152,15 @@ extern "C" int bc5_encode_launch(const void* blocks, void* out, int n, int nch, 
   if (nch < 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* in = (const float*)blocks;
-  uint4* o = (uint4*)out;
+  uint2* o = (uint2*)out;
   const dim3 g = bcx::grid_for(n);
+  const int nth = 2 * bcx::kThreads;
 #define CF_BC5(Q)                                                                         \
   case Q:                                                                                 \
     if (is_signed)                                                                        \
-      bcx::bc5_kernel<Q, true><<<g, bcx::kThreads, 0, s>>>(in, o, n, nch);                \
+      bcx::bc5_kernel<Q, true><<<g, nth, 0, s>>>(in, o, n, nch);                          \
     else                                                                                  \
-      bcx::bc5_kernel<Q, false><<<g, bcx::kThreads, 0, s>>>(in, o, n, nch);               \
+      bcx::bc5_kernel<Q, false><<<g, nth, 0, s>>>(in, o, n, nch);                         \
     break;
   switch (quality) {
     CF_BC5(0) CF_BC5(1) CF_BC5(2) CF_BC5(3) CF_BC5(4)

@@ -12,7 +12,9 @@ and errors must equal the plain version's at 4x4 and 8x8 q4 (block counts
 that leave the last group short), on blocks whose screen estimates tie,
 and the warp's merged top-k must be the sequential scan's.  B runs the
 warp body above 4x4 (its texels in device memory) and a thread per block
-at 4x4: both at the qualities whose plans differ.  Entry A runs as the
+at 4x4 (each CTA's 64 blocks staged at an odd stride, as the card stages
+them, then its threads one after another): both at the qualities whose
+plans differ, and at 4x4 q2 and q4 on near-gray alpha blocks.  Entry A runs as the
 card runs it, a CTA per 32 blocks with a warp per task (``FOR_WARPS`` and
 ``FOR_LANES`` loops here): its words and errors must equal the plain
 version's at 4x4, 8x8 and 12x12 on colour and partly near-gray blocks,
@@ -124,6 +126,15 @@ def test_entry_b_on_tied_estimates_at_4x4(count_ops, q):
     """Entry B at 4x4 q1/q2 on blocks whose estimates tie: the lowest pattern
     first."""
     _same_as_plain(count_ops, "b", np.concatenate([_tie_blocks(16)] * 3), 4, 4, q)
+
+
+# Entry B at 4x4 on near-gray alpha blocks: q4 (top 16, keep 5, three
+# layouts) and q2 (top 6, keep 1); 37 and 65 blocks leave the last group
+# short.
+@pytest.mark.parametrize("case", [(4, 37), (2, 65)], ids=["q4_37", "q2_65"])
+def test_entry_b_4x4_on_near_gray_alpha(count_ops, case):
+    q, n = case
+    _same_as_plain(count_ops, "b", astc_blocks(n, 16, "gray_alpha", seed=23), 4, 4, q)
 
 
 def _mixed_blocks(n: int, t: int) -> np.ndarray:

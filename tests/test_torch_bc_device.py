@@ -3,14 +3,16 @@
 ``chip_smoke.py`` bounds PERF rows 1-8 by the float operations of the
 device code of ``csrc/bc7_encode.cu``, ``bc7_hq_encode.cu``,
 ``bc_encode.cu`` and ``bc6h_encode.cu``, counted by a g++ build with a
-counting float type (``bc_op_counter``).  That build must give the plain
+counting float type (``bc_op_counter``; BC6H and the BC4 body by what the
+function needs, with the device code's count beside).  That build must give the plain
 version's words bit for bit: here on seeded blocks (flat, two-tone,
 gradients, random) through the wire each converter uses, for every row
 the smoke run counts.  The BC7 q0-2, q3-4 and BC6H builds run the card's
 warp bodies (a warp per 32 blocks, its lanes one after another), BC6H with
 the half-bit proxy made in the kernel; the BC1-BC3 build runs the card's
 CTA body (128 blocks staged in shared memory, then its threads one after
-another), with the unit-weight instance and the weighted one.
+another), with the unit-weight instance and the weighted one; so do BC4
+and BC5 (the CTA's values staged, BC5 a thread per block and channel).
 """
 
 import shutil
@@ -155,6 +157,95 @@ def test_bc1_sweep_counts_fewer_operations(count_bc):
     q2, _ = count_bc("bc1_q2", x)
     palette = 16 * (4 * 8 + 3 + 1)
     assert q2 - q1 < (2 / 3) * 48 * palette + 4 * palette, (q1, q2)
+
+
+def _bc4_values(n: int, signed: bool) -> torch.Tensor:
+    """[n,16] values through the wire BC4 takes: alpha of the seeded blocks
+    (u8), or their red as 2x - 1 (f16)."""
+    if signed:
+        return dequant(wire(_blocks(n) * 2 - 1, "f16"))[..., 0].contiguous()
+    return dequant(wire(_blocks(n), "u8"))[..., 3].contiguous()
+
+
+# case -> (counting row, input, plain version); 130 blocks: a CTA of 128
+# and a short one.
+_BC4_CASES = {
+    **{f"bc4{'s' if sg else ''}_q{q}": (
+        f"bc4{'s' if sg else ''}_q{q}", lambda sg=sg: _bc4_values(130, sg),
+        lambda x, q=q, sg=sg: bc.encode_bc4_plain(x, q, sg))
+       for q in (0, 2, 4) for sg in (False, True)},
+    "bc5_q2": ("bc5_q2", lambda: _bc1_input("alpha"), lambda x: bc.encode_bc5_plain(x, 2)),
+    "bc5s_q2": ("bc5s_q2", lambda: dequant(wire(_blocks(130) * 2 - 1, "f16")),
+                lambda x: bc.encode_bc5_plain(x, 2, True)),
+    "bc3_q2": ("bc3_q2", lambda: _bc1_input("alpha"), lambda x: bc.encode_bc3_plain(x, 2)),
+}
+
+
+@pytest.mark.parametrize("case", list(_BC4_CASES))
+def test_bc4_cta_body_equals_plain_version(count_bc, case):
+    """The BC4 body the card runs (a CTA's values staged in shared memory,
+    the least squares without products by 1 or terms of weight 0; BC5 a
+    thread per block and channel) gives the plain version's words at q0,
+    q2 and q4, signed and unsigned, in BC5 and under BC3's colour, across
+    a CTA edge."""
+    row, make, plain = _BC4_CASES[case]
+    x = make()
+    _, words = count_bc(row, x.numpy())
+    want = plain(x).numpy()
+    nw = want.shape[1]
+    assert np.array_equal(words[:, :nw], want), case
+
+
+@pytest.mark.parametrize("case", ["bc4_q2", "bc4s_q2", "bc5s_q2", "bc3_q2", "bc4_q4", "bc4s_q4"])
+def test_bc4_needed_count_ends_rounds_at_every_quality(count_bc, case):
+    """The BC4 body's bound counts a mode's rounds up to the first
+    candidate not taken, since every later round would make it again; the
+    device code leaves there only from q3.  So at q2 the needed count is
+    below the device code's (BC5 and BC3 through the same body), at q4
+    equal to it, and the words are the same either way."""
+    row, make, plain = _BC4_CASES[case]
+    x = make().numpy()
+    needed, words = count_bc(row, x)
+    device, device_words = count_bc(row, x, device=True)
+    assert np.array_equal(words, device_words), case
+    nw = 2 if row.startswith("bc4") else 4
+    assert np.array_equal(words[:, :nw], plain(torch.from_numpy(x)).numpy()), case
+    if case.endswith("_q4"):
+        assert needed == device, case
+    else:
+        assert needed < device, (case, needed, device)
+
+
+def _bc4_tie_values(signed: bool) -> torch.Tensor:
+    """[n,16] values whose BC4 searches tie: flat blocks (d0 == d1: every
+    entry the same), blocks at the fixed extremes and one u8 step inside
+    them, and blocks of values drawn from 15 points evenly spaced between
+    two wire values, so that many texels lie midway between two palette
+    entries."""
+    lo_ext = -1.0 if signed else 0.0
+    step = 1 / 127 if signed else 1 / 255
+    out = [np.full(16, v) for v in (lo_ext, lo_ext + step, 0.5, 1 - step, 1.0)]
+    out.append(np.tile([lo_ext, 1.0], 8))
+    out.append(np.tile([lo_ext, lo_ext + step, 1 - step, 1.0], 4))
+    rng = np.random.default_rng(7)
+    for _ in range(40):
+        a, b = np.sort(rng.integers(0, 128 if signed else 256, 2))
+        lo, hi = lo_ext + a * step, lo_ext + b * step
+        out.append(rng.choice(lo + (hi - lo) * np.arange(15) / 14, 16))
+    return torch.from_numpy(np.stack(out).astype(np.float32))
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
+@pytest.mark.parametrize("quality", [2, 4], ids=["q2", "q4"])
+def test_bc4_body_on_flat_and_tied_blocks(count_bc, quality, signed):
+    """Flat blocks (equal endpoints), the fixed extremes, and texels midway
+    between palette entries: the first minimum in table order, as the
+    plain version keeps it."""
+    x = _bc4_tie_values(signed)
+    row = f"bc4{'s' if signed else ''}_q{quality}"
+    _, words = count_bc(row, x.numpy())
+    want = bc.encode_bc4_plain(x, quality, signed).numpy()
+    assert np.array_equal(words[:, :2], want), row
 
 
 def _tie_blocks() -> np.ndarray:

@@ -288,6 +288,43 @@ def test_bc1_staged_kernels_at_cta_edges(cuda, case):
         assert torch.equal(k.view(torch.int32).cpu(), plain(x[:n]).view(torch.int32).cpu()), n
 
 
+# BC4 (unsigned, signed) at q2 and q4, BC5 (four channels, and two: the
+# scalar staging) and BC3 at q2: (kernel call, plain call, input, launch
+# counter).
+_BC4_EDGE_CASES = {
+    "bc4_q2": (lambda x: bc.encode_bc4(x, 2), lambda x: bc.encode_bc4_plain(x, 2), "red", "bc4"),
+    "bc4s_q2": (lambda x: bc.encode_bc4(x, 2, True), lambda x: bc.encode_bc4_plain(x, 2, True),
+                "sred", "bc4"),
+    # q4: the rounds end at the first candidate not taken (q0-q2 run them all).
+    "bc4_q4": (lambda x: bc.encode_bc4(x, 4), lambda x: bc.encode_bc4_plain(x, 4), "red", "bc4"),
+    "bc4s_q4": (lambda x: bc.encode_bc4(x, 4, True), lambda x: bc.encode_bc4_plain(x, 4, True),
+                "sred", "bc4"),
+    "bc5_q2": (lambda x: bc.encode_bc5(x, 2), lambda x: bc.encode_bc5_plain(x, 2), "rgba", "bc5"),
+    "bc5s_q2": (lambda x: bc.encode_bc5(x, 2, True), lambda x: bc.encode_bc5_plain(x, 2, True),
+                "signed", "bc5"),
+    "bc5_q2_two_channels": (lambda x: bc.encode_bc5(x[..., :2].contiguous(), 2),
+                            lambda x: bc.encode_bc5_plain(x[..., :2].contiguous(), 2), "rgba", "bc5"),
+    "bc3_q2": (lambda x: bc.encode_bc3(x, 2), lambda x: bc.encode_bc3_plain(x, 2), "rgba", "bc3"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_BC4_EDGE_CASES))
+def test_bc4_bc5_kernels_at_cta_edges(cuda, case):
+    """BC4 and BC5 stage 128 blocks a CTA in shared memory (BC5 a thread
+    per block and channel), BC3 its alpha with BC1's texels: one block,
+    part-filled CTAs and 257 = 2 x 128 + 1 give the plain version's words,
+    one launch each."""
+    kernel, plain, kind, name = _BC4_EDGE_CASES[case]
+    x = torch.from_numpy(_bc_input(kind, 257)).to(cuda)
+    for n in (1, 127, 129, 257):
+        before = bc_cuda.launches[name]
+        k = kernel(x[:n])
+        torch.cuda.synchronize()
+        assert bc_cuda.launches[name] == before + 1
+        assert torch.equal(k.view(torch.int32).cpu(), plain(x[:n]).view(torch.int32).cpu()), n
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("quality,perceptual", [(0, False), (1, True), (2, False), (2, True)])
 def test_bc7_kernel_at_group_edges(cuda, quality, perceptual):
@@ -518,6 +555,30 @@ def test_astc_entry_a_at_group_edges(cuda, case):
         torch.cuda.synchronize()
         assert astc_cuda.launches["astc_a"] == before + 1
         wp, ep = astc.stage_plain("a", x[:n], bw, bw, q, gray, alpha)
+        assert torch.equal(wk.view(torch.int32).cpu(), wp.view(torch.int32).cpu()), n
+        assert torch.equal(ek.view(torch.int32).cpu(), ep.view(torch.int32).cpu()), n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, "alpha"), (4, "gray_alpha")], ids=["4x4_q2", "4x4_q4_gray_alpha"])
+def test_astc_entry_b_4x4_at_group_edges(cuda, case):
+    """Entry B at 4x4 runs a thread per block, 64 a CTA, the CTA's blocks
+    staged in shared memory at an odd stride (no device scratch): one
+    block, part-filled warps and CTAs give the plain version's words and
+    errors, one launch each."""
+    q, kind = case
+    b = _astc_input(4, 4, kind, 65)
+    gray, alpha = astc_tables.has_gray_blocks(b), astc_tables.has_alpha_blocks(b)
+    assert "b" in astc.stages(4, 4, q, gray, alpha)
+    plan = astc_cuda.warp_plan("b", 4, 4, q, gray, alpha)
+    assert plan["group"] == 0 and plan["scratch_bytes"] == 0  # a thread per block
+    x = torch.from_numpy(b).to(cuda)
+    for n in (1, 31, 33, 65):
+        before = astc_cuda.launches["astc_b"]
+        wk, ek = astc_cuda.stage_cuda("b", x[:n], 4, 4, q, gray, alpha)
+        torch.cuda.synchronize()
+        assert astc_cuda.launches["astc_b"] == before + 1
+        wp, ep = astc.stage_plain("b", x[:n], 4, 4, q, gray, alpha)
         assert torch.equal(wk.view(torch.int32).cpu(), wp.view(torch.int32).cpu()), n
         assert torch.equal(ek.view(torch.int32).cpu(), ep.view(torch.int32).cpu()), n
 
