@@ -18,7 +18,7 @@ exits non-zero:
    BC6H, ASTC and ETC entry (registers, stack, spills, shared memory), the
    warps and dynamic shared memory a CTA of ASTC entry A, the dynamic
    shared memory and blocks a warp of ASTC entries B, C and D and the
-   shared memory a CTA of the BC7 q3-4, BC6H and the ETC RGB and RGBA8
+   shared memory a CTA of the BC7 q3-4, BC6H and the five ETC and EAC
    entries.
    With --parent SRC, also that earlier tree's BC, ETC or ASTC csrc/*.cu
    (kept outside this package, its headers beside it, its wrapper module
@@ -34,8 +34,9 @@ exits non-zero:
    BC6H q0-q4 unsigned, q2 and q4 signed (value metric) and q2 code metric
    on the HDR surfaces through the f16 wire; ETC1 q0, q1, q2, q4, ETC2 q2,
    q4 and q2 with the Rec.709 x 3 sRGB weights, ETC2 RGBA8 q2 and q4 on the
-   alpha surface, EAC A8 q2, R11 q0, q2, q4 and RG11 q2 through the f16
-   wire, R11 and RG11 signed q2 on 2x-1 through the f16 wire; ASTC LDR
+   alpha surface, EAC A8 q2 and q4, R11 q0, q2, q4 and RG11 q2 and q4
+   through the f16 wire, R11 and RG11 signed q2 on 2x-1 through the f16
+   wire; ASTC LDR
    (the four entries merged) through the u8 wire: 4x4 q0, q2, q4 on the
    colour surface, q2 and q4 on the alpha surface, on a near-gray surface
    (R = G = B of the test surface) and on its alpha variant; 6x6 and 10x5
@@ -63,12 +64,13 @@ exits non-zero:
    took over a second): each kernel alone and its plain version alone on
    the 262,144 blocks (BC7 q3-4 and BC6H at q4, the main paths' quality,
    and at q3 and q2, BC6H also q4 signed and q2 with the code metric; ETC
-   RGB and RGBA8 at q2 and q4, EAC at q2; ASTC entries A and B at 4x4, 8x8
+   RGB and RGBA8 at q2 and q4, EAC A8 q2 and q4, R11 q0, q2, q4 and signed
+   q2, RG11 q2, signed q2 and q4; ASTC entries A and B at 4x4, 8x8
    and 12x12 q2 on the colour surface, A at 8x8 and 12x12 q4 and B at 4x4
    q4 on the near-gray alpha surface, C and D at 4x4 q4 and 8x8 q4 on
    that surface); each main-path
    convert (host clock, synchronised) median of 5, and each of its phases'
-   median over the same 5.  The unit-weight ETC RGB and RGBA8 cases also
+   median over the same 5 (EAC R11 and RG11 SNorm + mips too).  The unit-weight ETC RGB and RGBA8 cases also
    print the bound with the products by the weights counted, which a
    product by 1 does not need.  With --parent, every case of the rows whose source it
    names goes through the earlier build too (the earlier tree's wrapper
@@ -77,18 +79,20 @@ exits non-zero:
    (for astc_encode.cu: every ASTC entry case, words and errors).  The BC1,
    BC2, BC3 and BC7 q2 rows print their counted operations beside those of
    the earlier kernels on the same blocks, as do BC4, BC4 signed and BC5
-   signed (EARLIER_OPS).
+   signed, and the EAC and RGBA8 cases those of 80dec2d's body
+   (EARLIER_OPS).
 
 Then one JSON line of kernels (launches from the paths of phase 4; bound_ms
 from this run's inputs: the larger of the bytes the function must move over
-3.35 TB/s and its operations over 67 TFLOP/s: for ETC/EAC the float
-operations the function needs on those inputs, etc_rgb_ops (no products
-by unit channel weights) and eac_ops, for BC and ASTC
-those of its device code on a sample of the blocks, bc_op_counter and
-astc_op_counter, BC6H's with each texel's value and scale once and the BC4
-body's (BC3, BC4, BC5) with a mode's rounds ended at the first candidate
-not taken at every quality, the device code's count printed beside: see
-NEEDED_WHY),
+3.35 TB/s and its operations over 67 TFLOP/s: for ETC RGB and RGBA8 the
+float operations the function needs on those inputs, etc_rgb_ops (no
+products by unit channel weights) and eac_ops, for the EAC entries, BC
+and ASTC those of its device code on a sample of the blocks,
+eac_op_counter (the search's exits taken as this run's data takes them,
+each texel's side of the base once), bc_op_counter and astc_op_counter,
+BC6H's with each texel's value and scale once and the BC4 body's (BC3,
+BC4, BC5) with a mode's rounds ended at the first candidate not taken at
+every quality, the device code's count printed beside: see NEEDED_WHY),
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -281,12 +285,22 @@ def etc_rgb_ops(quality: int, etc2: bool, weighted: bool) -> int:
     return ops
 
 
-def eac_ops(quality: int, r11: bool) -> int:
-    """Float operations of one EAC block (eac_alpha or eac_r11)."""
+def eac_ops(quality: int) -> int:
+    """Float operations of one EAC alpha block (eac_alpha) when every (table,
+    multiplier) candidate is evaluated in full, as RGBA8's alpha evaluates
+    them.  A palette entry is clamp(base + mod * m); a texel's side of the
+    base one compare, made once; a texel's error against a candidate five
+    differences, four least absolute values (FMNMX takes |x| as an operand
+    modifier), one square and one add; the indices take the winner's eight
+    squares and seven compares a texel.  The EAC entries skip repeated
+    multipliers and leave a candidate once its partial error reaches the
+    best, so what they need depends on the data: their bound counts the
+    device code on the run's blocks (eac_op_counter)."""
     ncand = (1, 2, 3, 5, 7)[quality]
-    pal = 8 * (6 if r11 else 4)
-    search = 16 * 5 + 16 * ncand * (pal + 16 * 24) + 16 * ncand - 1
-    return (55 if r11 else 37) + search + pal + 16 * 23
+    pal = 8 * 4
+    cands = 16 * ncand
+    search = 16 * 4 + 16 + cands * (pal + 16 * 11) + cands - 1
+    return 37 + search + pal + 16 * 23
 
 
 # The counting float type and the shim that lets g++ build the device code
@@ -346,7 +360,73 @@ static inline CF floorf(CF a) { ++g_ops; return CF(floorf(a.v)); }
 static inline CF ceilf(CF a) { ++g_ops; return CF(ceilf(a.v)); }
 static inline CF sqrtf(CF a) { ++g_ops; return CF(sqrtf(a.v)); }
 static inline CF fabsf(CF a) { ++g_ops; return CF(fabsf(a.v)); }
+// min(|a|, |b|), which csrc/etc_encode.cu takes from here off the card: one
+// operation, as FMNMX takes |x| as an operand modifier.
+#define ETCX_HAVE_FMIN_ABS
+static inline float fmin_abs(float a, float b) { return fminf(fabsf(a), fabsf(b)); }
+static inline CF fmin_abs(CF a, CF b) { ++g_ops; return CF(fmin_abs(a.v, b.v)); }
 """
+
+# The EAC entries' device code (csrc/etc_encode.cu) under the counting
+# float: count runs a CPU entry, which stages each CTA's blocks and runs its
+# threads as the kernel does (kind 0: alpha [n,16]; 1: R11 [n,16]; 2: RG11
+# [n,16,nch]).  The search makes a texel's side of the base (EAC_SIDE) once
+# a candidate: with needed set those go uncounted (EAC_SIDE_COUNT), and
+# count adds each texel's once.
+EAC_SIDE_COUNT = r"""
+static bool g_needed = false;
+static inline bool eac_side(CF x, CF mid) {
+  g_ops += !g_needed;
+  return x.v >= mid.v;
+}
+#define EAC_SIDE(x, mid) eac_side(x, mid)
+"""
+EAC_COUNT_SRC = COUNT_PRELUDE + EAC_SIDE_COUNT + r"""
+#define float CF
+#include "etc_encode.cu"
+#undef float
+extern "C" unsigned long long count(const float* x, int n, int nch, int kind, int quality,
+                                    int is_signed, int needed, uint32_t* out) {
+  g_ops = 0;
+  g_needed = needed != 0;
+  if (kind == 0) etcx::eac_alpha_cpu((const CF*)x, out, n, quality);
+  else if (kind == 1) etcx::eac_r11_cpu((const CF*)x, out, n, quality, is_signed);
+  else etcx::eac_rg11_cpu((const CF*)x, out, n, nch, quality, is_signed);
+  if (g_needed) g_ops += 16ull * n * (kind == 2 ? 2 : 1);
+  return g_ops;
+}
+"""
+
+
+def eac_op_counter(csrc: str, tmp: str):
+    """-> count(kind, values, quality, signed, device=False): (float
+    operations per block of the EAC entries' device code, its words as
+    stored) on host values; kind "alpha" ([n,16] 0..1), "r11" ([n,16]) or
+    "rg11" ([n,16,C]).  Each texel's side of the base counted once, as the
+    function needs it, or with device=True once a candidate, as the device
+    code makes it."""
+    import ctypes
+
+    src, so = os.path.join(tmp, "eac_count.cpp"), os.path.join(tmp, "libeac_count.so")
+    with open(src, "w") as f:
+        f.write(EAC_COUNT_SRC)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC", "-I",
+                    csrc, "-o", so, src], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(so)
+    i = ctypes.c_int
+    lib.count.argtypes = [ctypes.c_void_p, i, i, i, i, i, i, ctypes.c_void_p]
+    lib.count.restype = ctypes.c_ulonglong
+
+    def count(kind, values, quality, signed, device=False):
+        x = np.ascontiguousarray(values, np.float32)
+        words = np.zeros((x.shape[0], 4 if kind == "rg11" else 2), np.uint32)
+        nch = x.shape[2] if x.ndim == 3 else 1
+        ops = lib.count(x.ctypes.data, x.shape[0], nch, ("alpha", "r11", "rg11").index(kind),
+                        quality, int(signed), int(not device), words.ctypes.data)
+        return ops / max(x.shape[0], 1), words
+
+    return count
+
 
 # Float operations of the hand kernels, counted by a g++ build of their
 # device code with the counting float type above on a sample of the run's
@@ -484,6 +564,27 @@ EARLIER_OPS = {
     "bc5s_q2": (9574, "f476058", "as BC3's alpha, on both channels"),
     "bc7_q2": (26891, "8f071ae", "mode 1's subset-0 mask made from its bits, not as 1 - m"),
 }
+# The ETC/EAC rows whose code moved since: operations per block of the
+# kernel's body as 80dec2d's eac_ops formula counted them (the input's clamp
+# and scale included; RGBA8 with its RGB sweep), for every candidate in
+# full; the EAC entries' counts now are what they need on the run's
+# blocks, counted on their device code.
+_EAC_SEARCH_WAS = ("a texel's error one square of the least of five distances (its side of the "
+                   "base once), not the least of eight squares; the palette from a float table")
+_EAC_EXITS_WAS = _EAC_SEARCH_WAS + "; repeated multipliers skipped, candidates left early"
+EARLIER_OPS.update({
+    "eac_alpha_q2": (20580, "80dec2d", _EAC_EXITS_WAS),
+    "eac_alpha_q4": (47268, "80dec2d", _EAC_EXITS_WAS),
+    "eac_r11_q0": (7526, "80dec2d", _EAC_EXITS_WAS),
+    "eac_r11_q2": (21382, "80dec2d", _EAC_EXITS_WAS),
+    "eac_r11_q4": (49094, "80dec2d", _EAC_EXITS_WAS),
+    "eac_r11s_q2": (21382, "80dec2d", _EAC_EXITS_WAS),
+    "eac_rg11_q2": (42764, "80dec2d", _EAC_EXITS_WAS),
+    "eac_rg11s_q2": (42764, "80dec2d", _EAC_EXITS_WAS),
+    "eac_rg11_q4": (98188, "80dec2d", _EAC_EXITS_WAS),
+    "etc2_rgba_q2": (285632, "80dec2d", _EAC_SEARCH_WAS + " (the alpha)"),
+    "etc2_rgba_q4": (539753, "80dec2d", _EAC_SEARCH_WAS + " (the alpha)"),
+})
 
 # The rows whose bound counts fewer operations than their device code
 # makes (bc_op_counter's device=False), and why.
@@ -859,10 +960,12 @@ def main(argv: list[str]) -> int:
         log("build", f"ptxas astc_encode entry {line}")
     for line in ptxas_entries(_build.build_info["etc_encode"]["log"]):
         log("build", f"ptxas etc_encode entry {line}")
-        for entry in ("etc_rgb_kernel", "etc2_rgba_kernel"):
+        for entry, threads in (("etc_rgb_kernel", 128), ("etc2_rgba_kernel", 128),
+                               ("eac_alpha_kernel", 128), ("eac_r11_kernel", 128),
+                               ("eac_rg11_kernel", 256)):
             if entry in line.split(":")[0]:
-                log("build", f"{entry}: 128 threads a CTA, {smem_bytes(line)} bytes of static "
-                    f"shared memory a CTA (its blocks' texels)")
+                log("build", f"{entry}: {threads} threads a CTA over 128 blocks, "
+                    f"{smem_bytes(line)} bytes of static shared memory a CTA (its blocks' texels)")
     parent_dir = tempfile.TemporaryDirectory()
     earlier = {}  # repo path of the source -> its earlier build's wrapper module
     for src in args.parent:
@@ -1021,25 +1124,30 @@ def main(argv: list[str]) -> int:
         )
         for w, ops in ((False, needed_ops), (True, weighted_ops)):
             ops[f"etc2_q{q}"] = 3 * 48 + etc_rgb_ops(q, True, w)
-            ops[f"etc2_rgba_q{q}"] = 3 * 64 + eac_ops(q, False) + etc_rgb_ops(q, True, w)
+            ops[f"etc2_rgba_q{q}"] = 3 * 64 + eac_ops(q) + etc_rgb_ops(q, True, w)
     cases["etc2_q2_srgb"] = (
         lambda x: etc.encode_etc_rgb(x, 2, True, srgb709),
         lambda x: etc.encode_etc_rgb_plain(x, 2, True, srgb709),
         "rgba", lambda r: decode_etc_rgb(r, True), slice(0, 3), 255.0,
     )
     needed_ops["etc2_q2_srgb"] = weighted_ops["etc2_q2"]
-    cases["eac_alpha_q2"] = (
-        lambda x: etc.encode_eac_alpha(x, 2), lambda x: etc.encode_eac_alpha_plain(x, 2),
-        "alpha1", lambda r: decode_eac_alpha(r) / 255.0, None, 1.0,
-    )
-    needed_ops["eac_alpha_q2"] = 3 * 16 + eac_ops(2, False)
+    # EAC: name -> (entry, quality, signed) of its device-code count
+    # (eac_op_counter, phase 5).
+    eac_counted = {}
+    for q in (2, 4):
+        cases[f"eac_alpha_q{q}"] = (
+            lambda x, q=q: etc.encode_eac_alpha(x, q),
+            lambda x, q=q: etc.encode_eac_alpha_plain(x, q),
+            "alpha1", lambda r: decode_eac_alpha(r) / 255.0, None, 1.0,
+        )
+        eac_counted[f"eac_alpha_q{q}"] = ("alpha", q, False)
     for q in (0, 2, 4):
         cases[f"eac_r11_q{q}"] = (
             lambda x, q=q: etc.encode_eac_r11(x, q),
             lambda x, q=q: etc.encode_eac_r11_plain(x, q),
             "red16", decode_eac_r11, None, 1.0,
         )
-        needed_ops[f"eac_r11_q{q}"] = 3 * 16 + eac_ops(q, True)
+        eac_counted[f"eac_r11_q{q}"] = ("r11", q, False)
     cases.update({
         "eac_r11s_q2": (lambda x: etc.encode_eac_r11(x, 2, True),
                         lambda x: etc.encode_eac_r11_plain(x, 2, True),
@@ -1050,8 +1158,12 @@ def main(argv: list[str]) -> int:
         "eac_rg11_q2": (lambda x: etc.encode_eac_rg11(x, 2),
                         lambda x: etc.encode_eac_rg11_plain(x, 2),
                         "rgba16", decode_eac_rg11, slice(0, 2), 1.0),
+        "eac_rg11_q4": (lambda x: etc.encode_eac_rg11(x, 4),
+                        lambda x: etc.encode_eac_rg11_plain(x, 4),
+                        "rgba16", decode_eac_rg11, slice(0, 2), 1.0),
     })
-    needed_ops["eac_rg11_q2"] = 3 * 32 + 2 * eac_ops(2, True)
+    eac_counted.update({"eac_r11s_q2": ("r11", 2, True), "eac_rg11s_q2": ("rg11", 2, True),
+                        "eac_rg11_q2": ("rg11", 2, False), "eac_rg11_q4": ("rg11", 4, False)})
 
     def target_of(kind, chans):
         """What the sample should decode to: 8-bit texels of the source for
@@ -1204,9 +1316,9 @@ def main(argv: list[str]) -> int:
                                     images["alpha"], "etc2_rgba", True),
         "etc1_2048_ktx": (TF.ETC1, TT.UNorm, QN, False, 0, "ktx", images["rgba"], "etc_rgb", False),
         "eac_r11_2048_mips_ktx": (TF.EAC_R11, TT.UNorm, QN, True, 0, "ktx", images["rgba"],
-                                  "eac_r11", False),
+                                  "eac_r11", True),
         "eac_rg11s_2048_mips_ktx": (TF.EAC_R11G11, TT.SNorm, QN, True, 0, "ktx", images["signed"],
-                                    "eac_rg11", False),
+                                    "eac_rg11", True),
     }
     etc_formats = (TF.ETC1, TF.ETC2_R8G8B8, TF.ETC2_R8G8B8A8, TF.EAC_R11, TF.EAC_R11G11)
     eac_formats = (TF.EAC_R11, TF.EAC_R11G11)
@@ -1485,11 +1597,11 @@ def main(argv: list[str]) -> int:
         ("etc2_rgba_encode", "etc2_rgba", "etc2_rgba_q2", "cuttlefish_tpu_torch/csrc/etc_encode.cu",
          "cuttlefish_tpu/kernels/etc_pallas.py:1276", 256, ("etc2_rgba_q4",)),
         ("eac_alpha_encode", "eac_alpha", "eac_alpha_q2", "cuttlefish_tpu_torch/csrc/etc_encode.cu",
-         "cuttlefish_tpu/kernels/etc_pallas.py:1292", 64, ()),
+         "cuttlefish_tpu/kernels/etc_pallas.py:1292", 64, ("eac_alpha_q4",)),
         ("eac_r11_encode", "eac_r11", "eac_r11_q2", "cuttlefish_tpu_torch/csrc/etc_encode.cu",
-         "cuttlefish_tpu/kernels/etc_pallas.py:1066", 64, ("eac_r11_q4",)),
+         "cuttlefish_tpu/kernels/etc_pallas.py:1066", 64, ("eac_r11_q4", "eac_r11s_q2", "eac_r11_q0")),
         ("eac_rg11_encode", "eac_rg11", "eac_rg11_q2", "cuttlefish_tpu_torch/csrc/etc_encode.cu",
-         "cuttlefish_tpu/kernels/etc_pallas.py:1103", 128, ()),
+         "cuttlefish_tpu/kernels/etc_pallas.py:1103", 128, ("eac_rg11s_q2", "eac_rg11_q4")),
     ]
     # Output bytes per block of the 2-word entries; the others write 16.
     out_bytes = {"bc1": 8, "bc4": 8, "etc_rgb": 8, "eac_alpha": 8, "eac_r11": 8}
@@ -1505,7 +1617,8 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         count_bc = bc_op_counter(str(_build.CSRC), tmp)
-        log("times", f"BC counting builds (g++) in {time.perf_counter() - t0:.1f} s")
+        count_eac = eac_op_counter(str(_build.CSRC), tmp)
+        log("times", f"BC and EAC counting builds (g++) in {time.perf_counter() - t0:.1f} s")
 
     def time_case(case, key, in_bytes):
         """(kernel ms, plain ms, bound ms, bound_by) of one case."""
@@ -1518,6 +1631,26 @@ def main(argv: list[str]) -> int:
             if case in weighted_ops:
                 counted += (f"; with the weight products {weighted_ops[case]}, bound "
                             f"{n * weighted_ops[case] / F32_OPS_PER_S * 1e3:.4f} ms")
+            if case in EARLIER_OPS:
+                ops0, commit, left = EARLIER_OPS[case]
+                counted += f"; {commit}'s {ops0} ({ops / ops0 - 1:+.1%}: {left})"
+        elif case in eac_counted:
+            # What the EAC entry needs on this run's data, its exits taken
+            # and each texel's side of the base made once: the device code's
+            # operations on a sample of the blocks, whose words must be the
+            # plain version's there.
+            entry, q, sgn = eac_counted[case]
+            xs = x[bc_samp].contiguous()
+            want = plain(xs).cpu().numpy()
+            hs = xs.cpu().numpy()
+            ops, words = count_eac(entry, hs, q, sgn)
+            device_ops, device_words = count_eac(entry, hs, q, sgn, device=True)
+            check(np.array_equal(words, want) and np.array_equal(device_words, want),
+                  f"{case}: the counting build's words differ from the plain version's")
+            ops0, commit, left = EARLIER_OPS[case]
+            counted = (f"needed (its exits taken, each texel's side of the base once), counted on "
+                       f"{bc_samp.numel()} blocks; the device code's {device_ops:.0f}; {commit}'s "
+                       f"{ops0} ({ops / ops0 - 1:+.1%}: {left})")
         else:
             xs = x[bc_samp].contiguous()
             row, chw = count_as.get(case, (case, None))

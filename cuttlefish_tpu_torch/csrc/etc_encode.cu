@@ -13,19 +13,21 @@
 // of the same algorithms is cuttlefish_tpu_torch/kernels/etc.py; the two are
 // compared on the card.
 //
-// Design.  One thread per 4x4 block, 128 threads per CTA, grid = ceil(N /
+// Design.  One thread per 4x4 block, 128 blocks per CTA, grid = ceil(N /
 // 128); the TPU kernels put 256-512 blocks on vector lanes, here each
-// thread runs its block's sweep alone.  The RGB and RGBA entries first
-// stage their CTA's blocks in shared memory with one coalesced copy (16-byte
-// loads by neighbouring threads), clamped and scaled there, laid out
+// thread runs its block's sweep alone (RG11: a thread per block and
+// channel, 256 a CTA).  Every entry first stages its CTA's blocks in shared
+// memory with one coalesced copy (16-byte loads by neighbouring threads),
+// clamped and scaled there (R11 in its /8 domain), laid out
 // [channel][texel][block] with the block index fastest and rows padded to
-// 129, so that a warp's 32 reads of one texel hit 32 banks (33 KB a CTA).
-// No texel array lives in a thread's local frame: each candidate family (a
-// sub-block's table fit, the differential and individual searches, planar,
-// T and H, the EAC search) is its own non-inlined function that reads the
-// texels it needs from shared memory into registers.  Every palette entry
-// (a clamped base + modifier) is made once per candidate, not per texel; a
-// table fit runs its 8 tables over the 8 member texels held in registers;
+// 129, so that a warp's 32 reads of one texel hit 32 banks (RGB and RGBA
+// 33 KB a CTA, R11 and alpha 8 KB, RG11 16 KB).  No texel array lives in a
+// thread's local frame: in the RGB and RGBA entries each candidate family
+// (a sub-block's table fit, the differential and individual searches,
+// planar, T and H, RGBA's alpha) is its own non-inlined function that reads
+// the texels it needs from shared memory into registers.  Every palette
+// entry (a clamped base + modifier) is made once per candidate, not per
+// texel; a table fit runs its 8 tables over the 8 member texels held in registers;
 // the offset estimates keep a sorted top-8 in registers instead of an array
 // of estimates; per-thread table indices (the winner's modifiers, T/H
 // distances) are selects over compile-time reads of the constant tables.
@@ -33,7 +35,11 @@
 // winner's indices once.  Each step of those chains, and of planar's
 // per-channel walks, starts from the step before, so the independent T and
 // H chains, and planar's three channels, run side by side to give the card
-// two or three chains to overlap.  With unit channel weights, the default
+// two or three chains to overlap.  The EAC search (eac_block) takes a
+// texel's error against a palette as one square of its least distance to
+// five of the eight entries, made from a float table, and in the EAC
+// entries skips repeated multipliers and leaves a candidate once its
+// partial error reaches the best.  With unit channel weights, the default
 // of a linear texture, a second instance skips the products by 1, which
 // are exact.  Quality is a run-time argument: q2 and q3 are one algorithm.
 //
@@ -53,16 +59,16 @@
 // passes --fmad=false so that no a*b+c is contracted; division and sqrtf
 // stay IEEE.  Every search keeps the first minimum (strict <, in candidate
 // order); invalid H candidates add 1e30 to their error in float32, as the
-// reference does.  EAC's multiplier seed is span * float32(1 / max_pos[t]),
-// the product XLA makes of the reference's division by a constant.  The
-// sorted top-8 picks what the reference's repeated pick of the least
-// unchosen estimate picks while every estimate is below the 1e30 it gives
-// chosen ones (channel weights below 1e23).
+// reference does.  EAC's multiplier seed is span * (float32(1) /
+// max_pos[t]), the product XLA makes of the reference's division by a
+// constant.  The sorted top-8 picks what the reference's repeated pick of
+// the least unchosen estimate picks while every estimate is below the 1e30
+// it gives chosen ones (channel weights below 1e23).
 //
 // The device functions are plain C++: the __global__ kernels and the
 // launchers need nvcc and sit under __CUDACC__; a CPU build runs each CTA's
 // staging and then its threads one after another (etc_rgb_cpu,
-// etc2_rgba_cpu).
+// etc2_rgba_cpu, eac_alpha_cpu, eac_r11_cpu, eac_rg11_cpu).
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -94,9 +100,11 @@ __constant__ int c_etc1_mods[8][4] = {
     {2, 8, -2, -8},     {5, 17, -5, -17},   {9, 29, -9, -29},    {13, 42, -13, -42},
     {18, 60, -18, -60}, {24, 80, -24, -80}, {33, 106, -33, -106}, {47, 183, -47, -183},
 };
-// EAC modifiers [table][index] (etc.py:_EAC_MODS_NP); column 7 is each
-// table's largest positive modifier.
-__constant__ int c_eac_mods[16][8] = {
+// EAC modifiers [table][index] (etc.py:_EAC_MODS_NP) as floats: the
+// palette's mod * mult (alpha) and mod * (mult * 8) (R11) are small
+// integers, as exact as the reference's mod * mult * 8.  Each half is
+// ordered by magnitude.
+__constant__ float c_eac_mods[16][8] = {
     {-3, -6, -9, -15, 2, 5, 8, 14}, {-3, -7, -10, -13, 2, 6, 9, 12},
     {-2, -5, -8, -13, 1, 4, 7, 12}, {-2, -4, -6, -13, 1, 3, 5, 12},
     {-3, -6, -8, -12, 2, 5, 7, 11}, {-3, -7, -9, -11, 2, 6, 8, 10},
@@ -105,6 +113,12 @@ __constant__ int c_eac_mods[16][8] = {
     {-2, -4, -8, -10, 1, 3, 7, 9},  {-2, -5, -7, -10, 1, 4, 6, 9},
     {-3, -4, -7, -10, 2, 3, 6, 9},  {-1, -2, -3, -10, 0, 1, 2, 9},
     {-4, -6, -8, -9, 3, 5, 7, 8},   {-3, -5, -7, -9, 2, 4, 6, 8},
+};
+// float32(1) / each table's largest positive modifier, column 7 above
+// (etc.py:_EAC_INV_MAX_POS): the multiplier seed's factor.
+__constant__ float c_eac_inv[16] = {
+    1.0f / 14, 1.0f / 12, 1.0f / 12, 1.0f / 12, 1.0f / 11, 1.0f / 10, 1.0f / 10, 1.0f / 10,
+    1.0f / 9,  1.0f / 9,  1.0f / 9,  1.0f / 9,  1.0f / 9,  1.0f / 9,  1.0f / 8,  1.0f / 8,
 };
 // ETC2 T/H distances (etc.py:_ETC2_DIST_NP).
 __constant__ int c_dist[8] = {3, 6, 11, 16, 23, 32, 41, 64};
@@ -1102,64 +1116,108 @@ __device__ __forceinline__ bool unit_weights(const Chw& w) {
 // EAC (etc_pallas.py:_eac_alpha, _eac_r11)
 // ---------------------------------------------------------------------------
 
-// EAC block of 16 values in the search domain.  R11: values and palette in
-// the /8 domain, palette clip(base8 + mod * mult * 8, lo, hi) / 8 with base8
-// = base * 8 + offset; alpha: clip(base + mod * mult, 0, 255).
-struct EacDomain {
-  bool r11;
-  float base_v;  // base (alpha) or base * 8 + offset (R11)
-  float lo, hi;  // palette clip
+// One channel of a thread's block in shared memory (R11, alpha, a RG11
+// channel): texel t at p[t * kStride].
+struct Chan {
+  const float* p;
+  __device__ __forceinline__ float operator[](int t) const { return p[t * kStride]; }
 };
 
-__device__ __forceinline__ float eac_pal(const EacDomain& dm, float mod, float mult) {
-  if (dm.r11) return clampf(dm.base_v + mod * mult * 8.0f, dm.lo, dm.hi) / 8.0f;
-  return clampf(dm.base_v + mod * mult, dm.lo, dm.hi);
+// min(|a|, |b|): one instruction on the card, which takes |x| as an operand
+// modifier of FMNMX.  A CPU build may bring its own (chip_smoke.py's
+// counting shim counts it as the one operation it is).
+#ifndef ETCX_HAVE_FMIN_ABS
+__device__ __forceinline__ float fmin_abs(float a, float b) { return fminf(fabsf(a), fabsf(b)); }
+#endif
+
+// Table tb's palette at multiplier mult: alpha clip(base_v + mod * mult, lo,
+// hi); R11 (values in the /8 domain) clip(base_v + mod * mult * 8, lo, hi)
+// / 8, with base_v = base * 8 + offset.
+template <bool R11>
+__device__ __forceinline__ void eac_palette(int tb, int mult, float base_v, float lo, float hi,
+                                            float (&pal)[8]) {
+  const float m = (float)(R11 ? mult * 8 : mult);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float p = clampf(base_v + c_eac_mods[tb][k] * m, lo, hi);
+    pal[k] = R11 ? p * 0.125f : p;
+  }
 }
+
+// Whether texel x's nearest entries lie in the palette's upper half: x at
+// or above the base.  The function needs it once a texel; the search makes
+// it once a candidate, and the counting build of chip_smoke.py defines
+// EAC_SIDE to count it once a texel or as made.
+#ifndef EAC_SIDE
+#define EAC_SIDE(x, mid) ((x) >= (mid))
+#endif
 
 // The table x multiplier search around the range fit; returns the 64-bit
 // block's (hi, lo) words before the byte swap, base byte given.  v[t]: a
-// thread's array (R11, the alpha entry) or a shared-memory channel (RGBA).
-template <class V>
-__device__ __noinline__ void eac_block(const V v, int quality, uint32_t base_byte, float span,
-                                       EacDomain dm, uint32_t* words) {
+// channel in shared memory (Chan, or RGBA's staged alpha).  Each shortcut
+// gives the reference's floats and choices:
+// - a texel's error against a palette is the square of its least |v - p_k|
+//   (rounding is monotone, so that is the least square, as the same float);
+// - the entries of indices 0-3 (negative modifiers, each half ordered by
+//   magnitude) lie at or below the base and those of 4-7 at or above it,
+//   whatever the clamp, so a texel at or above the base is nearest to entry
+//   0 or one of 4-7, one below it to entry 4 or one of 0-3: five a texel;
+// - with EXITS, a multiplier clamped to the one before it in its table
+//   repeats that candidate's error and is skipped, and a candidate is left
+//   once its partial error, checked every 4 texels, reaches the best (its
+//   terms are not negative): under the strict < neither could be taken.
+//   The EAC entries take the exits; RGBA's alpha does not: in that kernel
+//   (168 registers a thread) they cost more than they saved.
+template <bool R11, bool EXITS, class V>
+__device__ __forceinline__ void eac_block(const V v, int quality, uint32_t base_byte, float span,
+                                          float base_v, float lo, float hi, uint32_t* words) {
   const int ncand = c_eac_ncand[quality];
+  const int dlo = -(ncand / 2), dhi = ncand - ncand / 2;
+  const float mid = R11 ? base_v * 0.125f : base_v;
   int best_t = 0, best_mult = 1;
   float best_err = 0.0f;
   for (int tb = 0; tb < 16; ++tb) {
-    const float inv = 1.0f / (float)c_eac_mods[tb][7];
-    const int m0 = (int)clampf(rintf(span * inv), 1.0f, 15.0f);
-    for (int dmul = -(ncand / 2); dmul < ncand - ncand / 2; ++dmul) {
+    const int m0 = (int)clampf(rintf(span * c_eac_inv[tb]), 1.0f, 15.0f);
+    int prev = 0;
+    for (int dmul = dlo; dmul < dhi; ++dmul) {
       const int mult = clampi(m0 + dmul, 1, 15);
+      if (EXITS && mult == prev) continue;
+      prev = mult;
+      const bool first = tb == 0 && dmul == dlo;
       float pal[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) pal[k] = eac_pal(dm, (float)c_eac_mods[tb][k], (float)mult);
+      eac_palette<R11>(tb, mult, base_v, lo, hi, pal);
       float err = 0.0f;
 #pragma unroll
       for (int t = 0; t < 16; ++t) {
-        float e = sq(v[t] - pal[0]);
-#pragma unroll
-        for (int k = 1; k < 8; ++k) e = fminf(e, sq(v[t] - pal[k]));
-        err = err + e;
+        const float x = v[t];
+        const bool up = EAC_SIDE(x, mid);
+        float d = fmin_abs(x - pal[0], x - pal[4]);
+        d = fmin_abs(d, x - (up ? pal[5] : pal[1]));
+        d = fmin_abs(d, x - (up ? pal[6] : pal[2]));
+        d = fmin_abs(d, x - (up ? pal[7] : pal[3]));
+        err = err + sq(d);
+        if (EXITS && (t & 3) == 3 && t < 15 && !first && err >= best_err) break;
       }
-      if ((tb == 0 && dmul == -(ncand / 2)) || err < best_err) {
+      if (first || err < best_err) {
         best_err = err;
         best_t = tb;
         best_mult = mult;
       }
     }
   }
+  // The indices: the first least square in table order, as the reference.
   float pal[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) pal[k] = eac_pal(dm, (float)c_eac_mods[best_t][k], (float)best_mult);
-  uint32_t hi = (base_byte << 24) | ((uint32_t)best_mult << 20) | ((uint32_t)best_t << 16);
-  uint32_t lo = 0u;
+  eac_palette<R11>(best_t, best_mult, base_v, lo, hi, pal);
+  uint32_t hi_w = (base_byte << 24) | ((uint32_t)best_mult << 20) | ((uint32_t)best_t << 16);
+  uint32_t lo_w = 0u;
 #pragma unroll
   for (int t = 0; t < 16; ++t) {
-    float be = sq(v[t] - pal[0]);
+    const float x = v[t];
+    float be = sq(x - pal[0]);
     uint32_t bk = 0u;
 #pragma unroll
     for (int k = 1; k < 8; ++k) {
-      const float e = sq(v[t] - pal[k]);
+      const float e = sq(x - pal[k]);
       if (e < be) {
         be = e;
         bk = (uint32_t)k;
@@ -1169,18 +1227,18 @@ __device__ __noinline__ void eac_block(const V v, int quality, uint32_t base_byt
     // one at bit 30 straddles the two words.
     const int bitpos = 45 - 3 * colmajor(t);
     if (bitpos >= 32) {
-      hi |= bk << (bitpos - 32);
+      hi_w |= bk << (bitpos - 32);
     } else {
-      lo |= bk << bitpos;
-      if (bitpos > 29) hi |= bk >> (32 - bitpos);
+      lo_w |= bk << bitpos;
+      if (bitpos > 29) hi_w |= bk >> (32 - bitpos);
     }
   }
-  words[0] = hi;
-  words[1] = lo;
+  words[0] = hi_w;
+  words[1] = lo_w;
 }
 
 // a[t], t < 16: alpha in 0..255.
-template <class V>
+template <bool EXITS, class V>
 __device__ __forceinline__ void eac_alpha(const V a, int quality, uint32_t* words) {
   float lo = a[0], hi = a[0];
   for (int t = 1; t < 16; ++t) {
@@ -1188,16 +1246,13 @@ __device__ __forceinline__ void eac_alpha(const V a, int quality, uint32_t* word
     hi = fmaxf(hi, a[t]);
   }
   const int base = (int)clampf(rintf((lo + hi) * 0.5f), 0.0f, 255.0f);
-  const EacDomain dm = {false, (float)base, 0.0f, 255.0f};
-  eac_block(a, quality, (uint32_t)base, (hi - lo) * 0.5f, dm, words);
+  eac_block<false, EXITS>(a, quality, (uint32_t)base, (hi - lo) * 0.5f, (float)base, 0.0f,
+                          255.0f, words);
 }
 
-// v[16] in the true 11-bit domain (0..2047, or -1023..1023 signed); the
-// search runs in the /8 domain (v8 = v / 8).
-__device__ __forceinline__ void eac_r11(const float* v, int quality, bool is_signed,
-                                        uint32_t* words) {
-  float v8[16];
-  for (int t = 0; t < 16; ++t) v8[t] = v[t] / 8.0f;
+// v8[t], t < 16: the /8 domain (v / 8 of 0..2047, or of -1023..1023 signed).
+template <class V>
+__device__ __forceinline__ void eac_r11(const V v8, int quality, bool is_signed, uint32_t* words) {
   float lo = v8[0], hi = v8[0];
   for (int t = 1; t < 16; ++t) {
     lo = fminf(lo, v8[t]);
@@ -1205,39 +1260,68 @@ __device__ __forceinline__ void eac_r11(const float* v, int quality, bool is_sig
   }
   const float blo = is_signed ? -127.0f : 0.0f, bhi = is_signed ? 127.0f : 255.0f;
   const int base = (int)clampf(rintf((lo + hi) * 0.5f), blo, bhi);
-  const EacDomain dm = {true, (float)base * 8.0f + (is_signed ? 0.0f : 4.0f),
-                        is_signed ? -1023.0f : 0.0f, is_signed ? 1023.0f : 2047.0f};
-  eac_block((const float*)v8, quality, (uint32_t)base & 0xFFu, (hi - lo) * 0.5f, dm, words);
+  eac_block<true, true>(v8, quality, (uint32_t)base & 0xFFu, (hi - lo) * 0.5f,
+                        (float)base * 8.0f + (is_signed ? 0.0f : 4.0f),
+                        is_signed ? -1023.0f : 0.0f, is_signed ? 1023.0f : 2047.0f, words);
+}
+
+// ---------------------------------------------------------------------------
+// Staging a CTA's blocks
+// ---------------------------------------------------------------------------
+
+// A value as the entries stage it: clamp(x, lo, 1) * scale, and for R11
+// its / 8 (0.125 times, the same float).
+__device__ __forceinline__ float staged(float x, float lo, float scale, bool r11) {
+  const float v = clampf(x, lo, 1.0f) * scale;
+  return r11 ? v * 0.125f : v;
+}
+
+// Thread tid's share (of nth) of staging values [first, first + nb) of
+// vals [n,16] (R11, alpha) into s, a row of kStride floats per texel:
+// neighbouring threads read neighbouring float4s (four texels of a block;
+// the wrapper hands over 16-byte aligned storage, bc_cuda.launch).
+__device__ __forceinline__ void stage_vals(float* s, const float* vals, int first, int nb, float lo,
+                                           float scale, bool r11, int tid, int nth) {
+  const float4* src = (const float4*)vals + (size_t)first * 4;
+  for (int f = tid; f < nb * 4; f += nth) {
+    const float4 q = src[f];
+    float* d = s + (4 * (f & 3)) * kStride + (f >> 2);
+    d[0] = staged(q.x, lo, scale, r11);
+    d[kStride] = staged(q.y, lo, scale, r11);
+    d[2 * kStride] = staged(q.z, lo, scale, r11);
+    d[3 * kStride] = staged(q.w, lo, scale, r11);
+  }
+}
+
+// Thread tid's share (of nth) of staging blocks [first, first + nb) of
+// blocks [n,16,nch] into s: the first nc channels (RG11 2, RGB 3, RGBA 4)
+// as rows [channel][texel].  With nch = 4 neighbouring threads read
+// neighbouring texels as float4 (the wrapper hands over 16-byte aligned
+// storage, bc_cuda.launch), else one float a thread.
+__device__ __forceinline__ void stage(float* s, const float* blocks, int first, int nb, int nch,
+                                      int nc, float lo, float scale, bool r11, int tid, int nth) {
+  if (nch == 4) {
+    const float4* src = (const float4*)blocks + (size_t)first * 16;
+    for (int f = tid; f < nb * 16; f += nth) {
+      const float4 q = src[f];
+      float* d = s + (f & 15) * kStride + (f >> 4);
+      d[0] = staged(q.x, lo, scale, r11);
+      d[16 * kStride] = staged(q.y, lo, scale, r11);
+      if (nc > 2) d[32 * kStride] = staged(q.z, lo, scale, r11);
+      if (nc > 3) d[48 * kStride] = staged(q.w, lo, scale, r11);
+    }
+    return;
+  }
+  const float* src = blocks + (size_t)first * 16 * nch;
+  for (int e = tid; e < nb * 16 * nch; e += nth) {
+    const int bt = e / nch, c = e - bt * nch;  // bt = block * 16 + texel
+    if (c < nc) s[(16 * c + (bt & 15)) * kStride + (bt >> 4)] = staged(src[e], lo, scale, r11);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // The RGB and RGBA entries' CTA body
 // ---------------------------------------------------------------------------
-
-// Thread tid's share of staging blocks [first, first + nb) of blocks
-// [n,16,nch] into s_px: the first nc channels, clamp(x, 0, 1) * 255.  With
-// nch = 4 neighbouring threads read neighbouring texels as float4 (the
-// wrapper hands over 16-byte aligned storage, bc_cuda.launch).
-__device__ __forceinline__ void stage(const float* blocks, int first, int nb, int nch, int nc,
-                                      int tid) {
-  if (nch == 4) {
-    const float4* src = (const float4*)blocks + (size_t)first * 16;
-    for (int f = tid; f < nb * 16; f += kThreads) {
-      const float4 q = src[f];
-      float* d = s_px + (f & 15) * kStride + (f >> 4);
-      d[0] = clampf(q.x, 0.0f, 1.0f) * 255.0f;
-      d[16 * kStride] = clampf(q.y, 0.0f, 1.0f) * 255.0f;
-      d[32 * kStride] = clampf(q.z, 0.0f, 1.0f) * 255.0f;
-      if (nc == 4) d[48 * kStride] = clampf(q.w, 0.0f, 1.0f) * 255.0f;
-    }
-  } else {
-    const float* src = blocks + (size_t)first * 16 * nch;
-    for (int e = tid; e < nb * 16 * nch; e += kThreads) {
-      const int bt = e / nch, c = e - bt * nch;  // bt = block * 16 + texel
-      if (c < nc) s_px[(16 * c + (bt & 15)) * kStride + (bt >> 4)] = clampf(src[e], 0.0f, 1.0f) * 255.0f;
-    }
-  }
-}
 
 // Thread tid's block after staging: its ETC RGB words (2) or its EAC alpha
 // then ETC2 RGB words (4), byte-swapped.
@@ -1252,9 +1336,15 @@ __device__ __forceinline__ void rgb_block(int tid, int quality, bool etc2, const
   out[1] = bswap(cw[1]);
 }
 
+// RGBA's EAC alpha from the staged rows, a function of its own so that the
+// RGB sweep's functions keep their registers.
+__device__ __noinline__ void rgba_alpha(int tid, int quality, uint32_t* words) {
+  eac_alpha<false>(PxChan{Px{tid}, 3}, quality, words);
+}
+
 __device__ __forceinline__ void rgba_block(int tid, int quality, const Chw& w, uint32_t* out) {
   uint32_t aw[2];
-  eac_alpha(PxChan{Px{tid}, 3}, quality, aw);
+  rgba_alpha(tid, quality, aw);
   out[0] = bswap(aw[0]);
   out[1] = bswap(aw[1]);
   rgb_block(tid, quality, true, w, out + 2);
@@ -1268,7 +1358,8 @@ inline void etc_rgb_cpu(const float* blocks, uint32_t* out, int n, int nch, int 
                         Chw w) {
   for (int first = 0; first < n; first += kThreads) {
     const int nb = mini(kThreads, n - first);
-    for (int tid = 0; tid < kThreads; ++tid) stage(blocks, first, nb, nch, 3, tid);
+    for (int tid = 0; tid < kThreads; ++tid)
+      stage(s_px, blocks, first, nb, nch, 3, 0.0f, 255.0f, false, tid, kThreads);
     for (int tid = 0; tid < nb; ++tid) rgb_block(tid, quality, etc2 != 0, w, out + 2 * (first + tid));
   }
 }
@@ -1276,8 +1367,57 @@ inline void etc_rgb_cpu(const float* blocks, uint32_t* out, int n, int nch, int 
 inline void etc2_rgba_cpu(const float* blocks, uint32_t* out, int n, int quality, Chw w) {
   for (int first = 0; first < n; first += kThreads) {
     const int nb = mini(kThreads, n - first);
-    for (int tid = 0; tid < kThreads; ++tid) stage(blocks, first, nb, 4, 4, tid);
+    for (int tid = 0; tid < kThreads; ++tid)
+      stage(s_px, blocks, first, nb, 4, 4, 0.0f, 255.0f, false, tid, kThreads);
     for (int tid = 0; tid < nb; ++tid) rgba_block(tid, quality, w, out + 4 * (first + tid));
+  }
+}
+
+// The EAC entries on the CPU, likewise (RG11 a thread per (block, channel),
+// as the card runs it).  out: [n, 2] (alpha, R11) or [n, 4] (RG11) words.
+inline void eac_alpha_cpu(const float* vals, uint32_t* out, int n, int quality) {
+  for (int first = 0; first < n; first += kThreads) {
+    const int nb = mini(kThreads, n - first);
+    for (int tid = 0; tid < kThreads; ++tid)
+      stage_vals(s_px, vals, first, nb, 0.0f, 255.0f, false, tid, kThreads);
+    for (int tid = 0; tid < nb; ++tid) {
+      uint32_t w[2];
+      eac_alpha<true>(Chan{s_px + tid}, quality, w);
+      out[2 * (first + tid)] = bswap(w[0]);
+      out[2 * (first + tid) + 1] = bswap(w[1]);
+    }
+  }
+}
+
+inline void eac_r11_cpu(const float* vals, uint32_t* out, int n, int quality, int is_signed) {
+  for (int first = 0; first < n; first += kThreads) {
+    const int nb = mini(kThreads, n - first);
+    for (int tid = 0; tid < kThreads; ++tid)
+      stage_vals(s_px, vals, first, nb, is_signed ? -1.0f : 0.0f, is_signed ? 1023.0f : 2047.0f,
+                 true, tid, kThreads);
+    for (int tid = 0; tid < nb; ++tid) {
+      uint32_t w[2];
+      eac_r11(Chan{s_px + tid}, quality, is_signed != 0, w);
+      out[2 * (first + tid)] = bswap(w[0]);
+      out[2 * (first + tid) + 1] = bswap(w[1]);
+    }
+  }
+}
+
+inline void eac_rg11_cpu(const float* blocks, uint32_t* out, int n, int nch, int quality,
+                         int is_signed) {
+  for (int first = 0; first < n; first += kThreads) {
+    const int nb = mini(kThreads, n - first);
+    for (int tid = 0; tid < 2 * kThreads; ++tid)
+      stage(s_px, blocks, first, nb, nch, 2, is_signed ? -1.0f : 0.0f,
+            is_signed ? 1023.0f : 2047.0f, true, tid, 2 * kThreads);
+    for (int ch = 0; ch < 2; ++ch)
+      for (int b = 0; b < nb; ++b) {
+        uint32_t w[2];
+        eac_r11(Chan{s_px + 16 * ch * kStride + b}, quality, is_signed != 0, w);
+        out[4 * (first + b) + 2 * ch] = bswap(w[0]);
+        out[4 * (first + b) + 2 * ch + 1] = bswap(w[1]);
+      }
   }
 }
 
@@ -1290,7 +1430,7 @@ __global__ void __launch_bounds__(kThreads)
     etc_rgb_kernel(const float* __restrict__ blocks, uint2* __restrict__ out, int n, int nch,
                    int quality, int etc2, Chw chw) {
   const int first = blockIdx.x * kThreads, nb = mini(kThreads, n - first);
-  stage(blocks, first, nb, nch, 3, threadIdx.x);
+  stage(s_px, blocks, first, nb, nch, 3, 0.0f, 255.0f, false, threadIdx.x, kThreads);
   __syncthreads();
   if ((int)threadIdx.x >= nb) return;
   uint32_t w[2];
@@ -1303,7 +1443,7 @@ __global__ void __launch_bounds__(kThreads)
     etc2_rgba_kernel(const float* __restrict__ blocks, uint4* __restrict__ out, int n, int quality,
                      Chw chw) {
   const int first = blockIdx.x * kThreads, nb = mini(kThreads, n - first);
-  stage(blocks, first, nb, 4, 4, threadIdx.x);
+  stage(s_px, blocks, first, nb, 4, 4, 0.0f, 255.0f, false, threadIdx.x, kThreads);
   __syncthreads();
   if ((int)threadIdx.x >= nb) return;
   uint32_t w[4];
@@ -1311,62 +1451,56 @@ __global__ void __launch_bounds__(kThreads)
   out[first + threadIdx.x] = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-__device__ __forceinline__ void load16(const float4* src, float lo, float hi, float scale,
-                                       float (&v)[16]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float4 q = src[j];
-    v[4 * j] = clampf(q.x, lo, hi) * scale;
-    v[4 * j + 1] = clampf(q.y, lo, hi) * scale;
-    v[4 * j + 2] = clampf(q.z, lo, hi) * scale;
-    v[4 * j + 3] = clampf(q.w, lo, hi) * scale;
-  }
-}
-
-// vals: [n,16] float32 in 0..1 -> [n] uint2 EAC alpha words.
+// vals: [n,16] float32 in 0..1 -> [n] uint2 EAC alpha words.  A thread per
+// block, the CTA's blocks staged in shared memory.
 __global__ void __launch_bounds__(kThreads)
-    eac_alpha_kernel(const float4* __restrict__ vals, uint2* __restrict__ out, int n,
+    eac_alpha_kernel(const float* __restrict__ vals, uint2* __restrict__ out, int n,
                      int quality) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float a[16];
-  load16(vals + (size_t)i * 4, 0.0f, 1.0f, 255.0f, a);
+  __shared__ float s[16 * kStride];
+  const int first = blockIdx.x * kThreads, nb = mini(kThreads, n - first);
+  stage_vals(s, vals, first, nb, 0.0f, 255.0f, false, threadIdx.x, kThreads);
+  __syncthreads();
+  if ((int)threadIdx.x >= nb) return;
   uint32_t w[2];
-  eac_alpha((const float*)a, quality, w);
-  out[i] = make_uint2(bswap(w[0]), bswap(w[1]));
+  eac_alpha<true>(Chan{s + threadIdx.x}, quality, w);
+  out[first + threadIdx.x] = make_uint2(bswap(w[0]), bswap(w[1]));
 }
 
-// vals: [n,16] float32 in [0,1] ([-1,1] signed) -> [n] uint2 R11 words.
+// vals: [n,16] float32 in [0,1] ([-1,1] signed) -> [n] uint2 R11 words;
+// as the alpha entry, the values staged in the /8 domain.
 __global__ void __launch_bounds__(kThreads)
-    eac_r11_kernel(const float4* __restrict__ vals, uint2* __restrict__ out, int n, int quality,
+    eac_r11_kernel(const float* __restrict__ vals, uint2* __restrict__ out, int n, int quality,
                    int is_signed) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float v[16];
-  load16(vals + (size_t)i * 4, is_signed ? -1.0f : 0.0f, 1.0f, is_signed ? 1023.0f : 2047.0f, v);
+  __shared__ float s[16 * kStride];
+  const int first = blockIdx.x * kThreads, nb = mini(kThreads, n - first);
+  stage_vals(s, vals, first, nb, is_signed ? -1.0f : 0.0f, is_signed ? 1023.0f : 2047.0f, true,
+             threadIdx.x, kThreads);
+  __syncthreads();
+  if ((int)threadIdx.x >= nb) return;
   uint32_t w[2];
-  eac_r11(v, quality, is_signed != 0, w);
-  out[i] = make_uint2(bswap(w[0]), bswap(w[1]));
+  eac_r11(Chan{s + threadIdx.x}, quality, is_signed != 0, w);
+  out[first + threadIdx.x] = make_uint2(bswap(w[0]), bswap(w[1]));
 }
 
-// blocks: [n,16,nch] float32 (nch >= 2) -> [n] uint4: R11 words, G11 words.
-__global__ void __launch_bounds__(kThreads)
-    eac_rg11_kernel(const float* __restrict__ blocks, uint4* __restrict__ out, int n, int nch,
+constexpr int kRgThreads = 2 * kThreads;
+
+// blocks: [n,16,nch] float32 (nch >= 2) -> [n] uint4: R11 words, G11 words
+// (out as [n,2] uint2).  kThreads blocks a CTA, staged in shared memory, and
+// a thread per (block, channel): warps 0-3 on red, 4-7 on green, each
+// writing its channel's half of the block.
+__global__ void __launch_bounds__(kRgThreads)
+    eac_rg11_kernel(const float* __restrict__ blocks, uint2* __restrict__ out, int n, int nch,
                     int quality, int is_signed) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* src = blocks + (size_t)i * 16 * nch;
-  const float lo = is_signed ? -1.0f : 0.0f, scale = is_signed ? 1023.0f : 2047.0f;
-  float r[16], g[16];
-#pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    r[t] = clampf(src[t * nch], lo, 1.0f) * scale;
-    g[t] = clampf(src[t * nch + 1], lo, 1.0f) * scale;
-  }
-  uint32_t rw[2], gw[2];
-  eac_r11(r, quality, is_signed != 0, rw);
-  eac_r11(g, quality, is_signed != 0, gw);
-  out[i] = make_uint4(bswap(rw[0]), bswap(rw[1]), bswap(gw[0]), bswap(gw[1]));
+  __shared__ float s[32 * kStride];
+  const int first = blockIdx.x * kThreads, nb = mini(kThreads, n - first);
+  stage(s, blocks, first, nb, nch, 2, is_signed ? -1.0f : 0.0f, is_signed ? 1023.0f : 2047.0f,
+        true, threadIdx.x, kRgThreads);
+  __syncthreads();
+  const int ch = threadIdx.x / kThreads, b = threadIdx.x % kThreads;
+  if (b >= nb) return;
+  uint32_t w[2];
+  eac_r11(Chan{s + 16 * ch * kStride + b}, quality, is_signed != 0, w);
+  out[2 * (first + b) + ch] = make_uint2(bswap(w[0]), bswap(w[1]));
 }
 
 inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
@@ -1408,7 +1542,7 @@ extern "C" int eac_alpha_encode_launch(const void* vals, void* out, int n, int q
   if (n <= 0) return 0;
   if (quality < 0 || quality > 4) return (int)cudaErrorInvalidValue;
   etcx::eac_alpha_kernel<<<etcx::grid_for(n), etcx::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)vals, (uint2*)out, n, quality);
+      (const float*)vals, (uint2*)out, n, quality);
   return (int)cudaGetLastError();
 }
 
@@ -1418,7 +1552,7 @@ extern "C" int eac_r11_encode_launch(const void* vals, void* out, int n, int qua
   if (n <= 0) return 0;
   if (quality < 0 || quality > 4) return (int)cudaErrorInvalidValue;
   etcx::eac_r11_kernel<<<etcx::grid_for(n), etcx::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)vals, (uint2*)out, n, quality, is_signed);
+      (const float*)vals, (uint2*)out, n, quality, is_signed);
   return (int)cudaGetLastError();
 }
 
@@ -1427,8 +1561,8 @@ extern "C" int eac_rg11_encode_launch(const void* blocks, void* out, int n, int 
                                       int is_signed, void* stream) {
   if (n <= 0) return 0;
   if (nch < 2 || quality < 0 || quality > 4) return (int)cudaErrorInvalidValue;
-  etcx::eac_rg11_kernel<<<etcx::grid_for(n), etcx::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)blocks, (uint4*)out, n, nch, quality, is_signed);
+  etcx::eac_rg11_kernel<<<etcx::grid_for(n), etcx::kRgThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)blocks, (uint2*)out, n, nch, quality, is_signed);
   return (int)cudaGetLastError();
 }
 

@@ -406,6 +406,40 @@ def test_etc_rgb_kernels_equal_plain_at_cta_edges(cuda, n):
         assert np.array_equal(k, p), (kind, x.shape)
 
 
+# (entry, kernel, plain, input) of each EAC entry, at each quality of the
+# edge cases below.
+_EAC_EDGE_CASES = {
+    "eac_r11": (lambda x, q: etc.encode_eac_r11(x, q), lambda x, q: etc.encode_eac_r11_plain(x, q),
+                "red"),
+    "eac_r11_signed": (lambda x, q: etc.encode_eac_r11(x, q, True),
+                       lambda x, q: etc.encode_eac_r11_plain(x, q, True), "sred"),
+    "eac_rg11": (lambda x, q: etc.encode_eac_rg11(x, q), lambda x, q: etc.encode_eac_rg11_plain(x, q),
+                 "rgba"),
+    "eac_rg11_signed": (lambda x, q: etc.encode_eac_rg11(x, q, True),
+                        lambda x, q: etc.encode_eac_rg11_plain(x, q, True), "signed"),
+    "eac_alpha": (lambda x, q: etc.encode_eac_alpha(x, q), lambda x, q: etc.encode_eac_alpha_plain(x, q),
+                  "red"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quality", [2, 4])
+@pytest.mark.parametrize("case", sorted(_EAC_EDGE_CASES))
+def test_eac_kernels_at_cta_edges(cuda, case, quality):
+    """The EAC entries stage 128 blocks a CTA in shared memory (RG11 a
+    thread per block and channel): one block, part-filled CTAs and 257 =
+    2 x 128 + 1 give the plain version's words, one launch each."""
+    kernel, plain, kind = _EAC_EDGE_CASES[case]
+    x = torch.from_numpy(_bc_input(kind, 257)).to(cuda)
+    name = next(k for k in etc_cuda.launches if case == k or case.startswith(k + "_"))
+    for n in (1, 127, 129, 257):
+        before = etc_cuda.launches[name]
+        k = kernel(x[:n], quality)
+        torch.cuda.synchronize()
+        assert etc_cuda.launches[name] == before + 1
+        assert torch.equal(k.cpu(), plain(x[:n], quality).cpu()), n
+
+
 @pytest.mark.gpu
 def test_etc_kernels_take_views_off_16_byte_boundaries(cuda):
     """The ETC/EAC entries read 16-byte vectors: a contiguous view that
@@ -425,6 +459,7 @@ def test_etc_kernels_take_views_off_16_byte_boundaries(cuda):
         (lambda t: etc.encode_etc2_rgba(t, 2), lambda t: etc.encode_etc2_rgba_plain(t, 2), b),
         (lambda t: etc.encode_eac_alpha(t, 2), lambda t: etc.encode_eac_alpha_plain(t, 2), a),
         (lambda t: etc.encode_eac_r11(t, 2), lambda t: etc.encode_eac_r11_plain(t, 2), a),
+        (lambda t: etc.encode_eac_rg11(t, 2), lambda t: etc.encode_eac_rg11_plain(t, 2), b),
     ):
         got = kernel(off(x))
         torch.cuda.synchronize()

@@ -166,8 +166,9 @@ def test_etc_planar_projection_equals_pallas_kernel():
 
 def test_etc_kernel_tables_equal_reference():
     """The constant tables written into csrc/etc_encode.cu hold the spec
-    tables' values: ETC1 and EAC modifiers, T/H distances, EAC multiplier
-    candidates, and the planar projection rounded once to float32."""
+    tables' values: ETC1 and EAC modifiers, the EAC multiplier seed's
+    factors, T/H distances, EAC multiplier candidates, and the planar
+    projection rounded once to float32."""
     from pathlib import Path
 
     from cuttlefish_tpu.kernels import etc as ref
@@ -180,12 +181,16 @@ def test_etc_kernel_tables_equal_reference():
         return [parse(v) for v in body.replace("{", " ").replace("}", " ").replace(",", " ").split()]
 
     assert table("c_etc1_mods") == ref._ETC1_MODS_NP.reshape(-1).tolist()
-    assert table("c_eac_mods") == ref._EAC_MODS_NP.reshape(-1).tolist()
+    assert table("c_eac_mods", "float") == ref._EAC_MODS_NP.reshape(-1).tolist()
     assert table("c_dist") == ref._ETC2_DIST_NP.tolist()
     assert table("c_eac_ncand") == [ref._EAC_MULT_CANDS[q] for q in range(5)]
     proj = table("c_planar_proj", "float", lambda v: float.fromhex(v.rstrip("f")))
     assert proj == etc_pallas._planar_proj().astype(np.float32).reshape(-1).tolist()
-    # Column 7 is each table's largest positive modifier, the kernel's max_pos.
+    # The multiplier seed's factors are float32(1) / each table's largest
+    # positive modifier (column 7).
+    inv = src.split("__constant__ float c_eac_inv")[1].split("};")[0].split("= {", 1)[1]
+    denominators = [int(v.split("/")[1]) for v in inv.split(",") if v.strip()]
+    assert denominators == ref._EAC_MODS_NP[:, 7].tolist()
     assert np.array_equal(ref._EAC_MODS_NP[:, 7], ref._EAC_MODS_NP[:, 4:].max(1))
 
 
