@@ -59,7 +59,19 @@ exits non-zero:
    and ASTC_12x12 Normal 2048^2 -> KTX and ASTC_4x4 Highest 2048^2 on the
    near-gray alpha surface -> KTX (all four ASTC entries); ASTC_4x4 UFloat
    must raise NotImplementedError.  Level-0 sample blocks must equal the
-   plain version on the same wire input.
+   plain version on the same wire input.  Then the fused mip pipeline
+   (Texture.convert_with_mips): BC7 q2 2048^2 -> DDS (the main path), BC3
+   q2 on the alpha surface -> KTX, BASELINE config 5 fused (a 256^2 sRGB
+   cube, its normal map made on the card) -> ASTC_4x4 KTX and BC6H Float on
+   2x-1 -> KTX: each kernel launched once (ASTC: once per entry), its
+   pyramid on the card within 1e-5 of the CPU's and identical with TF32
+   allowed, a strided sample of 4,096 of its blocks through the plain
+   version >= 99 % identical (|dPSNR| <= 0.05 dB), and every level within
+   the reference's bar of the host path (generate_mipmaps + convert on the
+   card): mean |d| < 2 (u8) or < 0.05 (BC6H, its level 1 and 2 negatives
+   kept).  And ETC2_R8G8B8A1 2048^2 + mips -> KTX on the hard-alpha surface
+   (torch ops on the card: no kernel launches): level 0's strided sample
+   >= 99 % identical to the CPU's words, punched texels alpha 0.
 5. times: CUDA events, one warm-up, median of 7 (of 3 where the warm-up
    took over a second): each kernel alone and its plain version alone on
    the 262,144 blocks (BC7 q3-4 and BC6H at q4, the main paths' quality,
@@ -70,7 +82,9 @@ exits non-zero:
    q4 on the near-gray alpha surface, C and D at 4x4 q4 and 8x8 q4 on
    that surface); each main-path
    convert (host clock, synchronised) median of 5, and each of its phases'
-   median over the same 5 (EAC R11 and RG11 SNorm + mips too).  The unit-weight ETC RGB and RGBA8 cases also
+   median over the same 5 (EAC R11 and RG11 SNorm + mips too; the four
+   fused paths through convert_with_mips and ETC2_R8G8B8A1 + mips).  The
+   unit-weight ETC RGB and RGBA8 cases also
    print the bound with the products by the weights counted, which a
    product by 1 does not need.  With --parent, every case of the rows whose source it
    names goes through the earlier build too (the earlier tree's wrapper
@@ -902,12 +916,12 @@ def main(argv: list[str]) -> int:
     import cuttlefish_tpu_torch as cp
     from cuttlefish_tpu_torch import native
     from cuttlefish_tpu_torch.convert.blocks import extract_blocks
-    from cuttlefish_tpu_torch.convert.device import dequant, wire
+    from cuttlefish_tpu_torch.convert.device import dequant, pyramid_blocks, wire
     from cuttlefish_tpu_torch.convert.astc import AstcConverter
     from cuttlefish_tpu_torch.decode import (
         decode_astc, decode_bc1, decode_bc2, decode_bc3, decode_bc4, decode_bc5,
         decode_bc6h_f32, decode_bc7, decode_eac_alpha, decode_eac_r11, decode_eac_rg11,
-        decode_etc2_rgba, decode_etc_rgb,
+        decode_etc2_a1, decode_etc2_rgba, decode_etc_rgb,
     )
     from cuttlefish_tpu_torch.kernels import (
         _build, astc, astc_cuda, astc_tables, bc, bc6h, bc6h_cuda, bc7, bc7_cuda, bc7_hq_cuda,
@@ -1365,16 +1379,21 @@ def main(argv: list[str]) -> int:
     path_launches = {k: 0 for k in launch_counts()}
     path_stats = {}
 
-    def convert_counted(pname, tex, fmt, typ, quality):
-        """Texture.convert with every launch counter at 0 just before and
-        every plain version counting its calls -> (launches, convert stats)."""
+    def convert_counted(pname, tex, fmt, typ, quality, fused=None):
+        """Texture.convert (with ``fused``, the keywords of
+        Texture.convert_with_mips: that instead) with every launch counter
+        at 0 just before and every plain version counting its calls ->
+        (launches, convert stats)."""
         for mod, nm in plain_fns:
             setattr(mod, nm, counting(originals[nm]))
         for wrapper in (bc7_cuda, bc7_hq_cuda, bc_cuda, bc6h_cuda, etc_cuda, astc_cuda):
             wrapper.reset_launches()
         plain_calls["n"] = 0
         try:
-            ok = tex.convert(fmt, typ, quality)
+            if fused is None:
+                ok = tex.convert(fmt, typ, quality)
+            else:
+                ok = tex.convert_with_mips(fmt, typ, quality, **fused)
             torch.cuda.synchronize()
         finally:
             for mod, nm in plain_fns:
@@ -1388,6 +1407,191 @@ def main(argv: list[str]) -> int:
         for k, v in counts.items():
             path_launches[k] += v
         return counts, stats
+
+    def fused_texture(arr, cube, mips=False, normal_map=None):
+        """A texture of level 0 ``arr`` (an sRGB cube of six equal faces when
+        ``cube``); ``mips``: the host path (``normal_map``: the normal map
+        made on the host, then generate_mipmaps)."""
+        img = cp.Image.from_array(arr, cp.ImageFormat.RGBAF)
+        if normal_map is not None and mips:
+            img = img.create_normal_map(normal_map, height=2.0)
+        n = 99 if mips else 1
+        if cube:
+            tex = cp.Texture(cp.Dimension.Cube, img.width, img.height, mip_levels=n,
+                             color_space=cp.ColorSpace.sRGB)
+            for face in cp.CubeFace:
+                check(tex.set_image(img, face=face), "set_image failed")
+        else:
+            tex = cp.Texture(cp.Dimension.Dim2D, img.width, img.height, mip_levels=n)
+            check(tex.set_image(img), "set_image failed")
+        if mips:
+            check(tex.generate_mipmaps(), "generate_mipmaps failed")
+        return tex
+
+    def level_bytes(tex, m, bs):
+        """[blocks, bs] bytes of mip m, its surfaces in (depth, face) order."""
+        faces = list(cp.CubeFace) if tex.faces == 6 else [None]
+        return np.concatenate([np.frombuffer(tex.data(face=f, mip_level=m), np.uint8)
+                               for f in faces]).reshape(-1, bs)
+
+    def fused_path(pname, fmt, typ, arr, cube, normal_map, ext, need, tmp):
+        """One fused path: convert_with_mips with the launch counters, the
+        file read back, the pyramid against the CPU's and under TF32, a
+        sample of its blocks through the plain version, and every level
+        against the host path (generate_mipmaps + convert on the card)."""
+        quality = QN
+        fused_kw = {} if normal_map is None else {"normal_map": normal_map,
+                                                  "normal_height": 2.0}
+        tex = fused_texture(arr, cube)
+        AstcConverter.refine_params = spy_refine
+        try:
+            counts, stats = convert_counted(pname, tex, fmt, typ, quality, fused_kw)
+        finally:
+            AstcConverter.refine_params = refine
+        launched = {k: v for k, v in counts.items() if v}
+        check(all(k in launched for k in need) and all(v == 1 for v in launched.values())
+              and set(launched) <= set(need) | {"astc_c", "astc_d"},
+              f"{pname}: launches {launched}, want one of each of {need}")
+        bs = 8 if fmt is TF.BC1_RGB else 16
+        faces = list(cp.CubeFace) if cube else [None]
+        path = os.path.join(tmp, f"{pname}.{ext}")
+        check(tex.save(path) is cp.SaveResult.Success, f"{pname}: save failed")
+        size = os.path.getsize(path)
+        loaded = cp.load_texture(path)
+        check(loaded.format is fmt and loaded.type is typ and loaded.mip_levels == tex.mip_levels
+              and loaded.faces == tex.faces, f"{pname}: loaded texture differs")
+        for m in range(tex.mip_levels):
+            for f in faces:
+                check(loaded.data(face=f, mip_level=m) == tex.data(face=f, mip_level=m),
+                      f"{pname}: payload of mip {m} face {f} differs")
+        payload = sum(tex.data_size(face=f, mip_level=m)
+                      for m in range(tex.mip_levels) for f in faces)
+        if ext == "dds":
+            check(size == 148 + payload, f"{pname}: DDS size {size} != 148 + {payload}")
+
+        # The pyramid: on the card as the convert built it, on the CPU, and
+        # on the card with TF32 allowed for matmuls.
+        x0 = np.stack([tex.get_image(face=f).rgbaf() for f in faces])
+        levels, srgb = tex.mip_levels, cube
+        nopts = None if normal_map is None else (int(normal_map), 2.0)
+        xd = torch.from_numpy(x0).to(dev)
+        pyr = pyramid_blocks(xd, levels, "catmullrom", srgb, 4, 4, nopts)
+        pyr_cpu = pyramid_blocks(torch.from_numpy(x0), levels, "catmullrom", srgb, 4, 4, nopts)
+        pyr_err = float((pyr.cpu() - pyr_cpu).abs().max())
+        check(pyr.shape == pyr_cpu.shape and pyr_err <= 1e-5,
+              f"{pname}: card and CPU pyramids differ by {pyr_err}")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            pyr_tf32 = pyramid_blocks(xd, levels, "catmullrom", srgb, 4, 4, nopts)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        check(torch.equal(pyr_tf32.view(torch.int32), pyr.view(torch.int32)),
+              f"{pname}: the pyramid changes when TF32 is allowed")
+        words = np.concatenate([level_bytes(tex, m, bs) for m in range(levels)])
+        check(words.shape[0] == pyr.shape[0], f"{pname}: {words.shape[0]} blocks written, "
+              f"{pyr.shape[0]} in the pyramid")
+
+        # A strided sample of the fused blocks through the plain version.
+        idx = np.arange(0, words.shape[0], max(1, words.shape[0] // 4096))
+        xs = pyr[torch.from_numpy(idx).to(dev)].contiguous()
+        q = int(quality)
+        if fmt is TF.BC7:
+            ref = originals["encode_bc7_plain"](xs, q, consts)
+        elif fmt is TF.BC3:
+            ref = originals["encode_bc3_plain"](xs, q)
+        elif fmt is TF.BC6H:
+            ref = originals["encode_bc6h_plain"](xs[..., :3].contiguous(), q, True, "value")
+        else:
+            gray, alpha = gates["last"]
+            ref = originals["encode_astc_plain"](xs, 4, 4, q, gray, alpha)
+        ref = to_bytes(ref.cpu().numpy()).reshape(-1, bs)
+        same = float(np.all(words[idx] == ref, axis=1).mean())
+        xs_np = xs.cpu().numpy().astype(np.float64)
+        if fmt is TF.BC6H:
+            def dec(raw):
+                return decode_bc6h_f32(raw.reshape(-1), signed=True)
+            target, peak = xs_np[..., :3], float(np.abs(xs_np[..., :3]).max())
+        else:
+            def dec(raw):
+                if fmt is TF.ASTC_4x4:
+                    return decode_astc(raw.reshape(-1), 4, 4)
+                return (decode_bc7 if fmt is TF.BC7 else decode_bc3)(raw.reshape(-1))
+            target, peak = np.clip(np.round(xs_np * 255), 0, 255), 255.0
+        dk = np.asarray(dec(words[idx]), np.float64)
+        dp = dk.copy()
+        diff = np.where(~np.all(words[idx] == ref, axis=1))[0]
+        if diff.size:
+            dp[diff] = dec(ref[diff])
+        pk, pp = psnr(dk, target, peak), psnr(dp, target, peak)
+        check(same >= MIN_SAME, f"{pname}: sample disagrees with the plain version")
+        check(abs(pk - pp) <= MAX_DPSNR and np.isfinite(pk), f"{pname}: kernel and plain PSNR differ")
+
+        # Every level against the host path, on a strided sample of at most
+        # 4,096 blocks: mean |d| < 2 in u8 units (LDR), < 0.05 (BC6H), whose
+        # levels 1 and 2 keep their negatives.
+        host = fused_texture(arr, cube, mips=True, normal_map=normal_map)
+        check(host.convert(fmt, typ, quality), f"{pname}: host-path convert failed")
+        check(host.mip_levels == levels, f"{pname}: {host.mip_levels} host levels, {levels} fused")
+        worst = 0.0
+        for m in range(levels):
+            a, b = level_bytes(tex, m, bs), level_bytes(host, m, bs)
+            check(a.shape == b.shape, f"{pname}: level {m} sizes differ")
+            li = np.arange(0, a.shape[0], max(1, a.shape[0] // 4096))
+            da, db = dec(a[li]), dec(b[li])
+            d = float(np.abs(np.asarray(da, np.float64) - db).mean())
+            worst = max(worst, d)
+            check(d < (0.05 if fmt is TF.BC6H else 2.0), f"{pname}: level {m} mean |d| {d}")
+            if fmt is TF.BC6H and m in (1, 2):
+                check((np.asarray(da) < -0.05).any(), f"{pname}: level {m} lost its negatives")
+        del host
+        log("paths", f"{pname}: {levels} mips x {len(faces)} faces, {words.shape[0]} blocks, "
+            f"{ext.upper()} {size} bytes read back; launches {stats['launches']}, plain calls 0; "
+            f"pyramid card vs CPU max |d| {pyr_err}, TF32 allowed: identical; sample "
+            f"{idx.size} identical to plain {same * 100:.2f} %, PSNR kernel {pk:.4f} dB plain "
+            f"{pp:.4f} dB; worst level mean |d| vs host path {worst:.4f}; phases "
+            f"{json.dumps(stats['phases'])}")
+        return {"launches": launched, "bytes": size, "psnr": pk, "same": same,
+                "pyramid_err": pyr_err, "vs_host": worst}
+
+    def a1_path(tmp):
+        """ETC2 punch-through 2048^2 + mips -> KTX on the hard-alpha
+        surface: torch ops on the card (no hand kernel; no kernel may
+        launch, no plain version may run); level 0's strided sample equal
+        to the same wire blocks encoded on the CPU; punched texels decode
+        to alpha 0, the others to 255."""
+        pname, fmt = "etc2a1_2048_mips_ktx", TF.ETC2_R8G8B8A1
+        tex = make_texture(images["hard"], True, 0)
+        counts, stats = convert_counted(pname, tex, fmt, TT.UNorm, QN)
+        check(not any(counts.values()), f"{pname}: a kernel launched: {counts}")
+        path = os.path.join(tmp, f"{pname}.ktx")
+        check(tex.save(path) is cp.SaveResult.Success, f"{pname}: save failed")
+        size = os.path.getsize(path)
+        loaded = cp.load_texture(path)
+        check(loaded.format is fmt and loaded.mip_levels == tex.mip_levels,
+              f"{pname}: loaded texture differs")
+        for m in range(tex.mip_levels):
+            check(loaded.data(mip_level=m) == tex.data(mip_level=m),
+                  f"{pname}: payload of mip {m} differs")
+        b0 = extract_blocks(hsurf, 4, 4)[0]
+        idx = np.arange(0, b0.shape[0], max(1, b0.shape[0] // 4096))
+        cpu = etc.encode_etc2_a1(dequant(wire(b0[idx], "u8")), int(QN))
+        ref = to_bytes(cpu.numpy()).reshape(-1, 8)
+        raw = np.frombuffer(tex.data(), np.uint8).reshape(-1, 8)[idx]
+        same = float(np.all(raw == ref, axis=1).mean())
+        dec = decode_etc2_a1(raw.reshape(-1))
+        punched = b0[idx][..., 3] < 0.5
+        check(np.array_equal(dec[..., 3] == 0, punched) and (dec[..., 3][~punched] == 255).all(),
+              f"{pname}: decoded alpha is not the source's 0/1 mask")
+        opaque = ~punched[..., None]
+        p0 = psnr(np.where(opaque, dec[..., :3] / 255.0, 0.0),
+                  np.where(opaque, b0[idx][..., :3], 0.0), 1.0)
+        log("paths", f"{pname}: {tex.mip_levels} mips, KTX {size} bytes read back; launches "
+            f"{stats['launches']} (torch ops, no kernel), plain calls 0; level-0 sample "
+            f"{idx.size} identical to the CPU {same * 100:.2f} %, PSNR {p0:.4f} dB, punched "
+            f"texels alpha 0 and the rest 255; phases {json.dumps(stats['phases'])}")
+        check(same >= MIN_SAME, f"{pname}: the card's blocks disagree with the CPU's")
+        check(np.isfinite(p0) and p0 > 30.0, f"{pname}: PSNR too low")
+        return {"launches": {}, "bytes": size, "psnr": p0, "same": same}
 
     with tempfile.TemporaryDirectory() as tmp:
         for pname, (fmt, typ, quality, mips, nlayers, ext, img, kname, _) in paths.items():
@@ -1568,6 +1772,24 @@ def main(argv: list[str]) -> int:
             check(False, "ASTC_4x4 UFloat did not raise")
         except NotImplementedError as e:
             log("paths", f"astc4_ufloat: raises NotImplementedError ({e})")
+
+        # This slice: the fused mip pipeline (Texture.convert_with_mips),
+        # level 0 sent once and the chain, the normal map and the tiling
+        # built on the card, then one encode; BC7 q2 (the bench headline's
+        # format, this slice's main path), BC3 on the alpha surface (config
+        # 2's fused row, bench.py:181-211), config 5 fused as bench.py:257-298
+        # builds it, and BC6H Float on 2x-1.
+        fused_paths = {
+            # name -> (format, type, level 0, sRGB cube, normal map, file, kernels it launches)
+            "bc7_2048_fused_dds": (TF.BC7, TT.UNorm, surf, False, None, "dds", ("bc7",)),
+            "bc3_2048_fused_ktx": (TF.BC3, TT.UNorm, asurf, False, None, "ktx", ("bc3",)),
+            "astc4_cube_srgb_nm_fused_ktx": (TF.ASTC_4x4, TT.UNorm, test_surface(256), True,
+                                             cp.NormalOptions.Default, "ktx", astc_ab),
+            "bc6hs_2048_fused_ktx": (TF.BC6H, TT.Float, ssurf, False, None, "ktx", ("bc6h",)),
+        }
+        for pname, spec in fused_paths.items():
+            path_stats[pname] = fused_path(pname, *spec, tmp)
+        path_stats["etc2a1_2048_mips_ktx"] = a1_path(tmp)
 
     # 5. times on the card
     # (row name, counter, case timed for the row, source, TPU kernel, input
@@ -1799,13 +2021,15 @@ def main(argv: list[str]) -> int:
 
     parent_dir.cleanup()
 
-    def time_convert(pname, make, fmt, typ, quality):
+    def time_convert(pname, make, fmt, typ, quality, fused=None):
         secs, phases = [], []
         for _ in range(5):
             t = make()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            check(t.convert(fmt, typ, quality), f"{pname}: timed convert failed")
+            ok = (t.convert(fmt, typ, quality) if fused is None
+                  else t.convert_with_mips(fmt, typ, quality, **fused))
+            check(ok, f"{pname}: timed convert failed")
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             phases.append(t.last_convert_stats["phases"])
@@ -1822,6 +2046,14 @@ def main(argv: list[str]) -> int:
         if timed:
             time_convert(pname, lambda: make_astc_texture(img, mips, cube), fmt, TT.UNorm,
                          quality)
+
+    # This slice: the fused paths through convert_with_mips, and ETC2
+    # punch-through (generate_mipmaps outside the timed convert, as above).
+    for pname, (fmt, typ, arr, cube, nmap, *_) in fused_paths.items():
+        time_convert(pname, lambda: fused_texture(arr, cube), fmt, typ, QN,
+                     fused={} if nmap is None else {"normal_map": nmap, "normal_height": 2.0})
+    time_convert("etc2a1_2048_mips_ktx", lambda: make_texture(images["hard"], True, 0),
+                 TF.ETC2_R8G8B8A1, TT.UNorm, QN)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

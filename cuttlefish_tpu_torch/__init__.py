@@ -12,9 +12,10 @@ package imports neither JAX nor ``cuttlefish_tpu``.
     tex = Texture(Dimension.Dim2D, 256, 256, device="cpu")  # plain version
 
 Ported so far, at every quality: BC1-BC7 (BC6H UFloat and Float
-included), ETC1, ETC2 RGB and RGBA8, EAC R11 and RG11, ASTC LDR (all 14 2D
-block sizes) and the uncompressed formats.  ETC2_R8G8B8A1, ASTC HDR and
-PVRTC raise ``NotImplementedError`` naming their ROADMAP item.
+included), ETC1, ETC2 RGB, RGBA8 and punch-through (R8G8B8A1), EAC R11 and
+RG11, ASTC LDR (all 14 2D block sizes) and the uncompressed formats, and
+``Texture.convert_with_mips``, the fused mip pipeline on the device.  ASTC
+HDR and PVRTC raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from cuttlefish_tpu_torch.containers.load import LoadError, load_texture

@@ -5,9 +5,8 @@
 the port's.  Uncompressed formats go to the copied host converters of
 ``convert/standard.py``; BC1-BC7 (``convert/s3tc.py``), ETC1, ETC2 and
 EAC (``convert/etc.py``) and ASTC LDR (``convert/astc.py``) go to the
-port's block converters on a torch device.  ETC2_R8G8B8A1, the ASTC HDR
-profile and PVRTC raise ``NotImplementedError`` until their slice is
-ported.
+port's block converters on a torch device.  The ASTC HDR profile and
+PVRTC raise ``NotImplementedError`` until their slice is ported.
 """
 
 from __future__ import annotations

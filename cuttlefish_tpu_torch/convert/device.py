@@ -7,9 +7,21 @@ concatenate, send the blocks to the device on the converter's wire
 widen them to float32 there, encode once, fetch, and interleave the words
 into raster-order bytes.  PyTorch runs eagerly, so there is no power-of-two
 bucket (an XLA jit-cache device) and no padding.
+
+The fused mip pipeline (``BlockConverter.encode_pyramid``, the JAX
+package's ``_FusedPyramid`` and ``_encode_pyramid``) sends level 0 to the
+device once as float32 and builds the whole chain there: the optional
+normal map, each level's separable resample (sRGB levels through linear),
+and the block tiling, then one encode.  The resample weights are
+``image/resample.py:resample_weights``; each output texel sums its
+nonzero taps as elementwise products and adds (``_resample``), so no
+matrix unit and no TF32 setting can reach them, and the CPU and the card
+compute them alike.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -17,6 +29,7 @@ import torch
 from cuttlefish_tpu_torch import profiling
 from cuttlefish_tpu_torch.convert import Converter, EncodeParams
 from cuttlefish_tpu_torch.convert.blocks import extract_blocks, interleave_block_bytes
+from cuttlefish_tpu_torch.image.resample import resample_weights
 
 # float32(1/255): dequantisation multiplies by it, as the JAX path does, so
 # the kernel's later *255 sees the same float32 values.
@@ -118,6 +131,218 @@ class BlockConverter(Converter):
                 start += c
         return out
 
+    def encode_pyramid(
+        self,
+        surfaces0: list,
+        levels: int,
+        filter_name: str,
+        srgb: bool,
+        params: EncodeParams,
+        normal_opts: tuple | None = None,
+    ) -> list[list[np.ndarray]]:
+        """The fused mip pipeline: level-0 [H,W,4] float32 surfaces in
+        (depth, face) order -> bytes[level][surface] (mip-major, the order
+        of ``Texture.convert``).
+
+        Records the phases scan (the host tiling of level 0 for
+        ``refine_params``, only where the converter overrides it: the
+        words are the same either way), upload, pyramid, kernel, fetch and
+        interleave; on a CUDA device pyramid and kernel end in a
+        synchronise.
+        """
+        s = len(surfaces0)
+        h, w = surfaces0[0].shape[:2]
+        surfaces0 = [np.asarray(sf, np.float32) for sf in surfaces0]
+        with profiling.phase("scan"):
+            if type(self).refine_params is not BlockConverter.refine_params:
+                # Content flags from level 0 only, as the JAX package sets them.
+                lvl0 = np.concatenate(
+                    [extract_blocks(sf, self.block_w, self.block_h)[0] for sf in surfaces0]
+                )
+                params = self.refine_params(lvl0, params)
+        with profiling.phase("upload"):
+            x = torch.stack([torch.from_numpy(sf).to(self.device) for sf in surfaces0])
+            self._sync()
+        with profiling.phase("pyramid"):
+            blocks = pyramid_blocks(
+                x, levels, filter_name, srgb, self.block_w, self.block_h, normal_opts
+            )
+            self._sync()
+        with profiling.phase("kernel"):
+            words = self.encode_blocks(blocks, params)
+            self._sync()
+        with profiling.phase("fetch"):
+            words = words.cpu().numpy().astype(np.uint32)
+        with profiling.phase("interleave"):
+            out: list[list[np.ndarray]] = []
+            start = 0
+            for hh, ww in mip_dims(h, w, levels):
+                per = (-(-hh // self.block_h)) * (-(-ww // self.block_w))
+                level_out = []
+                for _ in range(s):
+                    level_out.append(interleave_block_bytes(words[start : start + per]))
+                    start += per
+                out.append(level_out)
+        return out
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+# float32 reciprocals of the sRGB transforms' divisors: under jit XLA
+# computes ``c / 12.92`` and ``/ 1.055`` as products with them.
+_INV_12_92 = float(np.float32(1.0) / np.float32(12.92))
+_INV_1_055 = float(np.float32(1.0) / np.float32(1.055))
+
+
+def srgb_to_linear_rgba(rgba: torch.Tensor) -> torch.Tensor:
+    """``color.srgb_to_linear_rgba`` on a tensor: piecewise sRGB EOTF on
+    RGB, alpha untouched."""
+    c = rgba[..., :3]
+    rgb = torch.where(
+        c <= 0.04045,
+        c * _INV_12_92,
+        ((torch.clamp(c, min=0.04045) + 0.055) * _INV_1_055) ** 2.4,
+    )
+    return torch.cat([rgb, rgba[..., 3:]], dim=-1)
+
+
+def linear_to_srgb_rgba(rgba: torch.Tensor) -> torch.Tensor:
+    """``color.linear_to_srgb_rgba`` on a tensor: piecewise sRGB OETF on
+    RGB, alpha untouched."""
+    c = rgba[..., :3]
+    rgb = torch.where(
+        c <= 0.0031308,
+        c * 12.92,
+        1.055 * torch.clamp(c, min=0.0031308) ** (1.0 / 2.4) - 0.055,
+    )
+    return torch.cat([rgb, rgba[..., 3:]], dim=-1)
+
+
+def normal_map_device(h: torch.Tensor, options: int, height: float) -> torch.Tensor:
+    """[S,H,W] heightfield (red channel, linear) -> [S,H,W,4] normal map
+    (``cuttlefish_tpu/convert/device.py:_normal_map_device``).
+
+    Central differences, one-sided at edges that do not wrap (distance 1),
+    dy = south - north, z normalised, [-1,1] -> [0,1] unless KeepSign.
+    ``options`` is the NormalOptions bitmask: KeepSign=1, WrapX=2, WrapY=4.
+    """
+    keep_sign, wrap_x, wrap_y = options & 1, options & 2, options & 4
+    hh, ww = h.shape[-2], h.shape[-1]
+    dist_y = np.full((hh, 1), 2.0, np.float32)
+    if wrap_y:
+        above = torch.roll(h, 1, dims=-2)
+        below = torch.roll(h, -1, dims=-2)
+    else:
+        above = torch.cat([h[..., :1, :], h[..., :-1, :]], dim=-2)
+        below = torch.cat([h[..., 1:, :], h[..., -1:, :]], dim=-2)
+        dist_y[0] = dist_y[-1] = 1.0
+    dy = (below - above) * torch.from_numpy(height / dist_y).to(h.device)
+    dist_x = np.full((1, ww), 2.0, np.float32)
+    if wrap_x:
+        left = torch.roll(h, 1, dims=-1)
+        right = torch.roll(h, -1, dims=-1)
+    else:
+        left = torch.cat([h[..., :, :1], h[..., :, :-1]], dim=-1)
+        right = torch.cat([h[..., :, 1:], h[..., :, -1:]], dim=-1)
+        dist_x[0, 0] = dist_x[0, -1] = 1.0
+    dx = (left - right) * torch.from_numpy(height / dist_x).to(h.device)
+    inv_len = torch.rsqrt(dx * dx + dy * dy + 1.0)
+    xyz = torch.stack([dx * inv_len, dy * inv_len, inv_len], dim=-1)
+    if not keep_sign:
+        xyz = xyz * 0.5 + 0.5
+    return torch.cat([xyz, torch.ones_like(inv_len)[..., None]], dim=-1)
+
+
+def mip_dims(h: int, w: int, levels: int) -> list[tuple[int, int]]:
+    return [(max(h >> k, 1), max(w >> k, 1)) for k in range(levels)]
+
+
+@functools.lru_cache(maxsize=64)
+def _taps(n_in: int, n_out: int, filter_name: str) -> tuple[np.ndarray, np.ndarray]:
+    """The nonzero entries of each row of ``resample_weights(n_in, n_out)``
+    (cast to float32, as the JAX package casts it), in ascending source
+    order: (source index [n_out, K] int64, weight [n_out, K] float32),
+    short rows padded with weight 0 at index 0."""
+    wm = resample_weights(n_in, n_out, filter_name).astype(np.float32)
+    nz = wm != 0
+    k = max(int(nz.sum(1).max()), 1)
+    idx = np.zeros((n_out, k), np.int64)
+    wt = np.zeros((n_out, k), np.float32)
+    for o in range(n_out):
+        cols = np.flatnonzero(nz[o])
+        idx[o, : cols.size] = cols
+        wt[o, : cols.size] = wm[o, cols]
+    idx.setflags(write=False)
+    wt.setflags(write=False)
+    return idx, wt
+
+
+def _resample(x: torch.Tensor, n_out: int, filter_name: str, dim: int) -> torch.Tensor:
+    """Resample [S,H,W,4] along ``dim`` (1: rows, 2: columns): each output
+    texel is its taps' weighted sum, added in source order (the einsum
+    ``oi,siwc->sowc`` of the JAX package without its zero terms)."""
+    idx, wt = _taps(x.shape[dim], n_out, filter_name)
+    idx = torch.tensor(idx, device=x.device)
+    wt = torch.tensor(wt, device=x.device)
+    shape = [1, 1, 1, 1]
+    shape[dim] = n_out
+    out = None
+    for k in range(idx.shape[1]):
+        term = x.index_select(dim, idx[:, k]) * wt[:, k].reshape(shape)
+        out = term if out is None else out + term
+    return out
+
+
+def _tile(cur: torch.Tensor, block_w: int, block_h: int) -> torch.Tensor:
+    """[S,H,W,4] -> [S*nby*nbx, bh*bw, 4] blocks, edge texels repeated
+    into partial blocks (``extract_blocks`` per surface)."""
+    s, hh, ww, c = cur.shape
+    nby, nbx = -(-hh // block_h), -(-ww // block_w)
+    if nby * block_h != hh:
+        rows = torch.arange(nby * block_h, device=cur.device).clamp_(max=hh - 1)
+        cur = cur.index_select(1, rows)
+    if nbx * block_w != ww:
+        cols = torch.arange(nbx * block_w, device=cur.device).clamp_(max=ww - 1)
+        cur = cur.index_select(2, cols)
+    return (
+        cur.reshape(s, nby, block_h, nbx, block_w, c)
+        .permute(0, 1, 3, 2, 4, 5)
+        .reshape(s * nby * nbx, block_h * block_w, c)
+    )
+
+
+def pyramid_blocks(
+    x: torch.Tensor,
+    levels: int,
+    filter_name: str,
+    srgb: bool,
+    block_w: int,
+    block_h: int,
+    normal_opts: tuple | None = None,
+) -> torch.Tensor:
+    """Level 0 [S,H,W,4] float32 (texture colour space, on any device) ->
+    the block batch of every level of every surface, [N, bh*bw, 4]
+    float32 on the same device, mip-major and surface-minor
+    (``_FusedPyramid.fn`` of the JAX package up to its encode).
+
+    ``normal_opts`` (NormalOptions bitmask, height): level 0 is taken as a
+    heightfield and turned into a normal map first; an sRGB heightfield
+    is undone to linear for it and the map re-encoded.  No clamp: filter
+    overshoot survives as on the host path.
+    """
+    cur = x
+    if normal_opts is not None:
+        opts, nm_height = normal_opts
+        hf = srgb_to_linear_rgba(cur) if srgb else cur
+        nm = normal_map_device(hf[..., 0], opts, nm_height)
+        cur = linear_to_srgb_rgba(nm) if srgb else nm
+    parts = []
+    for k, (hh, ww) in enumerate(mip_dims(x.shape[1], x.shape[2], levels)):
+        if k:
+            src = srgb_to_linear_rgba(cur) if srgb else cur
+            t2 = _resample(_resample(src, hh, filter_name, 1), ww, filter_name, 2)
+            cur = linear_to_srgb_rgba(t2) if srgb else t2
+        parts.append(_tile(cur, block_w, block_h))
+    return torch.cat(parts) if len(parts) > 1 else parts[0]

@@ -1,13 +1,13 @@
 """ETC1/ETC2/EAC converters of the port (counterpart of
 ``cuttlefish_tpu/convert/etc.py``).
 
-ETC1, ETC2_R8G8B8 and ETC2_R8G8B8A8 take the u8 wire, EAC R11/RG11 (signed
-and unsigned) the f16 wire.  Error metric: sRGB sources weight RGB by
-Rec.709 x 3, linear sources use the numeric metric; the colour mask zeroes
-ignored channels' weight, as in the JAX package.  ETC2_R8G8B8A1 is not
-ported: its encoder (``cuttlefish_tpu/kernels/etc.py:encode_etc2_a1``) has
-no TPU kernel and is a torch-ops port of its own (ROADMAP queue 1, item
-10).
+ETC1, ETC2_R8G8B8, ETC2_R8G8B8A1 and ETC2_R8G8B8A8 take the u8 wire, EAC
+R11/RG11 (signed and unsigned) the f16 wire.  Error metric: sRGB sources
+weight RGB by Rec.709 x 3, linear sources use the numeric metric; the
+colour mask zeroes ignored channels' weight, as in the JAX package.
+ETC2_R8G8B8A1's encoder (``kernels/etc.py:encode_etc2_a1``) has no hand
+kernel: the JAX package encodes it on its ``jnp`` path only, and the port
+runs that path's torch ops on the converter's device.
 """
 
 from __future__ import annotations
@@ -62,6 +62,17 @@ class Etc2RgbaConverter(BlockConverter):
         )
 
 
+class Etc2PunchThroughConverter(BlockConverter):
+    """ETC2_R8G8B8A1: texels with alpha < 0.5 become transparent black."""
+
+    def encode_blocks(self, blocks, params):
+        from cuttlefish_tpu_torch.kernels import etc
+
+        return etc.encode_etc2_a1(
+            blocks, quality=int(params.quality), ch_weights=_rgb_weights(params)
+        )
+
+
 class EacR11Converter(BlockConverter):
     transfer_dtype = "f16"  # 11-bit target domain; u8 wire would quantize
 
@@ -89,10 +100,7 @@ def create_etc_converter(
     if fmt is _F.ETC2_R8G8B8:
         return EtcRgbConverter(etc2=True, device=device)
     if fmt is _F.ETC2_R8G8B8A1:
-        raise NotImplementedError(
-            "ETC2_R8G8B8A1 is not in the PyTorch port yet: its punch-through "
-            "encoder is ROADMAP queue 1, item 10"
-        )
+        return Etc2PunchThroughConverter(device)
     if fmt is _F.ETC2_R8G8B8A8:
         return Etc2RgbaConverter(device)
     if fmt is _F.EAC_R11:

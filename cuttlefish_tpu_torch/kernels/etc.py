@@ -46,10 +46,12 @@ from cuttlefish_tpu_torch.kernels.bc import (
     channel_weights,
 )
 from cuttlefish_tpu_torch.kernels.etc_tables import (
+    _A1_PLANAR_PROJ_NP,
     _EAC_MODS_NP,
     _EAC_MULT_CANDS,
     _ETC1_MODS_NP,
     _ETC2_DIST_NP,
+    _ETC_A1_MODS_NP,
     _ETC_OFFSETS,
     _RASTER_OF_P_NP,
 )
@@ -120,16 +122,18 @@ def _pix_err(px, dec, mod, chw):
     )
 
 
-def _table_errs(px, dec, sub_mask, chw):
-    """Per table t: (idx_t [16,N] first-min modifier, err_t [N])."""
+def _table_errs(px, dec, sub_mask, chw, mods=_ETC1_MODS_NP, allowed=(0, 1, 2, 3)):
+    """Per table t: (idx_t [16,N] first-min modifier, err_t [N]).  ``mods``
+    [8,4] replaces the modifier table and ``allowed`` lists the indices a
+    texel may take (punch-through: not 2)."""
     out = []
     for t in range(8):
         e_t = idx_t = None
-        for m in range(4):
-            e = _pix_err(px, dec, float(_ETC1_MODS_NP[t][m]), chw)
+        for m in allowed:
+            e = _pix_err(px, dec, float(mods[t][m]), chw)
             if e_t is None:
                 e_t = e
-                idx_t = torch.zeros_like(e, dtype=torch.int32)
+                idx_t = torch.full_like(e, m, dtype=torch.int32)
             else:
                 take = e < e_t
                 idx_t = torch.where(take, m, idx_t)
@@ -138,11 +142,12 @@ def _table_errs(px, dec, sub_mask, chw):
     return out
 
 
-def _best_table_fit(px, dec, sub_mask, chw):
+def _best_table_fit(px, dec, sub_mask, chw, mods=_ETC1_MODS_NP, allowed=(0, 1, 2, 3)):
     """Exhaustive modifier-table fit.  px list of [16,N]; dec list of [N]
-    decoded base ints.  Returns (table [N], idx [16,N], err [N])."""
+    decoded base ints; ``mods``, ``allowed`` as in ``_table_errs``.
+    Returns (table [N], idx [16,N], err [N])."""
     best_t = best_idx = best_err = None
-    for t, (idx_t, err) in enumerate(_table_errs(px, dec, sub_mask, chw)):
+    for t, (idx_t, err) in enumerate(_table_errs(px, dec, sub_mask, chw, mods, allowed)):
         tv = torch.full_like(err, t, dtype=torch.int32)
         if best_err is None:
             best_t, best_idx, best_err = tv, idx_t, err
@@ -495,10 +500,15 @@ def _quant444(c):
     return q, [_expand4(v).to(torch.float32) for v in q]
 
 
-def _pal_err_idx(px, pal, chw):
-    """pal: 4 channel lists -> (idx [16,N], per-texel min err)."""
+def _pal_err_idx(px, pal, chw, alpha=None):
+    """pal: 4 channel lists -> (idx [16,N], per-texel min err).  With
+    ``alpha`` (punch-through, [16,N], 1 = opaque) entry 2 is transparent
+    black: opaque texels may not take it, transparent ones do, and a
+    texel's error is weighted by its alpha."""
     e_best = idx = None
     for k in range(4):
+        if alpha is not None and k == 2:
+            continue
         e = _csum([chw[c] * _sq(px[c] - pal[k][c]) for c in range(3)])
         if e_best is None:
             e_best = e
@@ -507,6 +517,8 @@ def _pal_err_idx(px, pal, chw):
             take = e < e_best
             idx = torch.where(take, k, idx)
             e_best = torch.minimum(e, e_best)
+    if alpha is not None:
+        return torch.where(alpha < 0.5, 2, idx), e_best * alpha
     return idx, e_best
 
 
@@ -553,8 +565,13 @@ def _nudge(q, c, dd):
     return [torch.clamp(q[i] + dd, 0, 15) if i == c else q[i] for i in range(3)]
 
 
-def _etc2_t_candidate(px, chw, refine: int = 0):
-    mp, mn = _pca_split_means(px, chw)
+def _etc2_t_candidate(px, chw, refine: int = 0, means=None, quant=None, alpha=None):
+    """Best T-mode word.  The punch-through encoder passes its own cluster
+    means and quantiser (its ``jnp`` path's, ``_pca_split_jnp`` and
+    ``_quant444_jnp``) and ``alpha``: entry 2 transparent (``_pal_err_idx``)
+    and the opaque bit 33 cleared."""
+    mp, mn = _pca_split_means(px, chw) if means is None else means
+    quant = quant or _quant444
 
     def pal_of(d1, d2, dist):
         return [d1, [_clip255(d + dist) for d in d2], d2, [_clip255(d - dist) for d in d2]]
@@ -562,15 +579,15 @@ def _etc2_t_candidate(px, chw, refine: int = 0):
     def t_eval(q1, q2, dist_f):
         d1 = [_expand4(v).to(torch.float32) for v in q1]
         d2 = [_expand4(v).to(torch.float32) for v in q2]
-        idx, e = _pal_err_idx(px, pal_of(d1, d2, dist_f), chw)
+        idx, e = _pal_err_idx(px, pal_of(d1, d2, dist_f), chw, alpha)
         return idx, _rt(e)
 
     best = None
     for c1f, c2f in ((mp, mn), (mn, mp)):
-        q1, d1 = _quant444(c1f)
-        q2, d2 = _quant444(c2f)
+        q1, d1 = quant(c1f)
+        q2, d2 = quant(c2f)
         for di in range(8):
-            idx, e = _pal_err_idx(px, pal_of(d1, d2, float(_ETC2_DIST_NP[di])), chw)
+            idx, e = _pal_err_idx(px, pal_of(d1, d2, float(_ETC2_DIST_NP[di])), chw, alpha)
             err = _rt(e)
             cand = (q1, q2, torch.full_like(err, di, dtype=torch.int32), idx, err)
             if best is None:
@@ -608,11 +625,15 @@ def _etc2_t_candidate(px, chw, refine: int = 0):
             didx = torch.where(take, di, didx)
             idx = torch.where(take, idxn, idx)
             err = torch.minimum(errn, err)
-    return err, _pack_t(q1, q2, didx, idx)
+    hi, lo = _pack_t(q1, q2, didx, idx)
+    return err, (hi if alpha is None else hi & ~2, lo)
 
 
-def _etc2_h_candidate(px, chw, refine: int = 0):
-    mp, mn = _pca_split_means(px, chw)
+def _etc2_h_candidate(px, chw, refine: int = 0, means=None, quant=None, alpha=None):
+    """Best H-mode word; ``means``, ``quant`` and ``alpha`` as in
+    ``_etc2_t_candidate``."""
+    mp, mn = _pca_split_means(px, chw) if means is None else means
+    quant = quant or _quant444
 
     def packed(q):
         return (q[0] << 8) | (q[1] << 4) | q[2]
@@ -628,7 +649,7 @@ def _etc2_h_candidate(px, chw, refine: int = 0):
     def h_eval(q1, q2, dist_f):
         d1 = [_expand4(v).to(torch.float32) for v in q1]
         d2 = [_expand4(v).to(torch.float32) for v in q2]
-        idx, e = _pal_err_idx(px, pal_of(d1, d2, dist_f), chw)
+        idx, e = _pal_err_idx(px, pal_of(d1, d2, dist_f), chw, alpha)
         return idx, _rt(e)
 
     def canon(q1n, q2n, want):
@@ -644,14 +665,14 @@ def _etc2_h_candidate(px, chw, refine: int = 0):
 
     best = None
     for c1f, c2f in ((mp, mn), (mn, mp)):
-        q1, _ = _quant444(c1f)
-        q2, _ = _quant444(c2f)
+        q1, _ = quant(c1f)
+        q2, _ = quant(c2f)
         d1 = [_expand4(v).to(torch.float32) for v in q1]
         d2 = [_expand4(v).to(torch.float32) for v in q2]
         ord_bit = (packed(q1) >= packed(q2)).to(torch.int32)
         for di in range(8):
             valid = ((di & 1) == ord_bit).to(torch.float32)
-            idx, e = _pal_err_idx(px, pal_of(d1, d2, float(_ETC2_DIST_NP[di])), chw)
+            idx, e = _pal_err_idx(px, pal_of(d1, d2, float(_ETC2_DIST_NP[di])), chw, alpha)
             err = _rt(e) + (1.0 - valid) * _BIG
             cand = (q1, q2, torch.full_like(err, di, dtype=torch.int32), idx, err)
             if best is None:
@@ -696,7 +717,8 @@ def _etc2_h_candidate(px, chw, refine: int = 0):
             idxf = torch.where(take, idxn, idxf)
             errf = torch.minimum(errn, errf)
         q1, q2, didx, idx, err = q1f, q2f, didxf, idxf, errf
-    return err, _pack_h(q1, q2, didx, idx)
+    hi, lo = _pack_h(q1, q2, didx, idx)
+    return err, (hi if alpha is None else hi & ~2, lo)
 
 
 # ---------------------------------------------------------------------------
@@ -908,6 +930,265 @@ def encode_eac_rg11_plain(blocks, quality=2, signed=False):
     v = _eac_scaled(blocks[..., :2], signed).permute(2, 1, 0)
     q, s = int(quality), bool(signed)
     return _stack([*_eac_r11(v[0].contiguous(), q, s), *_eac_r11(v[1].contiguous(), q, s)])
+
+
+# ---------------------------------------------------------------------------
+# ETC2 punch-through alpha (R8G8B8A1): the JAX package's jnp path
+# ---------------------------------------------------------------------------
+#
+# ``cuttlefish_tpu/kernels/etc.py:encode_etc2_a1`` has no TPU kernel, so its
+# port is these torch ops, on whichever device holds the blocks.  It reuses
+# the helpers above where their expressions are the jnp path's
+# (``_diff_fit``, the table fits, the packers, the T/H searches) and has
+# jnp-faithful variants where the TPU kernel's differ: the cluster split
+# (``_pca_split_jnp``: counts + 1e-6), the 4-bit quantiser
+# (``_quant444_jnp``: ``c * 15 / 255`` as two operations) and the planar
+# fit (``_planar_candidate_jnp``: its float32 projection, ``c * maxv /
+# 255`` as two operations, its error summed over texels by channel).  Its
+# divisions by a constant are IEEE divisions on the card too (``_div``).
+
+_A1_ALLOWED = (0, 1, 3)  # index 2 is the transparent texel
+
+
+def _div(x, d: float):
+    """``x / d`` as an IEEE division on every device: PyTorch's CUDA
+    division by a Python scalar multiplies by its float32 reciprocal."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
+def _quant444_jnp(c):
+    q = [torch.clamp(torch.round(_div(x * 15.0, 255.0)), 0, 15).to(torch.int32) for x in c]
+    return q, [_expand4(v).to(torch.float32) for v in q]
+
+
+def _pca_split_jnp(px, w=None):
+    """``kernels/etc.py:_pca_split``: principal-axis cluster split ->
+    (mean_pos, mean_neg) channel lists [N].  ``w`` [16,N] (1 = opaque)
+    keeps transparent texels out of the axis fit and the means."""
+    if w is None:
+        w = torch.ones_like(px[0])
+    cnt = _rt(w) + 1e-6
+    mean = [_rt(px[c] * w) / cnt for c in range(3)]
+    cent = [(px[c] - mean[c]) * w for c in range(3)]
+    cov = [[_rt(cent[c] * cent[d]) for d in range(3)] for c in range(3)]
+    norms = _csum([cent[c] * cent[c] for c in range(3)])
+    iota = _iota16(px[0].device)
+    fidx = torch.where(norms == norms.max(dim=0).values, iota, 16).min(dim=0).values
+    first = (iota == fidx).to(torch.float32)
+    start = [_rt(cent[c] * first) for c in range(3)]
+    n0 = torch.sqrt(_csum([x * x for x in start]))
+    v = [torch.where(n0 > 1e-10, x / (n0 + 1e-20), torch.ones_like(x)) for x in start]
+    for _ in range(3):
+        nv = [_csum([cov[c][d] * v[d] for d in range(3)]) for c in range(3)]
+        nn = torch.sqrt(_csum([x * x for x in nv]))
+        v = [torch.where(nn > 1e-10, nv[c] / (nn + 1e-20), v[c]) for c in range(3)]
+    split = (_csum([cent[c] * v[c] for c in range(3)]) > 0).to(torch.float32) * w
+
+    def cmean(mask):
+        n = _rt(mask) + 1e-6
+        return [_rt(px[c] * mask) / n for c in range(3)]
+
+    return cmean(split), cmean((1.0 - split) * w)
+
+
+def _planar_candidate_jnp(px, chw, refine: int = 0):
+    """``kernels/etc.py:_planar_candidate`` -> (err [N], fields): each
+    channel's error summed over the texels, then weighted."""
+    bits = (6, 7, 6)
+    q = [[None] * 3 for _ in range(3)]  # [O/H/V][channel]
+    for k in range(3):
+        for c in range(3):
+            coef = _rt(torch.stack([float(_A1_PLANAR_PROJ_NP[k][i]) * px[c][i] for i in range(16)]))
+            maxv = (1 << bits[c]) - 1
+            q[k][c] = torch.clamp(torch.round(_div(coef * float(maxv), 255.0)), 0, maxv).to(
+                torch.int32
+            )
+    it = _iota16(px[0].device)
+    xi = (it % 4).to(torch.float32)
+    yi = (it // 4).to(torch.float32)
+
+    def chan_err(c, o, h, v):
+        do_, dh_, dv_ = (_dec_planar(x, bits[c]) for x in (o, h, v))
+        val = xi * (dh_ - do_) + yi * (dv_ - do_) + 4.0 * do_ + 2.0
+        return _sq(px[c] - torch.clamp(torch.floor(val / 4.0), 0.0, 255.0))
+
+    err = None
+    for c in range(3):
+        e_px = chan_err(c, q[0][c], q[1][c], q[2][c])
+        if refine:
+            maxv = (1 << bits[c]) - 1
+            best_e = _rt(e_px)
+            for d0 in (-1, 0, 1):
+                for d1 in (-1, 0, 1):
+                    for d2 in (-1, 0, 1):
+                        if d0 == 0 and d1 == 0 and d2 == 0:
+                            continue
+                        o = torch.clamp(q[0][c] + d0, 0, maxv)
+                        h = torch.clamp(q[1][c] + d1, 0, maxv)
+                        v = torch.clamp(q[2][c] + d2, 0, maxv)
+                        en_px = chan_err(c, o, h, v)
+                        en = _rt(en_px)
+                        take = en < best_e
+                        q[0][c] = torch.where(take, o, q[0][c])
+                        q[1][c] = torch.where(take, h, q[1][c])
+                        q[2][c] = torch.where(take, v, q[2][c])
+                        e_px = torch.where(take, en_px, e_px)
+                        best_e = torch.minimum(en, best_e)
+        term = _rt(e_px) * chw[c]
+        err = term if err is None else err + term
+    fields = (
+        q[0][0], q[0][1], q[0][2],
+        q[1][0], q[1][1], q[1][2],
+        q[2][0], q[2][1], q[2][2],
+    )
+    return err, fields
+
+
+def _a1_table_modvals(table):
+    """The A1 modifier values (indices 0, 1, 3) of a per-block table."""
+    mods = torch.tensor(_ETC_A1_MODS_NP, dtype=torch.float32, device=table.device)
+    return [mods[:, mm][table] for mm in _A1_ALLOWED]
+
+
+def _a1_diff_sweep(px, alpha, chw, flip, offsets, floor_mode, est_keep=0):
+    """Punch-through differential sweep over the base-1 quant cube
+    (``kernels/etc.py:_a1_diff_sweep``): [0, +b, T, -b] modifiers,
+    transparent texels out of the fit and at index 2; ``est_keep`` ranks
+    the non-centre offsets by the error with the centre's tables and fits
+    the per-block best k in full.  Returns (err [N], (hi, lo))."""
+    sub1, sub2 = _sub_masks(px[0].device, flip)
+    w1 = sub1 * alpha
+    w2 = sub2 * alpha
+    n1 = _rt(w1) + 1e-6
+    n2 = _rt(w2) + 1e-6
+    mean1 = [_rt(px[c] * w1) / n1 for c in range(3)]
+    mean2 = [_rt(px[c] * w2) / n2 for c in range(3)]
+    qf = torch.floor if floor_mode else torch.round
+    base1_q = [qf(m * (31.0 / 255.0)) for m in mean1]
+    b2n = [torch.clamp(torch.round(m * (31.0 / 255.0)), 0, 31).to(torch.int32) for m in mean2]
+
+    def b1_of(o):
+        return [torch.clamp(base1_q[c] + float(o[c]), 0, 31).to(torch.int32) for c in range(3)]
+
+    def d_of(b1):
+        return [torch.clamp(b2n[c] - b1[c], -4, 3) for c in range(3)]
+
+    def full_fit(b1):
+        d = d_of(b1)
+        b2 = [b1[c] + d[c] for c in range(3)]
+        t1, idx1, e1 = _best_table_fit(
+            px, [_expand5(b) for b in b1], w1, chw, _ETC_A1_MODS_NP, _A1_ALLOWED
+        )
+        t2, idx2, e2 = _best_table_fit(
+            px, [_expand5(b) for b in b2], w2, chw, _ETC_A1_MODS_NP, _A1_ALLOWED
+        )
+        idx = torch.where(alpha < 0.5, 2, torch.where(sub2 > 0, idx2, idx1))
+        hi, lo = _pack_etc1((b1, d), True, flip, t1, t2, idx)
+        return e1 + e2, (hi & ~2, lo), t1, t2  # opaque bit 33 = 0
+
+    def merge(best, cand):
+        take = cand[0] < best[0]
+        return (
+            torch.minimum(cand[0], best[0]),
+            tuple(torch.where(take, w, b) for w, b in zip(cand[1], best[1])),
+        )
+
+    if not est_keep or len(offsets) <= est_keep + 1:
+        best = None
+        for o in offsets:
+            c = full_fit(b1_of(o))[:2]
+            best = c if best is None else merge(best, c)
+        return best
+
+    err_c, words_c, t1c, t2c = full_fit(b1_of((0, 0, 0)))
+    mv1 = _a1_table_modvals(t1c)
+    mv2 = _a1_table_modvals(t2c)
+
+    def rest_err(b1):
+        d = d_of(b1)
+        dec1 = [_expand5(b) for b in b1]
+        dec2 = [_expand5(b1[c] + d[c]) for c in range(3)]
+        e = None
+        for dec, mvs, wm in ((dec1, mv1, w1), (dec2, mv2, w2)):
+            eb = None
+            for mv in mvs:
+                ee = _pix_err(px, dec, mv, chw)
+                eb = ee if eb is None else torch.minimum(eb, ee)
+            e = _rt(eb * wm) if e is None else e + _rt(eb * wm)
+        return e
+
+    b1s = [b1_of(o) for o in offsets if o != (0, 0, 0)]
+    ests = [rest_err(b1) for b1 in b1s]
+    best = (err_c, words_c)
+    chosen = [torch.zeros_like(ests[0], dtype=torch.bool) for _ in ests]
+    for _ in range(est_keep):
+        bi = _topk_pick(ests, chosen)
+        best = merge(best, full_fit(_pick(bi, b1s))[:2])
+    return best
+
+
+def _a1_words(px, alpha, quality, chw):
+    """``encode_etc2_a1``'s search -> (hi, lo) un-swapped words.  Opaque
+    blocks: differential (no individual mode in A1) and ETC2 planar, T
+    and H, opaque bit 1; blocks with a texel of alpha < 0.5: differential,
+    T and H with palette entry 2 transparent, opaque bit 0."""
+    floor_mode = _ETC_OFFSETS[quality][0] == "floor"
+    offsets = _ETC_OFFSETS[quality][1]
+    est_keep = 6 if quality in (2, 3) else 0
+    refine = 2 if quality >= 4 else 0
+
+    def keep(best, err, words):
+        if best is None:
+            return err, words
+        take = err < best[0]
+        return torch.where(take, err, best[0]), tuple(
+            torch.where(take, w, b) for w, b in zip(words, best[1])
+        )
+
+    opaque = None
+    for flip in (0, 1):
+        sub1, sub2 = _sub_masks(px[0].device, flip)
+        n1 = _rt(sub1)
+        n2 = _rt(sub2)
+        mean1 = [_rt(px[c] * sub1) / n1 for c in range(3)]
+        mean2 = [_rt(px[c] * sub2) / n2 for c in range(3)]
+        b1, d, t1, t2, idx1, idx2, derr = _diff_fit(
+            px, chw, sub1, sub2, mean1, mean2, offsets, floor_mode, est_keep
+        )
+        idx = torch.where(sub2 > 0, idx2, idx1)
+        opaque = keep(opaque, derr, _pack_etc1((b1, d), True, flip, t1, t2, idx))
+    perr, fields = _planar_candidate_jnp(px, chw, refine)
+    opaque = keep(opaque, perr, _pack_planar(fields))
+    means = _pca_split_jnp(px)
+    for cand_fn in (_etc2_t_candidate, _etc2_h_candidate):
+        opaque = keep(opaque, *cand_fn(px, chw, refine, means=means, quant=_quant444_jnp))
+
+    punch = None
+    for flip in (0, 1):
+        punch = keep(punch, *_a1_diff_sweep(px, alpha, chw, flip, offsets, floor_mode, est_keep))
+    means = _pca_split_jnp(px, alpha)
+    for cand_fn in (_etc2_t_candidate, _etc2_h_candidate):
+        punch = keep(
+            punch, *cand_fn(px, chw, refine, means=means, quant=_quant444_jnp, alpha=alpha)
+        )
+
+    has_alpha = (alpha < 0.5).any(dim=0)
+    return tuple(torch.where(has_alpha, t, o) for t, o in zip(punch[1], opaque[1]))
+
+
+def encode_etc2_a1(blocks, quality=2, ch_weights=None):
+    """[N,16,4] float RGBA blocks (0..1) -> ETC2 punch-through alpha
+    (R8G8B8A1) [N,2] uint32 words, texels with alpha < 0.5 transparent.
+
+    The JAX package encodes A1 on its ``jnp`` path only, so this is torch
+    ops on the tensor's device (CPU or CUDA), with no hand kernel."""
+    q, chw = _quality(quality), channel_weights(ch_weights)
+    _device_kind(blocks)
+    if blocks.shape[0] == 0:
+        return _empty(blocks, 2)
+    px = _channels255(blocks, 3)
+    alpha = (blocks[..., 3].to(torch.float32) >= 0.5).to(torch.float32).t().contiguous()
+    return _stack(_a1_words(px, alpha, q, chw))
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,9 @@ from ``cuttlefish_tpu/kernels/etc.py``, as numpy and plain Python, so that
 the port runs where JAX is not installed.
 
 ``_ETC_SHIFTS`` is not copied: ``etc_pallas.py`` imports it but never uses
-it; it belongs to the punch-through (A1) path, which has no TPU kernel.
+it, and the punch-through (A1) encoder, whose ``jnp`` path the port's
+``encode_etc2_a1`` follows, does not reach it either.  Two tables serve
+that encoder alone: ``_ETC_A1_MODS_NP`` and ``_A1_PLANAR_PROJ_NP``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,35 @@ _ETC1_MODS_NP = np.array(
         [47, 183, -47, -183],
     ],
     np.int32,
+)
+
+# Punch-through modifier set (opaque bit 0): index 0 -> +0, index 1 -> +b,
+# index 2 -> transparent (handled by the caller), index 3 -> -b
+# (etc.py:114).
+_ETC_A1_MODS_NP = _ETC1_MODS_NP.copy()
+_ETC_A1_MODS_NP[:, 0] = 0
+_ETC_A1_MODS_NP[:, 2] = 0
+
+# The float32 least-squares projection [3, 16] (O, H, V by texel) that the
+# jnp path's ``_planar_candidate`` computes in float32 under jit
+# (etc.py:246-252: ``inv(basis @ basis.T) @ basis``); it differs from the
+# float64 projection of the TPU kernel by up to 4.5e-8.
+_A1_PLANAR_PROJ_NP = np.array(
+    [
+        (0.2874999940395355, 0.21249999105930328, 0.13750000298023224, 0.0625,
+         0.21249999105930328, 0.13750000298023224, 0.0624999962747097, -0.01249999925494194,
+         0.13750000298023224, 0.0625, -0.012500000186264515, -0.08749999850988388,
+         0.0624999962747097, -0.01250000111758709, -0.08749999850988388, -0.16250000894069672),
+        (-0.012499998323619366, 0.11249999701976776, 0.23749999701976776, 0.36249998211860657,
+         -0.08750000596046448, 0.037499986588954926, 0.16249999403953552, 0.2874999940395355,
+         -0.16250000894069672, -0.03750001639127731, 0.08749997615814209, 0.2124999612569809,
+         -0.23750002682209015, -0.11250002682209015, 0.012499965727329254, 0.13749995827674866),
+        (-0.012500002980232239, -0.08750000596046448, -0.16249999403953552, -0.23749999701976776,
+         0.11250001192092896, 0.037500008940696716, -0.037499986588954926, -0.11249998956918716,
+         0.23750001192092896, 0.1625000238418579, 0.08750002086162567, 0.012500017881393433,
+         0.36250004172325134, 0.2875000238418579, 0.21250003576278687, 0.13750001788139343),
+    ],
+    np.float32,
 )
 
 # EAC modifier table [16, 8] (indices 0-3 negative, 4-7 positive)

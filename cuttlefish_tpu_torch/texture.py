@@ -10,8 +10,8 @@ converters on a torch device, and serializes to DDS/KTX/PVR containers.
 Copied from ``cuttlefish_tpu/texture.py`` with its imports pointed at the
 port.  What differs: ``Texture`` takes a ``device`` (the CUDA card unless
 the caller names another; a CPU device runs the plain PyTorch versions of
-the kernels), ``convert`` reports the kernel launches it made, and
-``convert_with_mips`` (the fused device mip pipeline) is not ported yet.
+the kernels), and ``convert`` and ``convert_with_mips`` (the fused device
+mip pipeline) report the kernel launches they made.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from cuttlefish_tpu_torch.formats import (
     is_format_valid,
     max_mipmap_levels,
 )
-from cuttlefish_tpu_torch.image import Image, ImageFormat, ResizeFilter
+from cuttlefish_tpu_torch.image import Image, ImageFormat, NormalOptions, ResizeFilter
 from cuttlefish_tpu_torch.image.resample import resample_weights, resample_weights_z
 
 
@@ -464,13 +464,120 @@ class Texture:
         self._textures = textures
         return True
 
-    def convert_with_mips(self, *args, **kwargs) -> bool:
-        """The fused device mip pipeline of the JAX package
-        (``cuttlefish_tpu/texture.py:convert_with_mips``): not ported yet."""
-        raise NotImplementedError(
-            "convert_with_mips (the fused device mip pipeline) is not in the "
-            "PyTorch port yet: ROADMAP queue 1, item 7"
+    def convert_with_mips(
+        self,
+        fmt: TextureFormat,
+        type_: TextureType = TextureType.UNorm,
+        quality: Quality = Quality.Normal,
+        alpha_type: Alpha = Alpha.Standard,
+        color_mask: ColorMask | None = None,
+        mip_levels: int = 0xFFFFFFFF,
+        filter: ResizeFilter = ResizeFilter.CatmullRom,
+        normal_map: NormalOptions | None = None,
+        normal_height: float = 1.0,
+        hdr_metric: str = "value",
+    ) -> bool:
+        """The fused device mip pipeline (extension beyond the reference
+        API, ``cuttlefish_tpu/texture.py:convert_with_mips``): build the
+        mip chain on ``self.device`` and encode every level of every
+        surface in one encode.
+
+        Only level-0 images need to be set; level 0 travels once as
+        float32, the chain, the sRGB round trip and the block tiling run
+        on the device (``BlockConverter.encode_pyramid``).
+        Quality-equivalent to ``generate_mipmaps() + convert()``, not
+        bit-identical (no u8/f16 wire).  Block-compressed formats,
+        2D/array/cube, the standard chain only.
+
+        ``normal_map``: a ``NormalOptions`` bitmask; the level-0 images are
+        heightfields turned into tangent-space normal maps on the device
+        first (``Image.create_normal_map`` + ``set_image``'s colour-space
+        round trip).  ``last_convert_stats`` has convert's keys, its
+        ``phases`` the pipeline's (scan, upload, pyramid, kernel, fetch,
+        interleave) and ``fused``, the whole.
+        """
+        from cuttlefish_tpu_torch import profiling
+        from cuttlefish_tpu_torch.convert import EncodeParams, create_converter
+        from cuttlefish_tpu_torch.convert.device import BlockConverter
+        from cuttlefish_tpu_torch.formats import block_width
+        from cuttlefish_tpu_torch.kernels import launch_counts
+
+        if not self._valid or self._dimension is Dimension.Dim3D:
+            return False
+        if not is_format_valid(fmt, type_) or block_width(fmt) <= 1:
+            return False
+        if self._color_space is ColorSpace.sRGB and not has_native_srgb(fmt, type_):
+            return False
+        depths = max(self._depth, 1) if self._depth else 1
+        for d in range(depths):
+            for f in range(self._faces):
+                if self._images[0][d][f] is None:
+                    return False
+
+        converter = create_converter(fmt, type_, self.device)
+        if not isinstance(converter, BlockConverter):
+            return False
+        levels = min(
+            max(int(mip_levels), 1),
+            max_mipmap_levels(self._dimension, self._width, self._height, self._depth),
         )
+        params = EncodeParams(
+            quality=quality,
+            alpha_type=alpha_type,
+            color_mask=color_mask or ColorMask(),
+            color_space=self._color_space,
+            hdr_metric=hdr_metric,
+        )
+        surfaces0 = [
+            self._images[0][d][f].rgbaf() for d in range(depths) for f in range(self._faces)
+        ]
+
+        launches0 = launch_counts()
+        profiling.reset_phases()
+        t0 = time.perf_counter()
+        with profiling.trace("convert_with_mips"):
+            per_level = converter.encode_pyramid(
+                surfaces0,
+                levels,
+                filter.value,
+                self._color_space is ColorSpace.sRGB,
+                params,
+                normal_opts=(
+                    None if normal_map is None else (int(normal_map), float(normal_height))
+                ),
+            )
+        # Commit state only after a successful encode.
+        self._mip_levels = levels
+        self._images = [self._images[0]] + [
+            [[None] * self._faces for _ in range(depths)] for _ in range(levels - 1)
+        ]
+        self._format = fmt
+        self._type = type_
+        self._alpha_type = alpha_type
+        self._color_mask = color_mask or ColorMask()
+        textures: list[list[list[bytes]]] = []
+        for lvl in range(levels):
+            it = iter(per_level[lvl])
+            textures.append(
+                [[bytes(next(it)) for _ in range(self._faces)] for _ in range(depths)]
+            )
+        self._textures = textures
+        texels = sum(
+            max(self._width >> k, 1) * max(self._height >> k, 1) for k in range(levels)
+        ) * depths * self._faces
+        elapsed = time.perf_counter() - t0
+        launches = {
+            k: n - launches0[k] for k, n in launch_counts().items() if n != launches0[k]
+        }
+        self.last_convert_stats = {
+            "texels": texels,
+            "seconds": elapsed,
+            "mtexels_per_sec": texels / elapsed / 1e6 if elapsed > 0 else 0.0,
+            "phases": {**profiling.last_phases, "fused": elapsed},
+            "launches": launches,
+            "bc7_launches": launches.get("bc7", 0),
+        }
+        return True
 
     @property
     def converted(self) -> bool:

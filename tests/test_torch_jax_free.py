@@ -2,9 +2,10 @@
 
 The test conftest imports jax, so the run-time check goes to a fresh
 interpreter: it converts BC7 + mips -> DDS, BC1 -> DDS, BC3 + mips -> KTX,
-HDR BC6H + mips -> DDS, ETC2 RGB and RGBA8 + mips -> KTX, EAC R11G11
-SNorm + mips -> KTX and ASTC 4x4 + mips -> KTX on the CPU, reads each file back, decodes it, and lists
-the loaded modules.  A
+HDR BC6H + mips -> DDS, ETC2 RGB, RGBA8 and punch-through (R8G8B8A1) + mips
+-> KTX, EAC R11G11 SNorm + mips -> KTX and ASTC 4x4 + mips -> KTX on the
+CPU, and BC3 through the fused mip pipeline (``convert_with_mips``) ->
+KTX, reads each file back, decodes it, and lists the loaded modules.  A
 static check scans every module of the port and chip_smoke.py for an
 import of ``cuttlefish_tpu`` (other than ``cuttlefish_tpu_torch``), jax or
 triton at any level.
@@ -26,7 +27,7 @@ import numpy as np
 import cuttlefish_tpu_torch as cp
 from cuttlefish_tpu_torch.decode import (
     decode_astc, decode_bc1, decode_bc3, decode_bc6h_f32, decode_bc7, decode_eac_rg11,
-    decode_etc2_rgba, decode_etc_rgb,
+    decode_etc2_a1, decode_etc2_rgba, decode_etc_rgb,
 )
 
 arr = np.random.default_rng(0).random((12, 20, 4)).astype(np.float32)
@@ -40,6 +41,7 @@ cases = [
     (cp.TextureFormat.BC6H, cp.TextureType.UFloat, hdr, 9, "t6.dds", decode_bc6h_f32),
     (cp.TextureFormat.ETC2_R8G8B8, U, arr, 9, "e2.ktx", lambda raw: decode_etc_rgb(raw, True)),
     (cp.TextureFormat.ETC2_R8G8B8A8, U, arr, 9, "e2a.ktx", decode_etc2_rgba),
+    (cp.TextureFormat.ETC2_R8G8B8A1, U, arr, 9, "e2p.ktx", decode_etc2_a1),
     (cp.TextureFormat.EAC_R11G11, cp.TextureType.SNorm, arr * 2 - 1, 9, "rg.ktx",
      lambda raw: decode_eac_rg11(raw, True)),
     (cp.TextureFormat.ASTC_4x4, U, arr, 9, "a4.ktx", lambda raw: decode_astc(raw, 4, 4)),
@@ -60,6 +62,17 @@ for fmt, typ, src, mips, name, dec in cases:
         assert loaded.data(mip_level=m) == tex.data(mip_level=m)
     assert dec(np.frombuffer(tex.data(), np.uint8)).shape[0] == 15
     assert loaded.decode_image().array.shape == (12, 20, 4)
+tex = cp.Texture(cp.Dimension.Dim2D, 20, 12, device="cpu")
+tex.set_image(cp.Image.from_array(arr, cp.ImageFormat.RGBAF))
+assert tex.convert_with_mips(cp.TextureFormat.BC3, U, cp.Quality.Normal)
+assert tex.mip_levels == 5 and tex.last_convert_stats["launches"] == {}
+path = os.path.join(out, "fused3.ktx")
+assert tex.save(path) is cp.SaveResult.Success
+loaded = cp.load_texture(path)
+assert loaded.format is cp.TextureFormat.BC3 and loaded.mip_levels == 5
+for m in range(5):
+    assert loaded.data(mip_level=m) == tex.data(mip_level=m)
+assert decode_bc3(np.frombuffer(tex.data(), np.uint8)).shape[0] == 15
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "triton", "cuttlefish_tpu")

@@ -131,13 +131,15 @@ def test_bc7_constants_carry_the_3_subset_operands(perceptual):
 
 _ETC_TABLES = [
     "_ETC1_MODS_NP", "_EAC_MODS_NP", "_COLMAJOR_NP", "_RASTER_OF_P_NP", "_ETC2_DIST_NP",
+    "_ETC_A1_MODS_NP",
 ]
 
 
 @pytest.mark.parametrize("name", _ETC_TABLES)
 def test_etc_table_equals_reference(name):
-    """The ETC/EAC spec tables the TPU kernels and decoders read
-    (kernels/etc.py:35-77, :374), dtype and value."""
+    """The ETC/EAC spec tables the TPU kernels, the punch-through encoder
+    and the decoders read (kernels/etc.py:35-77, :114, :374), dtype and
+    value."""
     from cuttlefish_tpu.kernels import etc as ref
     from cuttlefish_tpu_torch.kernels import etc_tables as port
 
@@ -162,6 +164,27 @@ def test_etc_planar_projection_equals_pallas_kernel():
     from cuttlefish_tpu_torch.kernels import etc
 
     assert np.array_equal(etc._planar_proj(), etc_pallas._planar_proj())
+
+
+def test_a1_planar_projection_equals_jnp_path():
+    """The float32 projection the jnp path's _planar_candidate computes
+    under jit (kernels/etc.py:246-252), which the punch-through encoder
+    multiplies by."""
+    import jax
+    import jax.numpy as jnp
+
+    from cuttlefish_tpu.kernels import etc as ref
+    from cuttlefish_tpu_torch.kernels import etc_tables as port
+
+    def proj():
+        x = ref._PLANAR_XW / 4.0
+        y = ref._PLANAR_YW / 4.0
+        basis = jnp.stack([(1.0 - x - y)[0], x[0], y[0]], axis=0)
+        return jnp.linalg.inv(basis @ basis.T) @ basis
+
+    want = np.asarray(jax.jit(proj)())
+    assert port._A1_PLANAR_PROJ_NP.dtype == want.dtype == np.float32
+    assert np.array_equal(port._A1_PLANAR_PROJ_NP, want)
 
 
 def test_etc_kernel_tables_equal_reference():

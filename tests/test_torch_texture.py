@@ -151,8 +151,6 @@ def test_unported_formats_raise_and_invalid_combos_fail():
     assert tex.format is cp.TextureFormat.Unknown
     assert tex.convert(cp.TextureFormat.BC7, cp.TextureType.SNorm) is False
     assert tex.convert(cp.TextureFormat.BC6H, cp.TextureType.UNorm) is False
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        tex.convert_with_mips(cp.TextureFormat.BC7)
     # BC1 and BC6H are ported now.
     assert tex.convert(cp.TextureFormat.BC6H, cp.TextureType.Float)
     assert tex.format is cp.TextureFormat.BC6H and tex.data_size() == 16 * 4
@@ -161,17 +159,18 @@ def test_unported_formats_raise_and_invalid_combos_fail():
     # Uncompressed formats use the port's copy of the host converters.
     assert tex.convert(cp.TextureFormat.R8G8B8A8)
     assert tex.data() == bytes([128] * 4 * 64)
+    # The fused device mip pipeline converts too (4 levels of 8x8 BC7).
+    assert tex.convert_with_mips(cp.TextureFormat.BC7)
+    assert tex.format is cp.TextureFormat.BC7 and tex.mip_levels == 4
+    assert [tex.data_size(mip_level=m) for m in range(4)] == [64, 16, 16, 16]
 
 
-def test_etc2_punch_through_is_not_ported_yet():
-    """ETC2_R8G8B8A1 raises, naming its queue item; ETC1, ETC2 and EAC
-    convert."""
+def test_etc_formats_convert_punch_through_included():
+    """ETC2_R8G8B8A1 (punch-through), ETC1, ETC2 and EAC convert."""
     tex = cp.Texture(cp.Dimension.Dim2D, 8, 8, device="cpu")
     tex.set_image(cp.Image.from_array(np.full((8, 8, 4), 0.5, np.float32), cp.ImageFormat.RGBAF))
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        tex.convert(cp.TextureFormat.ETC2_R8G8B8A1, cp.TextureType.UNorm)
-    assert tex.format is cp.TextureFormat.Unknown
-    for fmt, size in ((cp.TextureFormat.ETC1, 8), (cp.TextureFormat.ETC2_R8G8B8A8, 16),
+    for fmt, size in ((cp.TextureFormat.ETC2_R8G8B8A1, 8),
+                      (cp.TextureFormat.ETC1, 8), (cp.TextureFormat.ETC2_R8G8B8A8, 16),
                       (cp.TextureFormat.EAC_R11, 8), (cp.TextureFormat.EAC_R11G11, 16)):
         assert tex.convert(fmt, cp.TextureType.UNorm)
         assert tex.format is fmt and tex.data_size() == 4 * size
