@@ -57,9 +57,8 @@ exits non-zero:
    ASTC_4x4 Normal 2048^2 + mips -> KTX (its main path), BASELINE config 5
    (a 256^2 sRGB cube of a normal map + mips, ASTC_4x4 -> KTX), ASTC_8x8
    and ASTC_12x12 Normal 2048^2 -> KTX and ASTC_4x4 Highest 2048^2 on the
-   near-gray alpha surface -> KTX (all four ASTC entries); ASTC_4x4 UFloat
-   must raise NotImplementedError.  Level-0 sample blocks must equal the
-   plain version on the same wire input.  Then the fused mip pipeline
+   near-gray alpha surface -> KTX (all four ASTC entries).  Level-0 sample
+   blocks must equal the plain version on the same wire input.  Then the fused mip pipeline
    (Texture.convert_with_mips): BC7 q2 2048^2 -> DDS (the main path), BC3
    q2 on the alpha surface -> KTX, BASELINE config 5 fused (a 256^2 sRGB
    cube, its normal map made on the card) -> ASTC_4x4 KTX and BC6H Float on
@@ -71,7 +70,17 @@ exits non-zero:
    card): mean |d| < 2 (u8) or < 0.05 (BC6H, its level 1 and 2 negatives
    kept).  And ETC2_R8G8B8A1 2048^2 + mips -> KTX on the hard-alpha surface
    (torch ops on the card: no kernel launches): level 0's strided sample
-   >= 99 % identical to the CPU's words, punched texels alpha 0.
+   >= 99 % identical to the CPU's words, punched texels alpha 0.  And the
+   formats that run torch ops on the card (no kernel may launch):
+   ASTC_4x4 UFloat q2 on the HDR surface 2048^2 + mips -> KTX, ASTC_8x8
+   UFloat q2 on the HDR surface with the alpha surface's alpha 1024^2 ->
+   KTX (CEM 14), PVRTC1 RGBA 4bpp q2 on the alpha surface 2048^2 + mips ->
+   PVR and PVRTC2 RGBA 2bpp q4 on the hard-alpha surface 1024^2 -> KTX:
+   level 0 against the same encode on the CPU (ASTC a strided sample of
+   4,096 blocks, PVRTC every word) >= 99 % identical and |dPSNR| <= 0.05
+   dB (HDR PSNR peak-relative), level 0 encoded again on the card with
+   TF32 allowed must write the same words, and the decoded
+   quality printed beside the JAX package's bar for the format.
 5. times: CUDA events, one warm-up, median of 7 (of 3 where the warm-up
    took over a second): each kernel alone and its plain version alone on
    the 262,144 blocks (BC7 q3-4 and BC6H at q4, the main paths' quality,
@@ -83,7 +92,8 @@ exits non-zero:
    that surface); each main-path
    convert (host clock, synchronised) median of 5, and each of its phases'
    median over the same 5 (EAC R11 and RG11 SNorm + mips too; the four
-   fused paths through convert_with_mips and ETC2_R8G8B8A1 + mips).  The
+   fused paths through convert_with_mips, ETC2_R8G8B8A1 + mips and the
+   four ASTC UFloat and PVRTC paths).  The
    unit-weight ETC RGB and RGBA8 cases also
    print the bound with the products by the weights counted, which a
    product by 1 does not need.  With --parent, every case of the rows whose source it
@@ -921,12 +931,14 @@ def main(argv: list[str]) -> int:
     from cuttlefish_tpu_torch.decode import (
         decode_astc, decode_bc1, decode_bc2, decode_bc3, decode_bc4, decode_bc5,
         decode_bc6h_f32, decode_bc7, decode_eac_alpha, decode_eac_r11, decode_eac_rg11,
-        decode_etc2_a1, decode_etc2_rgba, decode_etc_rgb,
+        decode_etc2_a1, decode_etc2_rgba, decode_etc_rgb, decode_pvrtc1, decode_pvrtc2,
     )
+    from cuttlefish_tpu_torch.decode.astc import decode_astc_hdr
     from cuttlefish_tpu_torch.kernels import (
         _build, astc, astc_cuda, astc_tables, bc, bc6h, bc6h_cuda, bc7, bc7_cuda, bc7_hq_cuda,
-        bc_cuda, etc, etc_cuda, launch_counts,
+        bc_cuda, etc, etc_cuda, launch_counts, astc_hdr, pvrtc,
     )
+    from cuttlefish_tpu_torch.kernels.pvrtc_tables import morton_order
     from cuttlefish_tpu_torch.kernels.bc7 import _constants, encode_bc7, encode_bc7_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1593,6 +1605,124 @@ def main(argv: list[str]) -> int:
         check(np.isfinite(p0) and p0 > 30.0, f"{pname}: PSNR too low")
         return {"launches": {}, "bytes": size, "psnr": p0, "same": same}
 
+    # This slice: the formats the JAX package encodes with XLA programs and
+    # no TPU kernel, ported as torch ops on the card (kernels/astc_hdr.py,
+    # kernels/pvrtc.py).  name -> (format, type, quality, level 0, mips,
+    # file, the JAX package's quality bar for the format).
+    hdra = hdr[:1024, :1024].copy()
+    hdra[..., 3] = asurf[:1024, :1024, 3]
+    torch_ops_paths = {
+        "astc4_hdr_2048_mips_ktx": (TF.ASTC_4x4, TT.UFloat, QN, hdr, True, "ktx",
+                                    "median |log2 err| < 0.3 (tests/test_astc.py:343-357)"),
+        "astc8_hdr_alpha_1024_ktx": (TF.ASTC_8x8, TT.UFloat, QN, hdra, False, "ktx",
+                                     "median |log2 err| < 0.3 (tests/test_astc.py:343-357)"),
+        "pvrtc1_4bpp_2048_mips_pvr": (TF.PVRTC1_RGBA_4BPP, TT.UNorm, QN, asurf, True, "pvr",
+                                      "PSNR > 30 dB, 4bpp (tests/test_pvrtc.py:60-68)"),
+        "pvrtc2_2bpp_1024_ktx": (TF.PVRTC2_RGBA_2BPP, TT.UNorm, QX, hsurf[:1024, :1024].copy(),
+                                 False, "ktx", "PSNR > 24 dB, 2bpp (tests/test_pvrtc.py:124-137)"),
+    }
+
+    def with_tf32(fn):
+        """fn() with TF32 allowed for matmuls.  The port raises nowhere for
+        TF32, so any exception is a failure of the path."""
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def torch_ops_path(pname, fmt, typ, quality, arr, mips, ext, bar, tmp):
+        """Texture(device=cuda).convert, save, load_texture, decode_image and
+        a payload check; no kernel may launch and no plain version may run.
+        Level 0 against the same encode on the CPU (ASTC: a strided sample of
+        4,096 blocks; PVRTC, a whole-surface encode: every word): >= 99 %
+        identical, |dPSNR| <= 0.05 dB (HDR PSNR peak-relative); level 0
+        encoded once more on the card with TF32 allowed must write the same
+        words."""
+        img = cp.Image.from_array(arr, cp.ImageFormat.RGBAF)
+        tex = make_texture(img, mips, 0)
+        counts, stats = convert_counted(pname, tex, fmt, typ, quality)
+        check(not any(counts.values()) and stats["launches"] == {},
+              f"{pname}: a kernel launched: {counts}")
+        path = os.path.join(tmp, f"{pname}.{ext}")
+        check(tex.save(path) is cp.SaveResult.Success, f"{pname}: save failed")
+        size = os.path.getsize(path)
+        loaded = cp.load_texture(path)
+        check(loaded.format is fmt and loaded.mip_levels == tex.mip_levels,
+              f"{pname}: loaded texture differs ({loaded.format})")
+        for m in range(tex.mip_levels):
+            check(loaded.data(mip_level=m) == tex.data(mip_level=m),
+                  f"{pname}: payload of mip {m} differs")
+        q, raw0 = int(quality), np.frombuffer(tex.data(), np.uint8)
+        if fmt.name.startswith("ASTC_"):
+            bw, bh = (int(v) for v in fmt.name[5:].split("x"))
+            b0 = extract_blocks(arr, bw, bh)[0]
+            idx = np.arange(0, b0.shape[0], max(1, b0.shape[0] // 4096))
+            raw = raw0.reshape(-1, 16)
+            cpu = astc_hdr.encode_astc_hdr(dequant(wire(b0[idx], "f16")), bw, bh, q)
+            ref = to_bytes(cpu.numpy()).reshape(-1, 16)
+            same = float(np.all(raw[idx] == ref, axis=1).mean())
+            target = b0[idx][..., :3].astype(np.float64)
+            peak = float(np.abs(target).max())
+
+            def dec(r):
+                halfs = decode_astc_hdr(np.ascontiguousarray(r).reshape(-1), bw, bh)
+                return np.asarray(halfs).astype(np.uint16).view(np.float16).astype(np.float64)
+
+            dk = dec(raw[idx])
+            dp = dk.copy()
+            diff = np.where(~np.all(raw[idx] == ref, axis=1))[0]
+            if diff.size:
+                dp[diff] = dec(ref[diff])
+            pk, pp = psnr(dk[..., :3], target, peak), psnr(dp[..., :3], target, peak)
+            normal = target >= 2.0**-14
+            quality_val = float(np.median(np.abs(
+                np.log2(np.maximum(dk[..., :3][normal], 1e-6)) - np.log2(target[normal]))))
+            check(quality_val < 0.3, f"{pname}: median |log2 err| {quality_val} over the bar")
+            full = dequant(wire(b0, "f16").to(dev))
+            w32 = with_tf32(lambda: astc_hdr.encode_astc_hdr(full, bw, bh, q))
+            tf32 = "identical" if np.array_equal(to_bytes(w32.cpu().numpy()), raw0) else "DIFFERS"
+            small_m = min(3, tex.mip_levels - 1)
+            dimg = tex.decode_image(mip_level=small_m).rgbaf()
+            check(dimg.shape[:2] == (tex.height(small_m), tex.width(small_m))
+                  and np.isfinite(dimg).all(), f"{pname}: decode_image failed")
+            decoded = (f"decode_image of level {small_m} ({dimg.shape[1]}x{dimg.shape[0]}) finite; "
+                       f"level-0 sample {idx.size} blocks")
+            quality_txt = f"median |log2 err| {quality_val:.4f} (JAX package's bar: {bar})"
+        else:
+            bpp2 = "2BPP" in fmt.name
+            v2 = fmt.name.startswith("PVRTC2")
+            bw, bh = (8, 4) if bpp2 else (4, 4)
+            h, w = arr.shape[:2]
+            perm = morton_order(w // bw, h // bh)
+            stored = raw0.reshape(-1, 8)
+            raster = np.empty_like(stored)
+            raster[perm] = stored
+            enc = pvrtc.encode_pvrtc2 if v2 else pvrtc.encode_pvrtc1
+            cpu = to_bytes(enc(torch.from_numpy(arr), bpp2=bpp2, quality=q).numpy()).reshape(-1, 8)
+            same = float(np.all(raster == cpu, axis=1).mean())
+            decode = decode_pvrtc2 if v2 else decode_pvrtc1
+            dk = decode(raster.reshape(-1), w, h, bpp2=bpp2)
+            dp = decode(cpu.reshape(-1), w, h, bpp2=bpp2)
+            pk, pp = psnr(dk, arr, 1.0), psnr(dp, arr, 1.0)
+            surf_dev = torch.from_numpy(arr).to(dev)
+            w32 = with_tf32(lambda: enc(surf_dev, bpp2=bpp2, quality=q))
+            tf32 = ("identical" if np.array_equal(to_bytes(w32.cpu().numpy()).reshape(-1, 8), raster)
+                    else "DIFFERS")
+            dimg = loaded.decode_image().rgbaf()
+            check(np.array_equal(dimg, dk), f"{pname}: decode_image of the file differs")
+            decoded = f"decode_image of the file's level 0 ({w}x{h}) equal to its words' decode"
+            quality_txt = f"PSNR {pk:.4f} dB (JAX package's bar: {bar})"
+            check(np.isfinite(pk) and pk > 20.0, f"{pname}: PSNR too low")
+        log("paths", f"{pname}: {tex.mip_levels} mips, {ext.upper()} {size} bytes read back; "
+            f"launches {stats['launches']} (torch ops, no kernel), plain calls 0; level 0 card "
+            f"vs CPU identical {same * 100:.2f} %, PSNR card {pk:.4f} dB CPU {pp:.4f} dB; TF32 "
+            f"allowed: {tf32}; {decoded}; {quality_txt}; phases {json.dumps(stats['phases'])}")
+        check(same >= MIN_SAME, f"{pname}: the card's words disagree with the CPU's")
+        check(abs(pk - pp) <= MAX_DPSNR and np.isfinite(pk), f"{pname}: card and CPU PSNR differ")
+        check(tf32 != "DIFFERS", f"{pname}: TF32 changed the words")
+        return {"launches": {}, "bytes": size, "psnr": pk, "same": same, "tf32": tf32}
+
     with tempfile.TemporaryDirectory() as tmp:
         for pname, (fmt, typ, quality, mips, nlayers, ext, img, kname, _) in paths.items():
             tex = make_texture(img, mips, nlayers)
@@ -1766,12 +1896,6 @@ def main(argv: list[str]) -> int:
             # 0.89-8 bits a texel: above 25 dB on the noisy test surface.
             check(np.isfinite(p0) and p0 > 25.0, f"{pname}: PSNR too low")
             del tex, loaded
-        tex = make_texture(small, False, 0)
-        try:
-            tex.convert(TF.ASTC_4x4, TT.UFloat, QN)
-            check(False, "ASTC_4x4 UFloat did not raise")
-        except NotImplementedError as e:
-            log("paths", f"astc4_ufloat: raises NotImplementedError ({e})")
 
         # This slice: the fused mip pipeline (Texture.convert_with_mips),
         # level 0 sent once and the chain, the normal map and the tiling
@@ -1790,6 +1914,8 @@ def main(argv: list[str]) -> int:
         for pname, spec in fused_paths.items():
             path_stats[pname] = fused_path(pname, *spec, tmp)
         path_stats["etc2a1_2048_mips_ktx"] = a1_path(tmp)
+        for pname, spec in torch_ops_paths.items():
+            path_stats[pname] = torch_ops_path(pname, *spec, tmp)
 
     # 5. times on the card
     # (row name, counter, case timed for the row, source, TPU kernel, input
@@ -2054,6 +2180,10 @@ def main(argv: list[str]) -> int:
                      fused={} if nmap is None else {"normal_map": nmap, "normal_height": 2.0})
     time_convert("etc2a1_2048_mips_ktx", lambda: make_texture(images["hard"], True, 0),
                  TF.ETC2_R8G8B8A1, TT.UNorm, QN)
+    # This slice: ASTC UFloat and PVRTC1/2 (torch ops on the card).
+    for pname, (fmt, typ, quality, arr, mips, *_) in torch_ops_paths.items():
+        img = cp.Image.from_array(arr, cp.ImageFormat.RGBAF)
+        time_convert(pname, lambda: make_texture(img, mips, 0), fmt, typ, quality)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,14 @@ package imports neither JAX nor ``cuttlefish_tpu``.
     tex = Texture(Dimension.Dim2D, 256, 256)               # on the card
     tex = Texture(Dimension.Dim2D, 256, 256, device="cpu")  # plain version
 
-Ported so far, at every quality: BC1-BC7 (BC6H UFloat and Float
+Every format, at every quality: BC1-BC7 (BC6H UFloat and Float
 included), ETC1, ETC2 RGB, RGBA8 and punch-through (R8G8B8A1), EAC R11 and
-RG11, ASTC LDR (all 14 2D block sizes) and the uncompressed formats, and
-``Texture.convert_with_mips``, the fused mip pipeline on the device.  ASTC
-HDR and PVRTC raise ``NotImplementedError`` naming their ROADMAP item.
+RG11, ASTC LDR and HDR (all 14 2D block sizes), PVRTC1 and PVRTC2 and the
+uncompressed formats, and ``Texture.convert_with_mips``, the fused mip
+pipeline on the device.  The JAX package encodes ETC2 punch-through, ASTC
+HDR and PVRTC with XLA programs and no TPU kernel, and the port runs them
+as torch ops on the device.  ``metrics`` scores a texture against its
+source.
 """
 
 from cuttlefish_tpu_torch.containers.load import LoadError, load_texture

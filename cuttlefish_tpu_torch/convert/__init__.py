@@ -5,8 +5,9 @@
 the port's.  Uncompressed formats go to the copied host converters of
 ``convert/standard.py``; BC1-BC7 (``convert/s3tc.py``), ETC1, ETC2 and
 EAC (``convert/etc.py``) and ASTC LDR (``convert/astc.py``) go to the
-port's block converters on a torch device.  The ASTC HDR profile and
-PVRTC raise ``NotImplementedError`` until their slice is ported.
+port's block converters on a torch device, ASTC UFloat to its HDR
+profile, and PVRTC1/2 to the whole-surface converters of
+``convert/pvrtc.py``.
 """
 
 from __future__ import annotations
@@ -96,7 +97,8 @@ def create_converter(
         from cuttlefish_tpu_torch.convert import astc
 
         return astc.create_astc_converter(fmt, type_, device)
-    raise NotImplementedError(
-        f"{fmt.name} is not in the PyTorch port yet: ported in a later PR "
-        "(ROADMAP queue 1, item 12)"
-    )
+    if fmt.name.startswith("PVRTC"):
+        from cuttlefish_tpu_torch.convert import pvrtc
+
+        return pvrtc.create_pvrtc_converter(fmt, type_, device)
+    return None

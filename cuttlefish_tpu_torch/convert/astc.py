@@ -1,13 +1,17 @@
 """ASTC converters of the port (counterpart of ``cuttlefish_tpu/convert/astc.py``).
 
-All 14 2D block sizes of the LDR profile (UNorm, sRGB included) through
-``kernels/astc.py:encode_astc``, on the u8 wire.  ``refine_params`` scans
-the host blocks before they travel, as the JAX package does: a batch with
-no near-gray block skips the luminance CEM 0/4 fits and the 4-partition
-kernel, and an opaque batch skips CEM 12 and dual plane.  The HDR profile
-(``ASTC_* + UFloat``, ``cuttlefish_tpu/kernels/astc.py:encode_astc_hdr``)
-has no TPU kernel and is a torch-ops port of its own (ROADMAP queue 1,
-item 11): it raises ``NotImplementedError``.
+All 14 2D block sizes.  UNorm (sRGB included) is the LDR profile,
+``AstcConverter``, through ``kernels/astc.py:encode_astc`` on the u8 wire;
+``refine_params`` scans the host blocks before they travel, as the JAX
+package does: a batch with no near-gray block skips the luminance CEM 0/4
+fits and the 4-partition kernel, and an opaque batch skips CEM 12 and dual
+plane.  UFloat is the HDR profile, ``AstcHdrConverter`` (CEM 11 direct
+submode + CEM 14, the reference's HDR / HDR_RGB_LDR_A at
+``AstcConverter.cpp:151-163``), through ``kernels/astc_hdr.py:
+encode_astc_hdr`` (torch ops on the converter's device; the JAX package
+has no TPU kernel for it) on the f16 wire.  It has no content gates, so it
+keeps the base ``refine_params`` and the fused mip pipeline skips its host
+scan of level 0.
 """
 
 from __future__ import annotations
@@ -55,14 +59,31 @@ class AstcConverter(BlockConverter):
         )
 
 
+class AstcHdrConverter(BlockConverter):
+    transfer_dtype = "f16"  # HDR profile: half-float domain
+
+    def __init__(self, fmt: TextureFormat, device=None):
+        super().__init__(device)
+        self.block_w = block_width(fmt)
+        self.block_h = block_height(fmt)
+
+    def encode_blocks(self, blocks, params: EncodeParams):
+        from cuttlefish_tpu_torch.kernels import astc_hdr
+
+        # Alpha is encoded LDR (HDR_RGB_LDR_A) with or without alpha.
+        return astc_hdr.encode_astc_hdr(
+            blocks,
+            block_w=self.block_w,
+            block_h=self.block_h,
+            quality=int(params.quality),
+        )
+
+
 def create_astc_converter(
     fmt: TextureFormat, type_: TextureType, device=None
 ) -> Converter | None:
     if not fmt.name.startswith("ASTC_"):
         return None
     if type_ is TextureType.UFloat:
-        raise NotImplementedError(
-            f"{fmt.name} UFloat (the ASTC HDR profile) is not in the PyTorch port "
-            "yet: its encoder is ROADMAP queue 1, item 11"
-        )
+        return AstcHdrConverter(fmt, device)
     return AstcConverter(fmt, device)

@@ -1,8 +1,9 @@
 """Reference block decoders of the port (host numpy, no JAX).
 
 BC1-BC5 (``s3tc.py``), BC6H (``bc6h.py``), BC7 (``bc7.py``), ETC1/ETC2/
-EAC (``etc.py``) and ASTC (``astc.py``), copies of the JAX package's
-decoders; ``surface.py`` decodes whole surfaces of the ported formats.
+EAC (``etc.py``), ASTC (``astc.py``) and PVRTC1/2 (``pvrtc.py``), copies of
+the JAX package's decoders; ``surface.py`` decodes whole surfaces of every
+format.
 """
 
 from cuttlefish_tpu_torch.decode.astc import decode_astc  # noqa: F401
@@ -16,6 +17,7 @@ from cuttlefish_tpu_torch.decode.etc import (  # noqa: F401
     decode_etc2_rgba,
     decode_etc_rgb,
 )
+from cuttlefish_tpu_torch.decode.pvrtc import decode_pvrtc1, decode_pvrtc2  # noqa: F401
 from cuttlefish_tpu_torch.decode.s3tc import (  # noqa: F401
     decode_bc1,
     decode_bc2,

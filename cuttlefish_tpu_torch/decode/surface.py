@@ -8,9 +8,7 @@ pipelines and by round-trip tests.  The reference has no decode path at
 all (it only writes containers), so this is an extension.
 
 Copied from ``cuttlefish_tpu/decode/surface.py`` with its imports pointed at
-the port.  The port decodes the uncompressed formats, BC1-BC7,
-ETC1/ETC2/EAC and ASTC; PVRTC raises ``NotImplementedError`` until its
-decoder is ported (ROADMAP queue 1, item 13).
+the port.
 """
 
 from __future__ import annotations
@@ -63,13 +61,6 @@ def _rgba(*chans):
     return np.stack(out, axis=-1)
 
 
-def _unported(fmt: _F) -> str:
-    return (
-        f"decoding {fmt.name} is not in the PyTorch port yet: "
-        "ROADMAP queue 1, item 13"
-    )
-
-
 def _decode_blocks(data: np.ndarray, fmt: _F, type_: _T) -> np.ndarray:
     """Encoded block bytes -> [N, bh*bw, 4] float32 texels."""
     from cuttlefish_tpu_torch import decode as D
@@ -117,7 +108,7 @@ def _decode_blocks(data: np.ndarray, fmt: _F, type_: _T) -> np.ndarray:
             half = decode_astc_hdr(data, bw, bh)
             return half_bits_to_f32(half).astype(np.float32)
         return D.decode_astc(data, bw, bh).astype(np.float32) / 255.0
-    raise NotImplementedError(_unported(fmt))
+    raise NotImplementedError(f"no block decoder for {fmt!r}")
 
 
 def _unpack_bits16(words, layout):
@@ -263,7 +254,20 @@ def decode_surface(
     data = np.frombuffer(bytes(data), np.uint8)
     bw, bh = block_width(fmt), block_height(fmt)
     if fmt.name.startswith("PVRTC"):
-        raise NotImplementedError(_unported(fmt))
+        from cuttlefish_tpu_torch.decode.pvrtc import decode_pvrtc1, decode_pvrtc2
+        from cuttlefish_tpu_torch.kernels.pvrtc_tables import morton_order
+
+        bpp2 = "2BPP" in fmt.name
+        min_w, min_h = (16, 8) if bpp2 else (8, 8)
+        pw, ph = max(width, min_w), max(height, min_h)
+        perm = morton_order(pw // bw, ph // bh)
+        stored = data.reshape(-1, 8)
+        raster = np.empty_like(stored)
+        raster[perm] = stored  # inverse of convert/pvrtc.py's words[perm]
+        dec = (decode_pvrtc2 if fmt.name.startswith("PVRTC2") else decode_pvrtc1)(
+            raster.reshape(-1), pw, ph, bpp2=bpp2
+        )
+        return dec[:height, :width]
     if bw > 1:
         pw = -(-width // bw) * bw
         ph = -(-height // bh) * bh

@@ -3,9 +3,11 @@
 Submodules are imported where they are used: ``bc7``, ``bc``, ``bc6h``,
 ``etc`` and ``astc`` (plain PyTorch versions and dispatch), ``bc7_cuda``,
 ``bc7_hq_cuda``, ``bc_cuda``, ``bc6h_cuda``, ``etc_cuda`` and ``astc_cuda``
-(the hand kernels' wrappers), ``bc7_tables``, ``bc6h_tables``,
-``etc_tables``, ``astc_tables``, ``astc_ise`` and ``astc_partition`` (spec
-tables) and ``_build`` (nvcc build of ``csrc/``).
+(the hand kernels' wrappers), ``astc_hdr`` and ``pvrtc`` (torch ops of the
+JAX package's XLA programs, on ``jnp_common``'s helpers),
+``bc7_tables``, ``bc6h_tables``, ``etc_tables``, ``astc_tables``,
+``astc_ise``, ``astc_partition`` and ``pvrtc_tables`` (spec tables) and
+``_build`` (nvcc build of ``csrc/``).
 """
 
 

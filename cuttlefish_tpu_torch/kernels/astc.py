@@ -65,6 +65,7 @@ from cuttlefish_tpu_torch.kernels.astc_tables import (
     plan_for,
 )
 from cuttlefish_tpu_torch.kernels.bc import _csum, _device_kind, _rt, _sel
+from cuttlefish_tpu_torch.kernels.jnp_common import sqrt_f32
 
 _INF = float("inf")
 # float32(1/3): the luma of CEM 0/4 as XLA computes (r + g + b) / 3.0.
@@ -78,12 +79,6 @@ CHUNK = 65536
 
 def _sq(x):
     return x * x
-
-
-def _sqrt(x):
-    """Correctly rounded float32 square root (sqrtf): PyTorch's CPU float32
-    sqrt can be one ulp off, its float64 one rounded to float32 is not."""
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +221,7 @@ def _pca_seed(px, mask, chn):
     v = [torch.ones_like(mean[0]) for _ in range(chn)]
     for _ in range(3):
         nv = [_csum([cov[c][d] * v[d] for d in range(chn)]) for c in range(chn)]
-        nn = _sqrt(_csum([x * x for x in nv]))
+        nn = sqrt_f32(_csum([x * x for x in nv]))
         v = [torch.where(nn > 1e-10, nv[c] / (nn + 1e-20), v[c]) for c in range(chn)]
     t = _csum([cent[c] * v[c] for c in range(chn)])
     if mask is None:
@@ -788,7 +783,7 @@ def _cont_sse(px, m1):
         v = [torch.ones_like(cnt) for _ in range(4)]
         for _ in range(3):
             nv = [_csum([cov[a][d] * v[d] for d in range(4)]) for a in range(4)]
-            nn = _sqrt(_csum([x * x for x in nv]))
+            nn = sqrt_f32(_csum([x * x for x in nv]))
             v = [torch.where(nn > 1e-10, nv[a] / (nn + 1e-20), v[a]) for a in range(4)]
         proj = _csum([cent[c] * v[c] for c in range(4)])
         e = _rt(_csum([cent[c] * cent[c] for c in range(4)])) - _rt(proj * proj)

@@ -5,7 +5,9 @@ The part of ``cuttlefish_tpu/kernels/astc.py`` that the kernels of
 field, the C.2.18 infill matrix, the layout menu (``Layout``,
 ``layout_menu``), the colour and weight quantisation LUTs, the quality plan
 (``_PLAN``, ``plan_for``) and the host content scans (``has_gray_blocks``,
-``has_alpha_blocks``).  From ``astc_pallas.py``, also unchanged:
+``has_alpha_blocks``), and for the HDR profile (``kernels/astc_hdr.py``)
+its layout menu (``hdr_layout_menu``) and its grid's infill and
+pseudo-inverse (``_prepared_np``).  From ``astc_pallas.py``, also unchanged:
 ``_prepared_grid`` (the decimated grid's infill, pseudo-inverse and
 footprint) and the static task lists of its kernels (``_tasks_a``,
 ``_layouts_b``, ``_layouts_d``).  The encoders are
@@ -276,6 +278,37 @@ def layout_menu(bw: int, bh: int):
                 out.append(l)
         menu[k] = out
     return menu
+
+
+@functools.lru_cache(maxsize=64)
+def hdr_layout_menu(bw: int, bh: int):
+    """CEM 11 / CEM 14 single-partition layouts (8-bit colors forced:
+    the direct submode's fields are plain bytes)."""
+
+    def best(cem):
+        cands = []
+        for gw in range(2, 12):
+            for gh in range(2, 12):
+                for wl in (24, 20, 16, 12, 10, 8, 6, 5, 4):
+                    lay = _try_layout(bw, bh, 1, cem, gw, gh, wl)
+                    if lay and lay.clevels == 256:
+                        cands.append(lay)
+        if not cands:
+            return None
+        return max(
+            cands,
+            key=lambda l: (min(1.0, (l.gw * l.gh) / (bw * bh)), l.wlevels),
+        )
+
+    return {11: best(11), 14: best(14)}
+
+
+@functools.lru_cache(maxsize=256)
+def _prepared_np(bw, bh, gw, gh):
+    a = infill_weights(bw, bh, gw, gh)
+    af = a.astype(np.float64) / 16.0
+    pinv = np.linalg.pinv(af).astype(np.float32)
+    return a, pinv
 
 
 # ---------------------------------------------------------------------------

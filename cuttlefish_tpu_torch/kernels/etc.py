@@ -55,6 +55,7 @@ from cuttlefish_tpu_torch.kernels.etc_tables import (
     _ETC_OFFSETS,
     _RASTER_OF_P_NP,
 )
+from cuttlefish_tpu_torch.kernels.jnp_common import div
 
 _BIG = 1e30
 
@@ -945,19 +946,14 @@ def encode_eac_rg11_plain(blocks, quality=2, signed=False):
 # (``_quant444_jnp``: ``c * 15 / 255`` as two operations) and the planar
 # fit (``_planar_candidate_jnp``: its float32 projection, ``c * maxv /
 # 255`` as two operations, its error summed over texels by channel).  Its
-# divisions by a constant are IEEE divisions on the card too (``_div``).
+# divisions by a constant are IEEE divisions on the card too
+# (``jnp_common.div``).
 
 _A1_ALLOWED = (0, 1, 3)  # index 2 is the transparent texel
 
 
-def _div(x, d: float):
-    """``x / d`` as an IEEE division on every device: PyTorch's CUDA
-    division by a Python scalar multiplies by its float32 reciprocal."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
-
-
 def _quant444_jnp(c):
-    q = [torch.clamp(torch.round(_div(x * 15.0, 255.0)), 0, 15).to(torch.int32) for x in c]
+    q = [torch.clamp(torch.round(div(x * 15.0, 255.0)), 0, 15).to(torch.int32) for x in c]
     return q, [_expand4(v).to(torch.float32) for v in q]
 
 
@@ -1000,7 +996,7 @@ def _planar_candidate_jnp(px, chw, refine: int = 0):
         for c in range(3):
             coef = _rt(torch.stack([float(_A1_PLANAR_PROJ_NP[k][i]) * px[c][i] for i in range(16)]))
             maxv = (1 << bits[c]) - 1
-            q[k][c] = torch.clamp(torch.round(_div(coef * float(maxv), 255.0)), 0, maxv).to(
+            q[k][c] = torch.clamp(torch.round(div(coef * float(maxv), 255.0)), 0, maxv).to(
                 torch.int32
             )
     it = _iota16(px[0].device)

@@ -1,6 +1,6 @@
 """The port's ASTC converter on the CPU: the content scans reach the encoder
 through ``BlockConverter.refine_params``, every block size converts, saves
-and reads back, and the HDR profile raises until it is ported.
+and reads back, and the HDR profile (UFloat) converts and decodes.
 """
 
 import numpy as np
@@ -8,8 +8,8 @@ import pytest
 import torch
 
 import cuttlefish_tpu_torch as cp
-from cuttlefish_tpu_torch.convert import EncodeParams
-from cuttlefish_tpu_torch.convert.astc import AstcConverter
+from cuttlefish_tpu_torch.convert import EncodeParams, create_converter
+from cuttlefish_tpu_torch.convert.astc import AstcConverter, AstcHdrConverter
 from cuttlefish_tpu_torch.convert.blocks import extract_blocks
 from cuttlefish_tpu_torch.convert.device import BlockConverter, wire_u8
 from cuttlefish_tpu_torch.decode import decode_astc
@@ -104,7 +104,22 @@ def test_every_block_size_converts_and_reads_back(name):
     assert 10 * np.log10(1.0 / mse) > 17.0
 
 
-def test_hdr_profile_raises():
-    tex = _texture(_surface(8, 8, "color"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        tex.convert(cp.TextureFormat.ASTC_6x6, cp.TextureType.UFloat)
+def test_hdr_profile_converts_and_decodes():
+    """ASTC_6x6 UFloat: the HDR profile on the f16 wire with no content
+    gates, decoded back through the port's ``decode_astc_hdr``."""
+    arr = _surface(8, 8, "color")
+    arr[..., :3] *= np.float32(6.0)
+    tex = _texture(arr)
+    assert tex.convert(cp.TextureFormat.ASTC_6x6, cp.TextureType.UFloat)
+    assert tex.last_convert_stats["launches"] == {}
+    conv = create_converter(cp.TextureFormat.ASTC_6x6, cp.TextureType.UFloat, "cpu")
+    assert isinstance(conv, AstcHdrConverter) and conv.transfer_dtype == "f16"
+    # No content gates: the base hook, so the fused pipeline skips its scan.
+    assert type(conv).refine_params is BlockConverter.refine_params
+    params = EncodeParams()
+    assert conv.refine_params(np.zeros((1, 36, 4), np.float32), params) is params
+    assert tex.data_size() == 2 * 2 * 16
+    img = tex.decode_image().rgbaf()
+    assert img.shape == arr.shape
+    logerr = np.abs(np.log2(np.maximum(img[..., :3], 1e-6)) - np.log2(np.maximum(arr[..., :3], 1e-6)))
+    assert np.median(logerr) < 0.3

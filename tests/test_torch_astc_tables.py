@@ -173,6 +173,7 @@ _COPIED = [
     "implied_color_range", "infill_weights", "block_mode_field", "Layout", "_try_layout",
     "layout_menu", "_color_qlut", "_weight_qlut", "_weight_neighbors", "has_gray_blocks",
     "has_alpha_blocks", "plan_for", "_prepared_grid", "_tasks_a", "_layouts_b", "_layouts_d",
+    "hdr_layout_menu", "_prepared_np",
 ]
 
 

@@ -2,8 +2,8 @@
 
 The port keeps its own copy of every host module it uses (formats, colour,
 images and codecs, containers, standard converters, block tiling, the
-S3TC, BC6H, ETC and ASTC decoders, the BC6H layout tables, the ASTC
-integer-sequence and partition tables).  These tests hold the copies to the originals: the code is
+S3TC, BC6H, ETC and ASTC decoders, the whole-surface decoder, the metrics,
+the BC6H layout tables, the ASTC integer-sequence and partition tables).  These tests hold the copies to the originals: the code is
 the same apart from imports and docstrings, enums match by name and value,
 a PNG from the port's native codec loads alike through both packages, and
 an uncompressed texture saves to the same bytes in every container.
@@ -33,15 +33,16 @@ _VERBATIM = [
     "containers/ktx2.py", "containers/pvr.py", "containers/load.py",
     "convert/blocks.py", "convert/standard.py", "decode/s3tc.py", "decode/bc6h.py",
     "decode/etc.py", "kernels/bc6h_tables.py", "decode/astc.py", "kernels/astc_ise.py",
-    "kernels/astc_partition.py",
+    "kernels/astc_partition.py", "decode/surface.py", "metrics.py",
 ]
 
 
 class _Normalise(ast.NodeTransformer):
     """Drop docstrings (module, class, function); read
     ``cuttlefish_tpu_torch`` imports as ``cuttlefish_tpu`` ones, and the
-    port's ETC and ASTC table modules as the JAX package's ``kernels.etc``
-    and ``kernels.astc``, where the tables live beside the encoders."""
+    port's ETC, ASTC and PVRTC table modules as the JAX package's
+    ``kernels.etc``, ``kernels.astc`` and ``kernels.pvrtc``, where the
+    tables live beside the encoders."""
 
     def _drop_docstring(self, node):
         body = node.body
@@ -64,6 +65,8 @@ class _Normalise(ast.NodeTransformer):
                 node.module = "cuttlefish_tpu.kernels.etc"
             if node.module == "cuttlefish_tpu.kernels.astc_tables":
                 node.module = "cuttlefish_tpu.kernels.astc"
+            if node.module == "cuttlefish_tpu.kernels.pvrtc_tables":
+                node.module = "cuttlefish_tpu.kernels.pvrtc"
         return node
 
 

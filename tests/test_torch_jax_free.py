@@ -4,8 +4,10 @@ The test conftest imports jax, so the run-time check goes to a fresh
 interpreter: it converts BC7 + mips -> DDS, BC1 -> DDS, BC3 + mips -> KTX,
 HDR BC6H + mips -> DDS, ETC2 RGB, RGBA8 and punch-through (R8G8B8A1) + mips
 -> KTX, EAC R11G11 SNorm + mips -> KTX and ASTC 4x4 + mips -> KTX on the
-CPU, and BC3 through the fused mip pipeline (``convert_with_mips``) ->
-KTX, reads each file back, decodes it, and lists the loaded modules.  A
+CPU, BC3 through the fused mip pipeline (``convert_with_mips``) -> KTX,
+and ASTC 4x4 UFloat -> PVR, PVRTC1 RGBA 4bpp -> PVR and PVRTC2 RGBA 2bpp
+-> KTX with mips, reads each file back, decodes it, scores the last three
+with ``metrics.score_texture``, and lists the loaded modules.  A
 static check scans every module of the port and chip_smoke.py for an
 import of ``cuttlefish_tpu`` (other than ``cuttlefish_tpu_torch``), jax or
 triton at any level.
@@ -73,6 +75,41 @@ assert loaded.format is cp.TextureFormat.BC3 and loaded.mip_levels == 5
 for m in range(5):
     assert loaded.data(mip_level=m) == tex.data(mip_level=m)
 assert decode_bc3(np.frombuffer(tex.data(), np.uint8)).shape[0] == 15
+# ASTC UFloat, PVRTC1 and PVRTC2: convert, save, load, decode and score.
+from cuttlefish_tpu_torch import metrics
+sq = np.random.default_rng(1).random((32, 32, 4)).astype(np.float32)
+for _ in range(4):
+    sq = (sq + np.roll(sq, 1, 0) + np.roll(sq, -1, 0) + np.roll(sq, 1, 1) + np.roll(sq, -1, 1)) / 5
+for fmt, typ, src, name in (
+    (cp.TextureFormat.ASTC_4x4, cp.TextureType.UFloat, sq * np.float32(12.0), "ah.pvr"),
+    (cp.TextureFormat.PVRTC1_RGBA_4BPP, U, sq, "p1.pvr"),
+    (cp.TextureFormat.PVRTC2_RGBA_2BPP, U, sq, "p2.ktx"),
+):
+    src = src.astype(np.float32)
+    src[..., 3] = np.clip(src[..., 3], 0.0, 1.0)
+    tex = cp.Texture(cp.Dimension.Dim2D, 32, 32, mip_levels=6, device="cpu")
+    tex.set_image(cp.Image.from_array(src, cp.ImageFormat.RGBAF))
+    tex.generate_mipmaps()
+    assert tex.convert(fmt, typ, cp.Quality.Normal)
+    assert tex.last_convert_stats["launches"] == {}
+    path = os.path.join(out, name)
+    assert tex.save(path) is cp.SaveResult.Success
+    loaded = cp.load_texture(path)
+    assert loaded.format is fmt and loaded.mip_levels == 6
+    for m in range(6):
+        assert loaded.data(mip_level=m) == tex.data(mip_level=m)
+    img = loaded.decode_image().array
+    assert img.shape == (32, 32, 4) and np.isfinite(img).all()
+    score = metrics.score_texture(tex, [src])
+    if fmt is cp.TextureFormat.PVRTC2_RGBA_2BPP:
+        # metrics.decode_surface has no PVRTC2 branch, as in the JAX package.
+        assert score == {"psnr": None}
+        dec = tex.decode_image().rgbaf()
+        assert 10 * np.log10(1.0 / np.mean((dec - src) ** 2)) > 24
+    elif typ is U:
+        assert score["psnr"] > 20, score
+    else:  # peak-1 PSNR of HDR values up to 12: finite, not a quality bar
+        assert np.isfinite(score["psnr"]), score
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "triton", "cuttlefish_tpu")

@@ -356,3 +356,76 @@ def test_astc_descriptor_holds_reference_tables(case):
     trit, quint = jise.trit_pack_table().reshape(-1), jise.quint_pack_table().reshape(-1)
     assert np.array_equal(d[d[H["OFF_TRIT"]]:d[H["OFF_TRIT"]] + trit.size], trit)
     assert np.array_equal(d[d[H["OFF_QUINT"]]:d[H["OFF_QUINT"]] + quint.size], quint)
+
+
+_PVRTC_SIZES = [(2, 2), (4, 4), (8, 2), (2, 8), (16, 4), (32, 32)]
+
+
+@pytest.mark.parametrize("nbx,nby", _PVRTC_SIZES)
+def test_pvrtc_tables_equal_reference(nbx, nby):
+    """morton_order, _MOD_W_4BPP and the owner and basis matrices of
+    kernels/pvrtc_tables.py are the JAX package's kernels/pvrtc.py ones,
+    for both block shapes and both border modes."""
+    from cuttlefish_tpu.kernels import pvrtc as ref
+    from cuttlefish_tpu_torch.kernels import pvrtc_tables as port
+
+    assert port._MOD_W_4BPP.dtype == ref._MOD_W_4BPP.dtype
+    assert np.array_equal(port._MOD_W_4BPP, ref._MOD_W_4BPP)
+    assert np.array_equal(port.morton_order(nbx, nby), ref.morton_order(nbx, nby))
+    for block, n in ((4, nby), (8, nbx), (4, nbx)):
+        a, b = port._owner_matrix(n * block, block, n), ref._owner_matrix(n * block, block, n)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+        for wrap in (True, False):
+            a = port._basis_matrix(n * block, block, n, wrap)
+            b = ref._basis_matrix(n * block, block, n, wrap)
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_pvrtc_taps_hold_the_basis():
+    """The upscale's row taps and the adjoint's column taps
+    (kernels/pvrtc.py:_Taps) hold every nonzero of the basis matrices."""
+    from cuttlefish_tpu_torch.kernels import pvrtc
+    from cuttlefish_tpu_torch.kernels.pvrtc_tables import _basis_matrix, _owner_matrix
+
+    for kind, block, n, wrap, lanes in (("basis", 4, 8, True, 1), ("basis", 8, 4, False, 1),
+                                        ("owner", 4, 8, False, 4), ("owner", 8, 2, False, 4)):
+        taps = pvrtc._taps(kind, n * block, block, n, wrap, "cpu", lanes)
+        m = (_basis_matrix(n * block, block, n, wrap) if kind == "basis"
+             else _owner_matrix(n * block, block, n).T)
+        rows = np.zeros_like(m)
+        for k in range(2):
+            np.add.at(rows, (np.arange(m.shape[0]), taps.ridx[k].numpy()), taps.rw[k].numpy())
+        assert np.array_equal(rows, m)
+        cols = np.zeros_like(m)
+        cidx, cw = taps.cidx.numpy(), taps.cw.numpy()
+        for lane in range(lanes):
+            for k in range(cidx.shape[1]):
+                np.add.at(cols, (cidx[lane, k], np.arange(m.shape[1])), cw[lane, k])
+                assert np.all(cw[lane, k] == 0) or np.all(cidx[lane, k][cw[lane, k] != 0] % lanes == lane)
+        assert np.array_equal(cols, m)
+
+
+_ASTC_BLOCKS = [(4, 4), (5, 4), (5, 5), (6, 5), (6, 6), (8, 5), (8, 6), (8, 8), (10, 5),
+                (10, 6), (10, 8), (10, 10), (12, 10), (12, 12)]
+
+
+@pytest.mark.parametrize("bw,bh", _ASTC_BLOCKS, ids=lambda v: str(v))
+def test_hdr_layout_menu_equals_reference(bw, bh):
+    """hdr_layout_menu (every block size, its CEM 11 and CEM 14 layouts) and
+    the HDR grid's infill and pseudo-inverse (_prepared_np) are the JAX
+    package's kernels/astc.py ones."""
+    from cuttlefish_tpu.kernels import astc as ref
+    from cuttlefish_tpu_torch.kernels import astc_tables as port
+
+    a, b = port.hdr_layout_menu(bw, bh), ref.hdr_layout_menu(bw, bh)
+    assert set(a) == set(b) == {11, 14}
+    for cem in (11, 14):
+        if b[cem] is None:
+            assert a[cem] is None
+            continue
+        assert repr(a[cem]) == repr(b[cem])
+        assert vars(a[cem]) == vars(b[cem])
+        lay = a[cem]
+        for x, y in zip(port._prepared_np(bw, bh, lay.gw, lay.gh),
+                        ref._prepared_np(bw, bh, lay.gw, lay.gh)):
+            assert x.dtype == y.dtype and np.array_equal(x, y)

@@ -141,14 +141,18 @@ def test_wire_dequantisation_is_the_reference_f32():
     assert list(wire_u8(x)) == [0, 0, 1, 51, 255, 255]
 
 
-def test_unported_formats_raise_and_invalid_combos_fail():
+def test_pvrtc_and_astc_hdr_convert_and_invalid_combos_fail():
     tex = cp.Texture(cp.Dimension.Dim2D, 8, 8, device="cpu")
     tex.set_image(cp.Image.from_array(np.full((8, 8, 4), 0.5, np.float32), cp.ImageFormat.RGBAF))
-    with pytest.raises(NotImplementedError, match=r"later PR \(ROADMAP queue 1, item 12\)"):
-        tex.convert(cp.TextureFormat.PVRTC1_RGBA_4BPP, cp.TextureType.UNorm)
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        tex.convert(cp.TextureFormat.ASTC_4x4, cp.TextureType.UFloat)
-    assert tex.format is cp.TextureFormat.Unknown
+    # PVRTC1 and the ASTC HDR profile convert and decode (torch ops).
+    assert tex.convert(cp.TextureFormat.PVRTC1_RGBA_4BPP, cp.TextureType.UNorm)
+    assert tex.format is cp.TextureFormat.PVRTC1_RGBA_4BPP and tex.data_size() == 4 * 8
+    assert tex.last_convert_stats["launches"] == {}
+    dec = tex.decode_image().rgbaf()
+    assert np.abs(dec - 0.5).max() < 0.04  # 3-bit translucent alpha: 1/30
+    assert tex.convert(cp.TextureFormat.ASTC_4x4, cp.TextureType.UFloat)
+    assert tex.format is cp.TextureFormat.ASTC_4x4 and tex.data_size() == 4 * 16
+    assert np.abs(tex.decode_image().rgbaf() - 0.5).max() < 1e-3
     assert tex.convert(cp.TextureFormat.BC7, cp.TextureType.SNorm) is False
     assert tex.convert(cp.TextureFormat.BC6H, cp.TextureType.UNorm) is False
     # BC1 and BC6H are ported now.
