@@ -6,7 +6,12 @@ concatenate, send the blocks to the device on the converter's wire
 (``transfer_dtype``: u8 for 8-bit-domain formats, f16 for signed ones),
 widen them to float32 there, encode once, fetch, and interleave the words
 into raster-order bytes.  PyTorch runs eagerly, so there is no power-of-two
-bucket (an XLA jit-cache device) and no padding.
+bucket (an XLA jit-cache device).  The batch goes through the mesh
+(``cuttlefish_tpu_torch.parallel``): the active one, else a mesh of the
+converter's device alone.  It is padded to a multiple of the mesh size,
+split into contiguous shards, each encoded on its entry's device, and the
+words gathered in order and trimmed; a one-entry mesh pads and splits
+nothing.
 
 The fused mip pipeline (``BlockConverter.encode_pyramid``, the JAX
 package's ``_FusedPyramid`` and ``_encode_pyramid``) sends level 0 to the
@@ -16,7 +21,8 @@ and the block tiling, then one encode.  The resample weights are
 ``image/resample.py:resample_weights``; each output texel sums its
 nonzero taps as elementwise products and adds (``_resample``), so no
 matrix unit and no TF32 setting can reach them, and the CPU and the card
-compute them alike.
+compute them alike.  Under a mesh the pyramid is built on the converter's
+device and its block batch split after it.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from cuttlefish_tpu_torch import profiling
 from cuttlefish_tpu_torch.convert import Converter, EncodeParams
 from cuttlefish_tpu_torch.convert.blocks import extract_blocks, interleave_block_bytes
 from cuttlefish_tpu_torch.image.resample import resample_weights
+from cuttlefish_tpu_torch.parallel import Mesh, gather_words, get_mesh, shard_blocks
 
 # float32(1/255): dequantisation multiplies by it, as the JAX path does, so
 # the kernel's later *255 sees the same float32 values.
@@ -100,8 +107,12 @@ class BlockConverter(Converter):
 
         Records the phases tile, upload, kernel, fetch and interleave in
         ``profiling.last_phases``; on a CUDA device upload and kernel end
-        in a synchronise, so each phase holds its own device time.
+        in a synchronise, so each phase holds its own device time.  Upload
+        places each shard of the mesh (``_mesh``) on its device and kernel
+        encodes them all before it synchronises, so launches on different
+        cards overlap.
         """
+        mesh = self._mesh()
         with profiling.phase("tile"):
             all_blocks = []
             counts = []
@@ -115,14 +126,15 @@ class BlockConverter(Converter):
             )
             params = self.refine_params(blocks, params)
             host = wire(blocks, self.transfer_dtype)
+        n = host.shape[0]
         with profiling.phase("upload"):
-            blocks = dequant(host.to(self.device))
-            self._sync()
+            shards = [dequant(x) for x in shard_blocks(host, mesh)]
+            _sync_devices(shards)
         with profiling.phase("kernel"):
-            words = self.encode_blocks(blocks, params)
-            self._sync()
+            words = [self.encode_blocks(x, params) for x in shards]
+            _sync_devices(words)
         with profiling.phase("fetch"):
-            words = words.cpu().numpy().astype(np.uint32)
+            words = gather_words(words, mesh)[:n].numpy().astype(np.uint32)
         with profiling.phase("interleave"):
             out = []
             start = 0
@@ -148,8 +160,10 @@ class BlockConverter(Converter):
         ``refine_params``, only where the converter overrides it: the
         words are the same either way), upload, pyramid, kernel, fetch and
         interleave; on a CUDA device pyramid and kernel end in a
-        synchronise.
+        synchronise.  The pyramid is built on the converter's device; kernel
+        places the shards of the mesh (``_mesh``) on their devices.
         """
+        mesh = self._mesh()
         s = len(surfaces0)
         h, w = surfaces0[0].shape[:2]
         surfaces0 = [np.asarray(sf, np.float32) for sf in surfaces0]
@@ -168,11 +182,12 @@ class BlockConverter(Converter):
                 x, levels, filter_name, srgb, self.block_w, self.block_h, normal_opts
             )
             self._sync()
+        n = blocks.shape[0]
         with profiling.phase("kernel"):
-            words = self.encode_blocks(blocks, params)
-            self._sync()
+            words = [self.encode_blocks(x, params) for x in shard_blocks(blocks, mesh)]
+            _sync_devices(words)
         with profiling.phase("fetch"):
-            words = words.cpu().numpy().astype(np.uint32)
+            words = gather_words(words, mesh)[:n].numpy().astype(np.uint32)
         with profiling.phase("interleave"):
             out: list[list[np.ndarray]] = []
             start = 0
@@ -185,9 +200,32 @@ class BlockConverter(Converter):
                 out.append(level_out)
         return out
 
+    def _mesh(self) -> Mesh:
+        """The active mesh, else a mesh of this converter's device alone.
+
+        The converter names the kind of device the work runs on, and a
+        mesh only splits it: a mesh entry of another type (a CPU mesh
+        under a card converter, or the reverse) raises rather than move
+        the work there.
+        """
+        mesh = get_mesh() or Mesh((self.device,))
+        other = sorted({str(d) for d in mesh.devices if d.type != self.device.type})
+        if other:
+            raise ValueError(
+                f"mesh entries {other} are not {self.device.type} devices, as the "
+                f"converter's device {self.device} is"
+            )
+        return mesh
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+def _sync_devices(tensors: list[torch.Tensor]) -> None:
+    """Wait for every CUDA device that holds one of ``tensors``."""
+    for device in {t.device for t in tensors if t.device.type == "cuda"}:
+        torch.cuda.synchronize(device)
 
 
 # float32 reciprocals of the sRGB transforms' divisors: under jit XLA

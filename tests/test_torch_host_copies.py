@@ -3,7 +3,8 @@
 The port keeps its own copy of every host module it uses (formats, colour,
 images and codecs, containers, standard converters, block tiling, the
 S3TC, BC6H, ETC and ASTC decoders, the whole-surface decoder, the metrics,
-the BC6H layout tables, the ASTC integer-sequence and partition tables).  These tests hold the copies to the originals: the code is
+the BC6H layout tables, the ASTC integer-sequence and partition tables, the
+CLI and its `__main__`).  These tests hold the copies to the originals: the code is
 the same apart from imports and docstrings, enums match by name and value,
 a PNG from the port's native codec loads alike through both packages, and
 an uncompressed texture saves to the same bytes in every container.
@@ -33,7 +34,7 @@ _VERBATIM = [
     "containers/ktx2.py", "containers/pvr.py", "containers/load.py",
     "convert/blocks.py", "convert/standard.py", "decode/s3tc.py", "decode/bc6h.py",
     "decode/etc.py", "kernels/bc6h_tables.py", "decode/astc.py", "kernels/astc_ise.py",
-    "kernels/astc_partition.py", "decode/surface.py", "metrics.py",
+    "kernels/astc_partition.py", "decode/surface.py", "metrics.py", "__main__.py",
 ]
 
 
@@ -77,6 +78,38 @@ def _tree(path: Path) -> str:
 @pytest.mark.parametrize("rel", _VERBATIM)
 def test_copy_is_the_original(rel):
     assert _tree(_ROOT / "cuttlefish_tpu_torch" / rel) == _tree(_ROOT / "cuttlefish_tpu" / rel)
+
+
+class _NormaliseCli(_Normalise):
+    """``_Normalise``, and also drop ``HELP``'s text, the ``device``
+    parameter of ``run`` and the ``device=`` keyword of its ``Texture(...)``
+    call: the port's CLI differs from the JAX package's there only."""
+
+    def visit_Assign(self, node):
+        if any(isinstance(t, ast.Name) and t.id == "HELP" for t in node.targets):
+            node.value = ast.Constant("")
+        return self.generic_visit(node)
+
+    def visit_FunctionDef(self, node):
+        if node.name == "run" and node.args.args[-1].arg == "device":
+            node.args.args.pop()
+            node.args.defaults.pop()
+        return self._drop_docstring(node)
+
+    def visit_Call(self, node):
+        if isinstance(node.func, ast.Name) and node.func.id == "Texture":
+            node.keywords = [k for k in node.keywords if k.arg != "device"]
+        return self.generic_visit(node)
+
+
+def test_cli_is_the_original():
+    def tree(path):
+        return ast.dump(_NormaliseCli().visit(ast.parse(path.read_text())))
+
+    port = _ROOT / "cuttlefish_tpu_torch" / "cli.py"
+    assert tree(port) == tree(_ROOT / "cuttlefish_tpu" / "cli.py")
+    # The normaliser leaves the rest alone: the port's run takes device.
+    assert "device=device" in port.read_text()
 
 
 @pytest.mark.parametrize(

@@ -7,7 +7,12 @@ HDR BC6H + mips -> DDS, ETC2 RGB, RGBA8 and punch-through (R8G8B8A1) + mips
 CPU, BC3 through the fused mip pipeline (``convert_with_mips``) -> KTX,
 and ASTC 4x4 UFloat -> PVR, PVRTC1 RGBA 4bpp -> PVR and PVRTC2 RGBA 2bpp
 -> KTX with mips, reads each file back, decodes it, scores the last three
-with ``metrics.score_texture``, and lists the loaded modules.  A
+with ``metrics.score_texture``, and lists the loaded modules; then
+``python -m cuttlefish_tpu_torch`` converts a PNG to R8G8B8A8 + mips ->
+KTX and prints that file's ``--texture-info``, each under ``-X importtime``,
+which lists every module the interpreter loads.  Without a card a block
+format through ``python -m cuttlefish_tpu_torch`` fails and writes no
+file: nothing encodes on the CPU in its stead.  A
 static check scans every module of the port and chip_smoke.py for an
 import of ``cuttlefish_tpu`` (other than ``cuttlefish_tpu_torch``), jax or
 triton at any level.
@@ -19,6 +24,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 _ROOT = Path(__file__).resolve().parent.parent
@@ -119,17 +125,106 @@ assert not bad, bad
 """
 
 
-def test_port_main_path_imports_no_jax():
+def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(_ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]
     )
-    proc = subprocess.run(
-        [sys.executable, "-c", _SCRIPT],
-        cwd=_ROOT, env=env, capture_output=True, text=True, timeout=300,
-    )
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "LOADED []" in proc.stdout
+    return env
+
+
+def _start(argv, cwd, log):
+    """Start ``python *argv`` with stdout and stderr to ``log``.out/.err,
+    so several run side by side and no pipe fills."""
+    with open(f"{log}.out", "w") as out, open(f"{log}.err", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, *argv], cwd=cwd, env=_env(), stdout=out, stderr=err, text=True
+        )
+
+
+def _finish(proc, log):
+    """Wait for ``proc`` -> (return code, stdout, stderr, the top-level
+    names of every module that ``-X importtime`` saw imported)."""
+    proc.wait(timeout=300)
+    out, err = Path(f"{log}.out").read_text(), Path(f"{log}.err").read_text()
+    loaded = {
+        line.rsplit("|", 1)[1].strip().split(".")[0]
+        for line in err.splitlines() if line.startswith("import time:")
+    }
+    return proc.returncode, out, err, loaded
+
+
+def _python_m(args):
+    return ["-X", "importtime", "-m", "cuttlefish_tpu_torch", *args]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def interpreters(tmp_path_factory):
+    """The four interpreters of this file's subprocess tests, started
+    before its first test so they run side by side and beside the static
+    scans: ``_SCRIPT``; ``python -m cuttlefish_tpu_torch`` on an R8G8B8A8 +
+    mips -> KTX convert, on the ``--texture-info`` of a KTX that the port
+    writes in this process, and on a BC7 convert.  -> (their directory,
+    name -> ``_finish``'s result, waited for on first use)."""
+    import cuttlefish_tpu_torch as cp
+    from cuttlefish_tpu_torch import native
+
+    tmp = tmp_path_factory.mktemp("interpreters")
+    rgba = np.random.default_rng(3).integers(0, 256, (12, 20, 4), np.uint8)
+    (tmp / "in.png").write_bytes(native.png_encode(rgba))
+    tex = cp.Texture(cp.Dimension.Dim2D, 20, 12, device="cpu")
+    assert tex.set_image(cp.Image.from_array(rgba.astype(np.float32) / 255, cp.ImageFormat.RGBAF))
+    assert tex.generate_mipmaps() and tex.convert(cp.TextureFormat.R8G8B8A8)
+    assert tex.save(tmp / "api.ktx") is cp.SaveResult.Success
+    argv = {
+        "script": (["-c", _SCRIPT], _ROOT),
+        "convert": (_python_m(["-i", "in.png", "-f", "R8G8B8A8", "-m", "-o", "out.ktx"]), tmp),
+        "info": (_python_m(["--texture-info", "api.ktx"]), tmp),
+        "bc7": (_python_m(["-i", "in.png", "-f", "BC7", "-o", "out.dds"]), tmp),
+    }
+    procs = {name: _start(args, cwd, tmp / name) for name, (args, cwd) in argv.items()}
+    done = {}
+
+    def result(name):
+        if name not in done:
+            done[name] = _finish(procs[name], tmp / name)
+        return done[name]
+
+    try:
+        yield tmp, result
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+
+
+def test_port_main_path_imports_no_jax(interpreters):
+    import cuttlefish_tpu_torch as cp
+
+    tmp, result = interpreters
+    rc, stdout, stderr, _ = result("script")
+    assert rc == 0, stdout + stderr
+    assert "LOADED []" in stdout
+    for name in ("convert", "info"):
+        rc, stdout, stderr, loaded = result(name)
+        assert rc == 0, stdout + stderr[-4000:]
+        assert "cuttlefish_tpu_torch" in loaded and "torch" in loaded
+        assert not loaded & set(_FORBIDDEN), sorted(loaded & set(_FORBIDDEN))
+    written = cp.load_texture((tmp / "out.ktx").read_bytes())
+    assert written.format is cp.TextureFormat.R8G8B8A8 and written.mip_levels == 5
+    info = result("info")[1]
+    assert "mip levels: 5" in info and "format:     R8G8B8A8" in info
+
+
+def test_python_m_block_format_without_a_card_writes_nothing(interpreters):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the convert runs there")
+    tmp, result = interpreters
+    rc, _, _, _ = result("bc7")
+    assert rc != 0
+    assert not (tmp / "out.dds").exists()
 
 
 _FORBIDDEN = ("cuttlefish_tpu", "jax", "jaxlib", "triton")
