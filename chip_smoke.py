@@ -12,8 +12,9 @@ exits non-zero:
 
 1. device: needs a CUDA device (no CPU fallback); prints the card's name
    and power limit (nvidia-smi), torch and CUDA versions; TF32 off.
-2. build: one nvcc per csrc/*.cu for sm_90a, all started together, and the
-   native codecs with g++; prints the seconds and what ptxas reports
+2. build: one nvcc per csrc/*.cu for sm_90a, all started together, the
+   native codecs with g++ and the native CPU encoders with g++ (at their
+   first call, as a user meets them); prints the seconds and what ptxas reports
    (registers, spills) for every kernel entry, a line per BC1-BC5, BC7,
    BC6H, ASTC and ETC entry (registers, stack, spills, shared memory), the
    warps and dynamic shared memory a CTA of ASTC entry A, the dynamic
@@ -80,7 +81,13 @@ exits non-zero:
    4,096 blocks, PVRTC every word) >= 99 % identical and |dPSNR| <= 0.05
    dB (HDR PSNR peak-relative), level 0 encoded again on the card with
    TF32 allowed must write the same words, and the decoded
-   quality printed beside the JAX package's bar for the format.
+   quality printed beside the JAX package's bar for the format.  And
+   ASTC_4x4 UFloat through convert_with_mips on the HDR surface 2048^2 ->
+   KTX (torch ops, no kernel launches): level 0's strided sample of 4,096
+   blocks >= 99 % identical to the host path's file above and |dPSNR| <=
+   0.05 dB (peak-relative), every level within the fused BC6H path's bar of
+   the host path (mean |d| < 0.05, of log2 values), and the same words
+   with TF32 allowed.
 5. times: CUDA events, one warm-up, median of 7 (of 3 where the warm-up
    took over a second): each kernel alone and its plain version alone on
    the 262,144 blocks (BC7 q3-4 and BC6H at q4, the main paths' quality,
@@ -92,8 +99,8 @@ exits non-zero:
    that surface); each main-path
    convert (host clock, synchronised) median of 5, and each of its phases'
    median over the same 5 (EAC R11 and RG11 SNorm + mips too; the four
-   fused paths through convert_with_mips, ETC2_R8G8B8A1 + mips and the
-   four ASTC UFloat and PVRTC paths).  The
+   fused paths through convert_with_mips, ETC2_R8G8B8A1 + mips, the
+   four ASTC UFloat and PVRTC paths and the fused ASTC_4x4 UFloat path).  The
    unit-weight ETC RGB and RGBA8 cases also
    print the bound with the products by the weights counted, which a
    product by 1 does not need.  With --parent, every case of the rows whose source it
@@ -121,6 +128,22 @@ exits non-zero:
    entry; under use_mesh([cpu, cpu]) the card's convert raises, with no
    launch and no plain call; and the host-mips convert timed without a
    mesh and with the 2-entry one, in turns (median of 5 each).
+7. the north-star bars (cuttlefish_tpu_torch/northstar.py, the content of
+   the JAX package's tests/test_cpu_reference.py, tests/test_native.py:150
+   and tests/test_corpus.py, as tests/test_torch_cpu_reference.py holds the
+   plain versions to them) through the hand kernels at quality 2: ASTC
+   4x4, ETC2 RGB and BC1 on the five block classes, EAC A8 and BC4, BC6H
+   (code metric on two contents, value metric), EAC R11 on two contents,
+   ASTC 6x6/8x8/10x10/12x12 on two, BC7 on test_native's blocks, BC7, ASTC
+   and ETC2 on the three corpus images (4,096 blocks each) with their
+   floors, and the HDR probe through BC6H (floor, code-metric ladder) and
+   ASTC HDR (torch ops): every kernel of the bar launched, no plain version
+   run, a line per margin, and the card's PSNR at least the native CPU
+   encoder's on the same blocks minus the reference's tolerance.  Then,
+   with no bar, each kernel family's margin on phase 3's 4,096-block sample
+   of the 2048^2 surfaces against its CPU encoder, and bc7_encode_cpu q2
+   on the 262,144 blocks of the 2048^2 surface on every core (median of 3,
+   Mtexels/s, beside the host's CPU model).
 
 Then one JSON line of kernels (launches from the paths of phases 4 and 6; bound_ms
 from this run's inputs: the larger of the bytes the function must move over
@@ -1182,6 +1205,96 @@ def cli_mesh_phase(torch, cp, dev, card, surf, counted, bc7_plain, tmp) -> None:
             f"each its median of the 5 {json.dumps(median)}")
 
 
+def cpu_model() -> str:
+    """The host's CPU as /proc/cpuinfo names its first processor: model
+    name, vendor, family and model (some virtual machines name the model
+    "unknown")."""
+    fields = {}
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
+    keys = ("model name", "vendor_id", "cpu family", "model")
+    return "; ".join(f"{k} {fields[k]}" for k in keys if k in fields) or "unknown CPU"
+
+
+# Phase 7's 2048^2 sample margins: phase 3's case of each kernel family at
+# quality 2 -> the CPU encoder of the family on the case's input sample.
+FAMILY_CPU = {
+    "bc7_q2": lambda nat, x: nat.bc7_encode_cpu(x, 2),
+    "bc1_q2": lambda nat, x: nat.bc1_encode_cpu(x, 2),
+    "bc4_q2": lambda nat, v: nat.bc4_encode_cpu(np.repeat(v[..., None], 4, -1), 2, channel=0),
+    "bc6h_q2": lambda nat, x: nat.bc6h_encode_cpu(x, 2),
+    "etc1_q2": lambda nat, x: nat.etc2_rgb_encode_cpu(x, 2, etc2=False),
+    "etc2_q2": lambda nat, x: nat.etc2_rgb_encode_cpu(x, 2, etc2=True),
+    "eac_alpha_q2": lambda nat, v: nat.eac_a8_encode_cpu(np.repeat(v[..., None], 4, -1), 2),
+    "eac_r11_q2": lambda nat, v: nat.eac_r11_encode_cpu(v, 2),
+    "astc4_q2": lambda nat, x: nat.astc4x4_encode_cpu(x, 2),
+    "astc8x8_q2": lambda nat, x: nat.astc_sized_encode_cpu(x, 8, 8, 2),
+}
+
+
+def northstar_phase(dev, card, counted, samples, surface_blocks) -> None:
+    """Phase 7: the reference's north-star bars (tests/test_cpu_reference.py,
+    tests/test_native.py:150, tests/test_corpus.py), as
+    tests/test_torch_cpu_reference.py holds the plain versions to them,
+    through the hand kernels at quality 2: each bar's content on the card
+    (every kernel it needs launched, no plain version run), decoded, at
+    least the port's CPU encoder's PSNR on the same blocks minus the
+    reference's tolerance, and the corpus and HDR probe floors.  Then,
+    with no bar, each kernel family's margin on phase 3's 4,096-block
+    sample of the 2048^2 surfaces, and the CPU encoder's BC7 q2 time on the
+    262,144 blocks of the 2048^2 surface (every core, median of 3)."""
+    from cuttlefish_tpu_torch import native
+    from cuttlefish_tpu_torch import northstar as ns
+
+    t_phase = time.perf_counter()
+
+    def on_card(label, fn, need):
+        """fn() under the launch counters: each kernel of ``need`` launched
+        (ASTC's C and D may join A and B), no other, no plain version."""
+        result, launched = counted(label, fn)
+        check(all(launched.get(k, 0) > 0 for k in need)
+              and set(launched) <= set(need) | {"astc_c", "astc_d"},
+              f"{label}: launches {launched}, want each of {need}")
+        log("northstar", f"{label}: launches {launched}")
+        return result
+
+    misses = ns.run(dev, 0, os.path.join(ROOT, "tests", "fixtures", "corpus"), call=on_card,
+                    out=lambda line: log("northstar", f"{card}: {line}"))
+    bars_s = time.perf_counter() - t_phase
+
+    # No bar: each family's margin on phase 3's sample of the 2048^2 surfaces.
+    t0 = time.perf_counter()
+    for case, encode in FAMILY_CPU.items():
+        dk, target, peak, x, decode = samples[case]
+        words = np.asarray(encode(native, np.ascontiguousarray(x)))
+        raw = words.reshape(-1) if words.dtype == np.uint8 else to_bytes(words)
+        p_card, p_cpu = psnr(dk, target, peak), psnr(np.asarray(decode(raw), np.float64), target,
+                                                     peak)
+        log("northstar", f"{card}: 2048^2 sample of {case} ({x.shape[0]} blocks, no bar): "
+            f"kernel {p_card:.4f} dB, CPU encoder {p_cpu:.4f} dB, margin {p_card - p_cpu:+.4f} dB")
+    samples_s = time.perf_counter() - t0
+
+    # The CPU baseline on the card's host: BC7 q2 on every core.
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        native.bc7_encode_cpu(surface_blocks, 2, threads=0)
+        secs.append(time.perf_counter() - t0)
+    med = statistics.median(secs)
+    texels = surface_blocks.shape[0] * 16
+    log("northstar", f"{cpu_model()}, {os.cpu_count()} logical cores: bc7_encode_cpu q2 "
+        f"threads=0 on {surface_blocks.shape[0]} blocks of the {SIZE}^2 surface, median of 3 "
+        f"{med:.4f} s {[round(v, 4) for v in secs]} ({texels / med / 1e6:.3f} Mtexels/s)")
+    log("northstar", f"phase 7: bars {bars_s:.1f} s, 2048^2 samples {samples_s:.1f} s, CPU "
+        f"baseline {sum(secs):.1f} s; misses {misses}")
+    check(not misses, f"north-star bars missed on the card: {misses}")
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -1297,6 +1410,10 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     check(native.available(), f"native codecs did not build: {native.load_error()}")
     log("build", f"native codecs (g++) in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    native.bc1_encode_cpu(np.zeros((1, 16, 4), np.float32), threads=1)  # raises if unbuilt
+    log("build", f"native CPU encoders (g++, five sources, built at the first encoder call) in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # 3. kernel vs plain on the card
     surf = test_surface(SIZE)
@@ -1481,6 +1598,10 @@ def main(argv: list[str]) -> int:
         return t[..., chans]
 
     max_err = {}
+    # name -> (the kernel's decoded sample, its target, peak, input, decoder),
+    # for phase 7's margins against the CPU encoders on the same blocks
+    samples = {}
+    sample_dev = torch.from_numpy(sample).to(dev)
     for name, (kernel, plain, kind, decode, chans, peak) in cases.items():
         x = dev_in[kind]
         k_np = kernel(x).cpu().numpy()
@@ -1493,6 +1614,7 @@ def main(argv: list[str]) -> int:
         if peak is None:  # HDR: peak-relative, as tests/test_pallas.py:319-336
             peak = float(np.abs(target).max())
         pk, pp = psnr(dk, target, peak), psnr(dp, target, peak)
+        samples[name] = (dk, target, peak, dev_in[kind][sample_dev].cpu().numpy(), decode)
         err = float(np.abs(dk - dp).max())
         max_err[name] = err
         log("kernel_vs_plain", f"{name}: {n} blocks identical {same * 100:.4f} % "
@@ -1549,6 +1671,8 @@ def main(argv: list[str]) -> int:
             dp[diff] = decode_astc(to_bytes(p_np[samp][diff]), bw, bh)
         target = np.round(hw[samp].astype(np.float64) * 255)
         pk, pp = psnr(dk, target, 255.0), psnr(dp, target, 255.0)
+        samples[name] = (dk, target, 255.0, hw[samp],
+                         lambda r, bw=bw, bh=bh: decode_astc(r, bw, bh))
         err = float(np.abs(dk - dp).max())
         max_err[name] = err
         log("kernel_vs_plain", f"{name}: {bw}x{bh} q{q} on {kind} (gray {gray}, alpha {alpha}), "
@@ -1666,11 +1790,11 @@ def main(argv: list[str]) -> int:
     path_launches = {k: 0 for k in launch_counts()}
     path_stats = {}
 
-    def counted(label, fn):
+    def counted(label, fn, tally=True):
         """fn() with every launch counter at 0 just before and every plain
         version counting its calls; fails if a plain version ran, adds the
-        launches to the kernels line's -> (fn's result, {kernel: launches}
-        of the kernels that launched)."""
+        launches to the kernels line's (unless not ``tally``) -> (fn's
+        result, {kernel: launches} of the kernels that launched)."""
         for mod, nm in plain_fns:
             setattr(mod, nm, counting(originals[nm]))
         for wrapper in (bc7_cuda, bc7_hq_cuda, bc_cuda, bc6h_cuda, etc_cuda, astc_cuda):
@@ -1685,7 +1809,7 @@ def main(argv: list[str]) -> int:
         counts = launch_counts()
         check(plain_calls["n"] == 0, f"{label}: a plain version ran on the card's path")
         for k, v in counts.items():
-            path_launches[k] += v
+            path_launches[k] += v if tally else 0
         return result, {k: v for k, v in counts.items() if v}
 
     def convert_counted(pname, tex, fmt, typ, quality, fused=None):
@@ -2005,6 +2129,81 @@ def main(argv: list[str]) -> int:
         check(tf32 != "DIFFERS", f"{pname}: TF32 changed the words")
         return {"launches": {}, "bytes": size, "psnr": pk, "same": same, "tf32": tf32}
 
+    def fused_hdr_path(tmp):
+        """ASTC_4x4 UFloat through convert_with_mips on the HDR surface ->
+        KTX: torch ops on the card (no kernel may launch, no plain version
+        may run).  Held to the host path's file of this phase
+        (astc4_hdr_2048_mips_ktx, generate_mipmaps + convert on the card):
+        level 0's strided sample of 4,096 blocks >= 99 % identical and
+        |dPSNR| <= 0.05 dB (peak-relative); every level's strided sample
+        within the bar the fused BC6H path keeps to the host path, mean |d|
+        < 0.05, here of log2 values, since the surface spans 2^-22 to 2^15
+        (blocks whose words are equal differ by 0 and are not decoded).
+        The whole convert once more with TF32 allowed: the same words."""
+        pname, fmt, typ = "astc4_hdr_2048_fused_ktx", TF.ASTC_4x4, TT.UFloat
+        tex = fused_texture(hdr, False)
+        counts, stats = convert_counted(pname, tex, fmt, typ, QN, {})
+        check(not any(counts.values()) and stats["launches"] == {},
+              f"{pname}: a kernel launched: {counts}")
+        levels = tex.mip_levels
+        path = os.path.join(tmp, f"{pname}.ktx")
+        check(tex.save(path) is cp.SaveResult.Success, f"{pname}: save failed")
+        size = os.path.getsize(path)
+        loaded = cp.load_texture(path)
+        check(loaded.format is fmt and loaded.mip_levels == levels,
+              f"{pname}: loaded texture differs ({loaded.format})")
+        for m in range(levels):
+            check(loaded.data(mip_level=m) == tex.data(mip_level=m),
+                  f"{pname}: payload of mip {m} differs")
+        host = cp.load_texture(os.path.join(tmp, "astc4_hdr_2048_mips_ktx.ktx"))
+        check(host.mip_levels == levels, f"{pname}: {host.mip_levels} host levels, {levels} fused")
+
+        def dec(r):
+            halves = decode_astc_hdr(np.ascontiguousarray(r).reshape(-1), 4, 4)
+            return np.asarray(halves).astype(np.uint16).view(np.float16).astype(np.float64)[..., :3]
+
+        def log2(v):
+            return np.log2(np.maximum(v, 2.0**-24))
+
+        worst, same, pk, pp = 0.0, None, None, None
+        for m in range(levels):
+            a = np.frombuffer(tex.data(mip_level=m), np.uint8).reshape(-1, 16)
+            b = np.frombuffer(host.data(mip_level=m), np.uint8).reshape(-1, 16)
+            check(a.shape == b.shape, f"{pname}: level {m} sizes differ")
+            li = np.arange(0, a.shape[0], max(1, a.shape[0] // 4096))
+            diff = np.where(~np.all(a[li] == b[li], axis=1))[0]
+            d = 0.0
+            if diff.size:
+                da, db = dec(a[li][diff]), dec(b[li][diff])
+                d = float(np.abs(log2(da) - log2(db)).sum() / (li.size * 16 * 3))
+            worst = max(worst, d)
+            check(d < 0.05, f"{pname}: level {m} mean |d log2| {d} vs the host path")
+            if m == 0:
+                n0, same = li.size, 1.0 - diff.size / li.size
+                target = extract_blocks(hdr, 4, 4)[0][li][..., :3].astype(np.float64)
+                peak = float(np.abs(target).max())
+                dk = dec(a[li])
+                dp = dk.copy()
+                if diff.size:
+                    dp[diff] = dec(b[li][diff])
+                pk, pp = psnr(dk, target, peak), psnr(dp, target, peak)
+        again = fused_texture(hdr, False)
+        check(with_tf32(lambda: again.convert_with_mips(fmt, typ, QN)),
+              f"{pname}: convert with TF32 allowed failed")
+        tf32 = ("identical" if all(again.data(mip_level=m) == tex.data(mip_level=m)
+                                   for m in range(levels)) else "DIFFERS")
+        log("paths", f"{pname}: {levels} mips, KTX {size} bytes read back; launches "
+            f"{stats['launches']} (torch ops, no kernel), plain calls 0; level-0 sample "
+            f"{n0} blocks identical to the host path's "
+            f"{same * 100:.2f} %, PSNR fused {pk:.4f} dB host {pp:.4f} dB (peak-relative); worst "
+            f"level mean |d log2| vs the host path {worst:.6f} (bar 0.05); TF32 allowed: {tf32}; "
+            f"phases {json.dumps(stats['phases'])}")
+        check(same >= MIN_SAME, f"{pname}: level 0 disagrees with the host path")
+        check(abs(pk - pp) <= MAX_DPSNR and np.isfinite(pk), f"{pname}: fused and host PSNR differ")
+        check(tf32 != "DIFFERS", f"{pname}: TF32 changed the words")
+        return {"launches": {}, "bytes": size, "psnr": pk, "same": same, "vs_host": worst,
+                "tf32": tf32}
+
     with tempfile.TemporaryDirectory() as tmp:
         for pname, (fmt, typ, quality, mips, nlayers, ext, img, kname, _) in paths.items():
             tex = make_texture(img, mips, nlayers)
@@ -2198,6 +2397,7 @@ def main(argv: list[str]) -> int:
         path_stats["etc2a1_2048_mips_ktx"] = a1_path(tmp)
         for pname, spec in torch_ops_paths.items():
             path_stats[pname] = torch_ops_path(pname, *spec, tmp)
+        path_stats["astc4_hdr_2048_fused_ktx"] = fused_hdr_path(tmp)
 
     # 5. times on the card
     # (row name, counter, case timed for the row, source, TPU kernel, input
@@ -2466,11 +2666,17 @@ def main(argv: list[str]) -> int:
     for pname, (fmt, typ, quality, arr, mips, *_) in torch_ops_paths.items():
         img = cp.Image.from_array(arr, cp.ImageFormat.RGBAF)
         time_convert(pname, lambda: make_texture(img, mips, 0), fmt, typ, quality)
+    time_convert("astc4_hdr_2048_fused_ktx", lambda: fused_texture(hdr, False), TF.ASTC_4x4,
+                 TT.UFloat, QN, fused={})
 
     # 6. the CLI and the device mesh; their launches count in the kernels line.
     with tempfile.TemporaryDirectory() as tmp:
         cli_mesh_phase(torch, cp, dev, card, surf, counted,
                        lambda x: originals["encode_bc7_plain"](x, 2, consts), tmp)
+
+    # 7. the north-star bars on the card; its launches stay out of the kernels line.
+    northstar_phase(dev, card, lambda label, fn: counted(label, fn, tally=False), samples,
+                    host["rgba"])
     row_keys = {name: key for name, key, *_ in kernel_rows}
     row_keys.update({name: f"astc_{stage}" for name, stage, *_ in astc_rows})
     for row in rows:

@@ -4,8 +4,10 @@ The port keeps its own copy of every host module it uses (formats, colour,
 images and codecs, containers, standard converters, block tiling, the
 S3TC, BC6H, ETC and ASTC decoders, the whole-surface decoder, the metrics,
 the BC6H layout tables, the ASTC integer-sequence and partition tables, the
-CLI and its `__main__`).  These tests hold the copies to the originals: the code is
-the same apart from imports and docstrings, enums match by name and value,
+CLI and its `__main__`, the native CPU encoders' C++ sources and their ten
+wrappers).  These tests hold the copies to the originals: the code is
+the same apart from imports and docstrings (the sources byte for byte, the
+wrappers apart from the build helper they call), enums match by name and value,
 a PNG from the port's native codec loads alike through both packages, and
 an uncompressed texture saves to the same bytes in every container.
 """
@@ -110,6 +112,47 @@ def test_cli_is_the_original():
     assert tree(port) == tree(_ROOT / "cuttlefish_tpu" / "cli.py")
     # The normaliser leaves the rest alone: the port's run takes device.
     assert "device=device" in port.read_text()
+
+
+_ENCODER_FILES = ["bc1_cpu.cpp", "bc6h_cpu.cpp", "bc7_cpu.cpp", "etc2_cpu.cpp", "astc_cpu.cpp",
+                  "bc6h_tables.inc", "astc_color_tables.inc"]
+_ENCODERS = ["bc7_encode_cpu", "astc4x4_encode_cpu", "etc2_rgb_encode_cpu", "eac_a8_encode_cpu",
+             "bc1_encode_cpu", "bc4_encode_cpu", "bc6h_encode_cpu", "eac_r11_encode_cpu",
+             "astc_hdr_encode_cpu", "astc_sized_encode_cpu"]
+
+
+@pytest.mark.parametrize("name", _ENCODER_FILES)
+def test_encoder_source_is_the_original(name):
+    rel = Path("native") / "src" / name
+    port = (_ROOT / "cuttlefish_tpu_torch" / rel).read_bytes()
+    assert port == (_ROOT / "cuttlefish_tpu" / rel).read_bytes()
+
+
+class _NormaliseEncoder(_Normalise):
+    """``_Normalise``, and read the port's encoder library (its build
+    helper, handle, error and message) as the JAX package's one library."""
+
+    _NAMES = {"_build_and_load_encoders": "_build_and_load", "_enc_lib": "_lib",
+              "_enc_error": "_load_error"}
+
+    def visit_Name(self, node):
+        node.id = self._NAMES.get(node.id, node.id)
+        return node
+
+    def visit_Constant(self, node):
+        if node.value == "native CPU encoders unavailable: ":
+            node.value = "native codec unavailable: "
+        return node
+
+
+@pytest.mark.parametrize("name", _ENCODERS)
+def test_encoder_wrapper_is_the_original(name):
+    def function(pkg):
+        tree = ast.parse((_ROOT / pkg / "native" / "__init__.py").read_text())
+        (fn,) = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name]
+        return ast.dump(_NormaliseEncoder().visit(fn))
+
+    assert function("cuttlefish_tpu_torch") == function("cuttlefish_tpu")
 
 
 @pytest.mark.parametrize(

@@ -7,7 +7,8 @@ HDR BC6H + mips -> DDS, ETC2 RGB, RGBA8 and punch-through (R8G8B8A1) + mips
 CPU, BC3 through the fused mip pipeline (``convert_with_mips``) -> KTX,
 and ASTC 4x4 UFloat -> PVR, PVRTC1 RGBA 4bpp -> PVR and PVRTC2 RGBA 2bpp
 -> KTX with mips, reads each file back, decodes it, scores the last three
-with ``metrics.score_texture``, and lists the loaded modules; then
+with ``metrics.score_texture``, holds the port's BC4 to the native CPU
+encoder's north-star bar (``northstar.py``), and lists the loaded modules; then
 ``python -m cuttlefish_tpu_torch`` converts a PNG to R8G8B8A8 + mips ->
 KTX and prints that file's ``--texture-info``, each under ``-X importtime``,
 which lists every module the interpreter loads.  Without a card a block
@@ -116,6 +117,10 @@ for fmt, typ, src, name in (
         assert score["psnr"] > 20, score
     else:  # peak-1 PSNR of HDR values up to 12: finite, not a quality bar
         assert np.isfinite(score["psnr"]), score
+# A north-star bar: the port's BC4 against the native CPU encoder.
+from cuttlefish_tpu_torch import northstar
+p_port, p_cpu = northstar.bc4(2, "cpu", threads=1)
+assert p_port >= p_cpu - northstar.TIE_DB, (p_port, p_cpu)
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "triton", "cuttlefish_tpu")
