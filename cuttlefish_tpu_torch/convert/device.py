@@ -105,15 +105,15 @@ class BlockConverter(Converter):
         """One encode for every surface: blocks of all surfaces are
         concatenated on the batch axis and split back afterwards.
 
-        Records the phases tile, upload, kernel, fetch and interleave in
-        ``profiling.last_phases``; on a CUDA device upload and kernel end
-        in a synchronise, so each phase holds its own device time.  Upload
-        places each shard of the mesh (``_mesh``) on its device and kernel
-        encodes them all before it synchronises, so launches on different
-        cards overlap.
+        Each phase is a span (``pipeline.tile``, ``upload``, ``kernel``,
+        ``fetch``, ``interleave``; ``profiling``); on a CUDA device upload
+        and kernel end in a synchronise, so each phase holds its own
+        device time.  Upload places each shard of the mesh (``_mesh``) on
+        its device and kernel encodes them all before it synchronises, so
+        launches on different cards overlap.
         """
         mesh = self._mesh()
-        with profiling.phase("tile"):
+        with profiling.span("pipeline.tile"):
             all_blocks = []
             counts = []
             for surface in surfaces:
@@ -127,15 +127,15 @@ class BlockConverter(Converter):
             params = self.refine_params(blocks, params)
             host = wire(blocks, self.transfer_dtype)
         n = host.shape[0]
-        with profiling.phase("upload"):
+        with profiling.span("pipeline.upload"):
             shards = [dequant(x) for x in shard_blocks(host, mesh)]
             _sync_devices(shards)
-        with profiling.phase("kernel"):
+        with profiling.span("pipeline.kernel"):
             words = [self.encode_blocks(x, params) for x in shards]
             _sync_devices(words)
-        with profiling.phase("fetch"):
+        with profiling.span("pipeline.fetch"):
             words = gather_words(words, mesh)[:n].numpy().astype(np.uint32)
-        with profiling.phase("interleave"):
+        with profiling.span("pipeline.interleave"):
             out = []
             start = 0
             for c in counts:
@@ -156,39 +156,39 @@ class BlockConverter(Converter):
         (depth, face) order -> bytes[level][surface] (mip-major, the order
         of ``Texture.convert``).
 
-        Records the phases scan (the host tiling of level 0 for
-        ``refine_params``, only where the converter overrides it: the
-        words are the same either way), upload, pyramid, kernel, fetch and
-        interleave; on a CUDA device pyramid and kernel end in a
-        synchronise.  The pyramid is built on the converter's device; kernel
+        Each phase is a span (``profiling``): ``pipeline.scan`` (the host
+        tiling of level 0 for ``refine_params``, only where the converter
+        overrides it: the words are the same either way), ``upload``,
+        ``pyramid``, ``kernel``, ``fetch`` and ``interleave``; on a CUDA
+        device upload, pyramid and kernel end in a synchronise.  The pyramid is built on the converter's device; kernel
         places the shards of the mesh (``_mesh``) on their devices.
         """
         mesh = self._mesh()
         s = len(surfaces0)
         h, w = surfaces0[0].shape[:2]
         surfaces0 = [np.asarray(sf, np.float32) for sf in surfaces0]
-        with profiling.phase("scan"):
+        with profiling.span("pipeline.scan"):
             if type(self).refine_params is not BlockConverter.refine_params:
                 # Content flags from level 0 only, as the JAX package sets them.
                 lvl0 = np.concatenate(
                     [extract_blocks(sf, self.block_w, self.block_h)[0] for sf in surfaces0]
                 )
                 params = self.refine_params(lvl0, params)
-        with profiling.phase("upload"):
+        with profiling.span("pipeline.upload"):
             x = torch.stack([torch.from_numpy(sf).to(self.device) for sf in surfaces0])
             self._sync()
-        with profiling.phase("pyramid"):
+        with profiling.span("pipeline.pyramid"):
             blocks = pyramid_blocks(
                 x, levels, filter_name, srgb, self.block_w, self.block_h, normal_opts
             )
             self._sync()
         n = blocks.shape[0]
-        with profiling.phase("kernel"):
+        with profiling.span("pipeline.kernel"):
             words = [self.encode_blocks(x, params) for x in shard_blocks(blocks, mesh)]
             _sync_devices(words)
-        with profiling.phase("fetch"):
+        with profiling.span("pipeline.fetch"):
             words = gather_words(words, mesh)[:n].numpy().astype(np.uint32)
-        with profiling.phase("interleave"):
+        with profiling.span("pipeline.interleave"):
             out: list[list[np.ndarray]] = []
             start = 0
             for hh, ww in mip_dims(h, w, levels):

@@ -29,8 +29,9 @@ _F = TextureFormat
 
 class Pvrtc1Converter(Converter):
     """PVRTC1 on a torch device: ``device`` ``None`` is the CUDA card, a
-    CPU device runs the same torch ops on the host.  Records the phases
-    pad, upload, kernel, fetch and morton in ``profiling.last_phases``."""
+    CPU device runs the same torch ops on the host.  Each phase is a span
+    (``profiling``): ``pipeline.pad``, ``upload``, ``kernel``, ``fetch``
+    and ``morton``."""
 
     version = 1
 
@@ -44,7 +45,7 @@ class Pvrtc1Converter(Converter):
         from cuttlefish_tpu_torch.kernels.pvrtc import encode_pvrtc1, encode_pvrtc2
         from cuttlefish_tpu_torch.kernels.pvrtc_tables import morton_order
 
-        with profiling.phase("pad"):
+        with profiling.span("pipeline.pad"):
             surface = np.asarray(surface, np.float32)
             h, w = surface.shape[:2]
             bw, bh = (8, 4) if self._bpp2 else (4, 4)
@@ -60,16 +61,16 @@ class Pvrtc1Converter(Converter):
                 raise ValueError(
                     f"PVRTC1 requires power-of-two surfaces, multiple of {bw}x{bh}"
                 )
-        with profiling.phase("upload"):
+        with profiling.span("pipeline.upload"):
             dev_surface = torch.from_numpy(np.ascontiguousarray(surface)).to(self.device)
             self._sync()
-        with profiling.phase("kernel"):
+        with profiling.span("pipeline.kernel"):
             encode = encode_pvrtc1 if self.version == 1 else encode_pvrtc2
             words = encode(dev_surface, bpp2=self._bpp2, quality=int(params.quality))
             self._sync()
-        with profiling.phase("fetch"):
+        with profiling.span("pipeline.fetch"):
             words = words.cpu().numpy().astype(np.uint32)
-        with profiling.phase("morton"):
+        with profiling.span("pipeline.morton"):
             perm = morton_order(w // bw, h // bh)
             words = words[perm]
             out = np.ascontiguousarray(words.astype("<u4")).view(np.uint8).reshape(-1)

@@ -10,13 +10,15 @@ converters on a torch device, and serializes to DDS/KTX/PVR containers.
 Copied from ``cuttlefish_tpu/texture.py`` with its imports pointed at the
 port.  What differs: ``Texture`` takes a ``device`` (the CUDA card unless
 the caller names another; a CPU device runs the plain PyTorch versions of
-the kernels), and ``convert`` and ``convert_with_mips`` (the fused device
-mip pipeline) report the kernel launches they made.
+the kernels), ``convert`` and ``convert_with_mips`` (the fused device
+mip pipeline) report the kernel launches they made, and each public call
+is a span of the texture's record (``Texture.spans``, ``profiling``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import io
 import os
 import time
@@ -24,6 +26,7 @@ import time
 import numpy as np
 import torch
 
+from cuttlefish_tpu_torch import profiling
 from cuttlefish_tpu_torch.color import linear_to_srgb, srgb_to_linear
 from cuttlefish_tpu_torch.formats import (
     Alpha,
@@ -47,6 +50,20 @@ from cuttlefish_tpu_torch.image import Image, ImageFormat, NormalOptions, Resize
 from cuttlefish_tpu_torch.image.resample import resample_weights, resample_weights_z
 
 
+def _spanned(name: str):
+    """Run the method as the root span ``name`` of its texture's record."""
+
+    def wrap(method):
+        @functools.wraps(method)
+        def call(self, *args, **kwargs):
+            with profiling.span(name, self.spans):
+                return method(self, *args, **kwargs)
+
+        return call
+
+    return wrap
+
+
 @dataclasses.dataclass
 class CustomMipImage:
     """A user-provided replacement mip image (Texture.h:172-200)."""
@@ -62,6 +79,11 @@ class Texture:
     card, where the hand-written kernels run; a CPU device runs their plain
     PyTorch versions.  A CUDA device without a card raises when an encode
     runs; nothing falls back to the CPU.
+
+    ``spans`` holds the texture's newest spans (``profiling.Record``): each
+    public call (``set_image``, ``convert``, ``convert_with_mips``,
+    ``save``, ``save_to_bytes``) is a root span, the layers below it its
+    children.
     """
 
     def __init__(
@@ -75,6 +97,7 @@ class Texture:
         device=None,
     ):
         self.device = torch.device("cuda" if device is None else device)
+        self.spans = profiling.Record()
         self._valid = False
         if dimension is not None:
             self.initialize(dimension, width, height, depth, mip_levels, color_space)
@@ -190,6 +213,7 @@ class Texture:
 
     # -- image management --------------------------------------------------
 
+    @_spanned("texture.set_image")
     def set_image(
         self,
         image: Image,
@@ -370,6 +394,7 @@ class Texture:
 
     # -- conversion --------------------------------------------------------
 
+    @_spanned("texture.convert")
     def convert(
         self,
         fmt: TextureFormat,
@@ -395,7 +420,6 @@ class Texture:
         if self._color_space is ColorSpace.sRGB and not has_native_srgb(fmt, type_):
             return False
 
-        from cuttlefish_tpu_torch import profiling
         from cuttlefish_tpu_torch.convert import EncodeParams, create_converter
         from cuttlefish_tpu_torch.kernels import launch_counts
 
@@ -417,34 +441,32 @@ class Texture:
         launches0 = launch_counts()
         t0 = time.perf_counter()
         texels = 0
-        profiling.reset_phases()
         try:
             # Collect every (mip, depth, face) surface and encode them in
             # one batch (converter.encode_many), as the reference runs one
             # thread pool over all images (Converter.cpp:508-593).
-            with profiling.trace("convert"):
-                with profiling.phase("prepare"):
-                    surfaces = []
-                    shape: list[tuple[int, int]] = []
-                    for mip in range(self._mip_levels):
-                        for d in range(len(self._images[mip])):
-                            for f in range(self._faces):
-                                surface = self._images[mip][d][f].rgbaf()
-                                texels += surface.shape[0] * surface.shape[1]
-                                surfaces.append(surface)
-                        shape.append((len(self._images[mip]), self._faces))
-                with profiling.phase("encode"):
-                    encoded = converter.encode_many(surfaces, params)
-                with profiling.phase("serialize"):
-                    textures: list[list[list[bytes]]] = []
-                    it = iter(encoded)
-                    for depths, faces in shape:
-                        textures.append(
-                            [
-                                [bytes(next(it)) for _ in range(faces)]
-                                for _ in range(depths)
-                            ]
-                        )
+            with profiling.span("convert.prepare"):
+                surfaces = []
+                shape: list[tuple[int, int]] = []
+                for mip in range(self._mip_levels):
+                    for d in range(len(self._images[mip])):
+                        for f in range(self._faces):
+                            surface = self._images[mip][d][f].rgbaf()
+                            texels += surface.shape[0] * surface.shape[1]
+                            surfaces.append(surface)
+                    shape.append((len(self._images[mip]), self._faces))
+            with profiling.span("convert.encode"):
+                encoded = converter.encode_many(surfaces, params)
+            with profiling.span("convert.serialize"):
+                textures: list[list[list[bytes]]] = []
+                it = iter(encoded)
+                for depths, faces in shape:
+                    textures.append(
+                        [
+                            [bytes(next(it)) for _ in range(faces)]
+                            for _ in range(depths)
+                        ]
+                    )
         except Exception:
             self._format = TextureFormat.Unknown
             self._textures = None
@@ -457,13 +479,14 @@ class Texture:
             "texels": texels,
             "seconds": elapsed,
             "mtexels_per_sec": texels / elapsed / 1e6 if elapsed > 0 else 0.0,
-            "phases": dict(profiling.last_phases),
+            "phases": profiling.phases(),
             "launches": launches,
             "bc7_launches": launches.get("bc7", 0),
         }
         self._textures = textures
         return True
 
+    @_spanned("texture.convert_with_mips")
     def convert_with_mips(
         self,
         fmt: TextureFormat,
@@ -496,7 +519,6 @@ class Texture:
         ``phases`` the pipeline's (scan, upload, pyramid, kernel, fetch,
         interleave) and ``fused``, the whole.
         """
-        from cuttlefish_tpu_torch import profiling
         from cuttlefish_tpu_torch.convert import EncodeParams, create_converter
         from cuttlefish_tpu_torch.convert.device import BlockConverter
         from cuttlefish_tpu_torch.formats import block_width
@@ -533,19 +555,17 @@ class Texture:
         ]
 
         launches0 = launch_counts()
-        profiling.reset_phases()
         t0 = time.perf_counter()
-        with profiling.trace("convert_with_mips"):
-            per_level = converter.encode_pyramid(
-                surfaces0,
-                levels,
-                filter.value,
-                self._color_space is ColorSpace.sRGB,
-                params,
-                normal_opts=(
-                    None if normal_map is None else (int(normal_map), float(normal_height))
-                ),
-            )
+        per_level = converter.encode_pyramid(
+            surfaces0,
+            levels,
+            filter.value,
+            self._color_space is ColorSpace.sRGB,
+            params,
+            normal_opts=(
+                None if normal_map is None else (int(normal_map), float(normal_height))
+            ),
+        )
         # Commit state only after a successful encode.
         self._mip_levels = levels
         self._images = [self._images[0]] + [
@@ -573,7 +593,7 @@ class Texture:
             "texels": texels,
             "seconds": elapsed,
             "mtexels_per_sec": texels / elapsed / 1e6 if elapsed > 0 else 0.0,
-            "phases": {**profiling.last_phases, "fused": elapsed},
+            "phases": {**profiling.phases(), "fused": elapsed},
             "launches": launches,
             "bc7_launches": launches.get("bc7", 0),
         }
@@ -624,6 +644,7 @@ class Texture:
 
     # -- save --------------------------------------------------------------
 
+    @_spanned("texture.save")
     def save(
         self,
         target,
@@ -648,6 +669,7 @@ class Texture:
                 return self._save_stream(stream, file_type, supercompression)
         return self._save_stream(target, file_type, supercompression)
 
+    @_spanned("texture.save")
     def save_to_bytes(
         self, file_type: FileType, supercompression: str = "none"
     ) -> tuple[SaveResult, bytes]:
@@ -661,15 +683,19 @@ class Texture:
         from cuttlefish_tpu_torch.containers import dds, ktx, ktx2, pvr
 
         if file_type is FileType.KTX2:
-            return ktx2.save_ktx2(self, stream, supercompression)
+            with profiling.span("containers.ktx2"):
+                return ktx2.save_ktx2(self, stream, supercompression)
         if supercompression != "none":
             return SaveResult.Unsupported
         if file_type is FileType.DDS:
-            return dds.save_dds(self, stream)
+            with profiling.span("containers.dds"):
+                return dds.save_dds(self, stream)
         if file_type is FileType.KTX:
-            return ktx.save_ktx(self, stream)
+            with profiling.span("containers.ktx"):
+                return ktx.save_ktx(self, stream)
         if file_type is FileType.PVR:
-            return pvr.save_pvr(self, stream)
+            with profiling.span("containers.pvr"):
+                return pvr.save_pvr(self, stream)
         return SaveResult.UnknownFormat
 
     # -- static helpers mirrored from formats ------------------------------
