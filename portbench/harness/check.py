@@ -46,17 +46,21 @@ CLASSES = ("alpha", "opaque")
 CHUNK = 1 << 16
 
 
-def _reference(config: dict):
+def reference(config: dict):
+    """The configuration's reference module (``reference/<name>.py``):
+    its decoder and index gap (``judge_blocks``), its DDS format fields
+    (``dds_format``, ``DDS_ALPHA_MODE``) and the bit an altered answer
+    flips (``texel1_msb``)."""
     return importlib.import_module(f"harness.reference.{config['reference']}")
 
 
 def judge_texture(config: dict, level0: np.ndarray, data: bytes, device) -> dict:
     """Numbers of one texture: level0 [S,H,W,4] float32, data its DDS."""
-    ref = _reference(config)
+    ref = reference(config)
     s, h, w = level0.shape[:3]
     levels = pyramid.full_levels(h, w)
     srgb = config["color_space"] == "sRGB"
-    head = dds.head(config["format"], config["type"], srgb, h, w, levels, s)
+    head = dds.head(ref.dds_format(config["type"], srgb), ref.DDS_ALPHA_MODE, h, w, levels, s)
     place = dds.layout(h, w, levels, s)
     size = place[-1][2] + place[-1][3]
     got = np.frombuffer(data[:148], np.uint8)

@@ -1,7 +1,8 @@
 """The control and the planted faults that the check must catch.
 
-Each is a context manager that breaks the timed path underneath, inside
-the program, while the harness runs as it always does:
+Each is made from the configuration (``FAULTS[name](config)``) and is a
+context manager that breaks the timed path underneath, inside the
+program, while the harness runs as it always does:
 
 - ``control_bf16``: the control, the step below the configuration's
   float32 that would tempt a later change: every block that the fused
@@ -13,8 +14,9 @@ the program, while the harness runs as it always does:
   left as zero words (half of the batch left out);
 - ``altered_answer``: one bit of one block's words is flipped where the
   kernel produces them: the highest bit of texel 1's index in the middle
-  block (texel 1 is an anchor in no mode of BC7, so its index has all its
-  bits);
+  block, at the position that the configuration's reference module gives
+  (``texel1_msb``: texel 1 is an anchor in no mode, so its index has all
+  its bits);
 - ``quality_high``, ``quality_normal``: every convert runs at
   ``Quality.High`` or ``Quality.Normal`` instead of the configuration's
   quality (a narrower mode search, as a change that trades the search for
@@ -38,7 +40,7 @@ def _patched(obj, name, make):
         setattr(obj, name, orig)
 
 
-def control_bf16():
+def control_bf16(config):
     import torch
 
     from cuttlefish_tpu_torch.convert import device
@@ -71,7 +73,7 @@ def _on_words(alter):
     return _patched(BlockConverter, "encode_pyramid", make)
 
 
-def half_batch():
+def half_batch(config):
     import torch
 
     def alter(words, converter):
@@ -82,29 +84,19 @@ def half_batch():
     return _on_words(alter)
 
 
-def _texel1_msb(block: int) -> int:
-    """Bit position of the highest bit of texel 1's index in a BC7 block."""
+def altered_answer(config):
     import torch
 
-    from harness.reference import bc7
+    from harness.check import reference
 
-    bits = bc7.unpack_bits(torch.tensor(list(block.to_bytes(16, "little")), dtype=torch.uint8)[None])
-    m = int(bc7._mode_of(bits)[0])
-    ns, pb, rb, ib, cb, ab, pmode, i1b, _ = bc7.MODES[m]
-    pbits = {"each": 2 * ns, "shared": ns}.get(pmode, 0)
-    start = m + 1 + pb + rb + ib + 6 * ns * cb + 2 * ns * ab + pbits
-    return start + 2 * (i1b - 1)
-
-
-def altered_answer():
-    import torch
+    texel1_msb = reference(config).texel1_msb
 
     def alter(words, converter):
         words = words.clone()
         w = words.view(torch.int32)
         mid = w.shape[0] // 2
         block = int.from_bytes(w[mid].cpu().numpy().astype("<i4").tobytes(), "little")
-        block ^= 1 << _texel1_msb(block)
+        block ^= 1 << texel1_msb(block)
         w[mid] = torch.from_numpy(
             __import__("numpy").frombuffer(block.to_bytes(16, "little"), "<i4").copy()
         ).to(w.device)
@@ -113,7 +105,7 @@ def altered_answer():
     return _on_words(alter)
 
 
-def stale_answer():
+def stale_answer(config):
     from cuttlefish_tpu_torch.convert.device import BlockConverter
 
     last = {}
@@ -143,11 +135,11 @@ def _at_quality(name: str):
     return _patched(Texture, "convert_with_mips", make)
 
 
-def quality_high():
+def quality_high(config):
     return _at_quality("High")
 
 
-def quality_normal():
+def quality_normal(config):
     return _at_quality("Normal")
 
 

@@ -24,6 +24,15 @@ import torch
 
 from . import bc7_tables as T
 
+# DDS: DXGI_FORMAT_BC7_UNORM (98) and BC7_UNORM_SRGB (99), and the DX10
+# alpha mode: 1, DDS_ALPHA_MODE_STRAIGHT, where the format holds alpha.
+DDS_ALPHA_MODE = 1
+
+
+def dds_format(type_: str, srgb: bool) -> int:
+    return {("UNorm", False): 98, ("UNorm", True): 99}[(type_, srgb)]
+
+
 # mode -> (subsets, partition bits, rotation bits, index-mode bits,
 #          colour bits, alpha bits, p-bits, index bits, second index bits)
 MODES = {
@@ -330,3 +339,14 @@ def plain_fit_error(src: torch.Tensor, chw) -> torch.Tensor:
     pal = _palette(q[:, :1].expand(-1, 16, -1), q[:, 1:].expand(-1, 16, -1), 4).double()
     err = (((src[:, :, None, :] - pal) * sw) ** 2).sum(-1)
     return err.min(2).values.sum(1)
+
+
+def texel1_msb(block: int) -> int:
+    """Bit position of the highest bit of texel 1's index in a BC7 block
+    (texel 1 is an anchor in no mode, so its index has all its bits)."""
+    bits = unpack_bits(torch.tensor(list(block.to_bytes(16, "little")), dtype=torch.uint8)[None])
+    m = int(_mode_of(bits)[0])
+    ns, pb, rb, ib, cb, ab, pmode, i1b, _ = MODES[m]
+    pbits = {"each": 2 * ns, "shared": ns}.get(pmode, 0)
+    start = m + 1 + pb + rb + ib + 6 * ns * cb + 2 * ns * ab + pbits
+    return start + 2 * (i1b - 1)

@@ -12,14 +12,6 @@ from __future__ import annotations
 
 import struct
 
-# DXGI formats by (format, type, sRGB).
-DXGI = {
-    ("BC7", "UNorm", False): 98,
-    ("BC7", "UNorm", True): 99,
-}
-# DXGI alpha modes (DDS_ALPHA_MODE_*): straight alpha where the format
-# holds alpha.
-ALPHA_MODE = {"BC7": 1}
 BLOCK_BYTES = 16
 
 
@@ -27,7 +19,11 @@ def level_bytes(h: int, w: int) -> int:
     return -(-h // 4) * -(-w // 4) * BLOCK_BYTES
 
 
-def head(fmt: str, type_: str, srgb: bool, h: int, w: int, levels: int, faces: int) -> bytes:
+def head(dxgi_format: int, alpha_mode: int, h: int, w: int, levels: int, faces: int) -> bytes:
+    """The 148-byte head.  The two fields that depend on the block format,
+    the DXGI format and the DX10 alpha mode (``miscFlags2``), come from
+    the configuration's reference module (``dds_format``,
+    ``DDS_ALPHA_MODE``)."""
     flags = 0x1 | 0x2 | 0x4 | 0x1000 | 0x20000 | 0x8
     caps = 0x1000 | (0x400000 | 0x8 if levels > 1 else 0)
     caps2 = 0x200 | 0x400 | 0x800 | 0x1000 | 0x2000 | 0x4000 | 0x8000 if faces == 6 else 0
@@ -38,9 +34,7 @@ def head(fmt: str, type_: str, srgb: bool, h: int, w: int, levels: int, faces: i
         32, 0x4, int.from_bytes(b"DX10", "little"), 0, 0, 0, 0, 0,
         caps, caps2, 0, 0, 0,
     )
-    dx10 = struct.pack(
-        "<5I", DXGI[(fmt, type_, srgb)], 3, 0x4 if faces == 6 else 0, 1, ALPHA_MODE[fmt]
-    )
+    dx10 = struct.pack("<5I", dxgi_format, 3, 0x4 if faces == 6 else 0, 1, alpha_mode)
     return struct.pack("<I", 0x20534444) + header + dx10
 
 

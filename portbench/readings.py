@@ -40,7 +40,7 @@ def main(argv) -> int:
         make = CASES[case]
         for seed in (int(s) for s in args.seeds.split(",")):
             t0 = time.perf_counter()
-            patches = [] if make is None else [make()]
+            patches = [] if make is None else [make(spec.config(b, cell["config"]))]
             outcome = bench.run_cell(b, cell, seed, args.seconds, False, "cuda", t0, patches)
             correct, _ = bench.finish(outcome)
             line = {"workload": cell["name"], "case": case, "seed": seed, "correct": correct,

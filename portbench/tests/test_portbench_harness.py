@@ -176,11 +176,16 @@ def test_benchmark_shape():
 
 
 def test_metric_selection_by_cell():
-    (cell,) = (w["name"] for w in BENCH["workloads"])
+    cell = "bc7_albedo_2048_fused"
     names = [m["name"] for m in spec.metrics_of(BENCH, cell, True)]
-    assert names == [m["name"] for m in BENCH["per_layer"]]
+    assert names == [m["name"] for m in BENCH["per_layer"] if cell in m.get("workloads", [cell])]
     assert "bc7_hq_roofline" in names
     assert [m["name"] for m in spec.metrics_of(BENCH, cell, False)] == ["mtexels_per_s", "setup_s"]
+    for w in BENCH["workloads"]:
+        # Every cell reads its configuration's kernel rooflines.
+        kernels = spec.config(BENCH, w["config"])["rooflines"]
+        mine = {m["name"] for m in spec.metrics_of(BENCH, w["name"], True)}
+        assert {f"{k}_roofline" for k in kernels} <= mine, w["name"]
     other = dict(BENCH, workloads=BENCH["workloads"] + [{"name": "x", "config": "c", "traffic": "t"}])
     assert [m["name"] for m in spec.metrics_of(other, "x", True)] == []
     assert len(spec.metrics_of(other, "x", False)) == 2
