@@ -501,6 +501,25 @@ __device__ __forceinline__ float mode_candidate(const Texels& x,
   return assign_full<S>(x, q0, q1, bits, code, idx);
 }
 
+// assign_full for one_region's rare second assignment, out of line, its
+// operands by value so that none of one_region's arrays needs an address:
+// inlined there, it cost every block about 3 % of the kernel's time on an
+// H100, where it runs in a few blocks in a thousand.
+struct Ends {
+  int q0[3], q1[3];
+};
+struct Assigned {
+  float err;
+  uint64_t idx;
+};
+
+template <bool S>
+__device__ __noinline__ Assigned assign_apart(const Texels& x, Ends e, int bits, bool code) {
+  Assigned a;
+  a.err = assign_full<S>(x, e.q0, e.q1, bits, code, a.idx);
+  return a;
+}
+
 // Mode 11 (bits 10) or 12 (bits 11, 9-bit deltas), fitted and packed.
 template <bool S>
 __device__ __noinline__ float one_region(const Texels& x, int bits,
@@ -526,6 +545,26 @@ __device__ __noinline__ float one_region(const Texels& x, int bits,
         q1[c] = c1[c];
       }
       idx = cidx;
+    }
+  }
+  // Unsigned mode 12 (kernels/bc6h.py:_mend_mode12): where the swap below
+  // would need a delta of +256, one past the field, each channel at -256
+  // takes q0 - 1, the end that the packer's +255 reaches, and the indices
+  // and error are those of the ends stored.
+  if (!S && delta_bits && idx_at(idx, 0) >= 8) {
+    Ends e;
+    bool over = false;
+    for (int c = 0; c < 3; ++c) {
+      const bool low = q1[c] - q0[c] == -(1 << (delta_bits - 1));
+      e.q0[c] = low ? q0[c] - 1 : q0[c];
+      e.q1[c] = q1[c];
+      over = over || low;
+    }
+    if (over) {
+      const Assigned a = assign_apart<S>(x, e, bits, code);
+      err = a.err;
+      idx = a.idx;
+      for (int c = 0; c < 3; ++c) q0[c] = e.q0[c];
     }
   }
   // Texel 0 anchors: a set index MSB swaps the endpoints.

@@ -19,6 +19,12 @@ Layout follows the TPU kernel: each channel is a ``[16, N]`` tensor
 sums them.  The partition screen is an exact masked sum (the TPU kernel
 used matmuls against the 0/1 membership matrix).
 
+One departure from the TPU kernel: an unsigned mode-12 candidate whose
+anchor swap would need a delta of +256 keeps ends its 9-bit deltas can
+store, and is indexed and measured for them (``_mend_mode12``); the TPU
+kernel packs such a delta as +255, a palette its indices were not chosen
+for.  Every other block gets the TPU kernel's words.
+
 ``encode_bc6h`` runs this plain version for a CPU tensor and the hand
 kernel for a CUDA tensor; it never falls back from one to the other.
 """
@@ -271,6 +277,32 @@ def _fit_mode(px, pxv, pxs, bits, signed, iters, delta_bits=0, code=False):
     return best
 
 
+def _mode12_overflows(q0, q1, idx):
+    """[N] bool: mode-12 candidates whose anchor swap would need a delta of
+    +256, one past the 9-bit field: the fit's delta is -256 in a channel
+    and texel 0's index is 8 or more."""
+    low = (q1[0] - q0[0] == -256) | (q1[1] - q0[1] == -256) | (q1[2] - q0[2] == -256)
+    return low & (idx[0] >= 8)
+
+
+def _mend_mode12(px, pxv, pxs, q0, q1, idx, err, code):
+    """The unsigned mode-12 candidate with ends that can be stored: where
+    it overflows (``_mode12_overflows``), each channel at -256 takes
+    q0 - 1, the end that the packer's +255 reaches, and the block's
+    indices and error are those of the ends stored.  Elsewhere unchanged.
+    -> (q0, idx, err).
+
+    Signed candidates keep the TPU kernel's packing: there the overflow
+    meets about half of the mode-12 candidates of wide signed blocks, and
+    the indices chosen for the new ends decode worse in most blocks whose
+    words it changes (the index rule projects on the line in the proxy
+    domain, which a sign change folds)."""
+    over = _mode12_overflows(q0, q1, idx)
+    q0 = [torch.where(over & (q1[c] - q0[c] == -256), q0[c] - 1, q0[c]) for c in range(3)]
+    midx, merr = _assign_full(px, pxv, pxs, q0, q1, 11, False, code)
+    return q0, torch.where(over, midx, idx), torch.where(over, merr, err)
+
+
 def _anchor_swap(q0, q1, idx):
     swap = idx[0] >= 8
     return _sel(swap, q1, q0), _sel(swap, q0, q1), torch.where(swap, 15 - idx, idx)
@@ -476,6 +508,8 @@ def _encode(px, quality: int, signed: bool, metric: str, part32, anchors32):
     words = _pack_mode11(q0, q1, idx)
     if quality >= 2:
         q0, q1, idx, e12 = _fit_mode(px, pxv, pxs, 11, signed, iters, delta_bits=9, code=code)
+        if not signed:
+            q0, idx, e12 = _mend_mode12(px, pxv, pxs, q0, q1, idx, e12, code)
         words, err = _take(words, err, _pack_mode12(q0, q1, idx), e12)
 
     mode_ids = _TWO_REGION_PLAN[quality]
