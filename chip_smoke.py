@@ -16,7 +16,8 @@ exits non-zero:
    native codecs with g++ and the native CPU encoders with g++ (at their
    first call, as a user meets them); prints the seconds and what ptxas reports
    (registers, spills) for every kernel entry, a line per BC1-BC5, BC7,
-   BC6H, ASTC and ETC entry (registers, stack, spills, shared memory), the
+   BC6H, ASTC, ETC and pyramid entry (registers, stack, spills, shared
+   memory), the
    warps and dynamic shared memory a CTA of ASTC entry A, the dynamic
    shared memory and blocks a warp of ASTC entries B, C and D and the
    shared memory a CTA of the BC7 q3-4, BC6H and the five ETC and EAC
@@ -63,9 +64,9 @@ exits non-zero:
    (Texture.convert_with_mips): BC7 q2 2048^2 -> DDS (the main path), BC3
    q2 on the alpha surface -> KTX, BASELINE config 5 fused (a 256^2 sRGB
    cube, its normal map made on the card) -> ASTC_4x4 KTX and BC6H Float on
-   2x-1 -> KTX: each kernel launched once (ASTC: once per entry), its
-   pyramid on the card within 1e-5 of the CPU's and identical with TF32
-   allowed, a strided sample of 4,096 of its blocks through the plain
+   2x-1 -> KTX: each kernel launched once (ASTC: once per entry) and the
+   pyramid's kernel once a level, its pyramid bit for bit the torch ops' on
+   the card, within 1e-5 of the CPU's and identical with TF32 allowed, a strided sample of 4,096 of its blocks through the plain
    version >= 99 % identical (|dPSNR| <= 0.05 dB), and every level within
    the reference's bar of the host path (generate_mipmaps + convert on the
    card): mean |d| < 2 (u8) or < 0.05 (BC6H, its level 1 and 2 negatives
@@ -96,7 +97,9 @@ exits non-zero:
    q2, RG11 q2, signed q2 and q4; ASTC entries A and B at 4x4, 8x8
    and 12x12 q2 on the colour surface, A at 8x8 and 12x12 q4 and B at 4x4
    q4 on the near-gray alpha surface, C and D at 4x4 q4 and 8x8 q4 on
-   that surface); each main-path
+   that surface); the fused pyramid's kernel (csrc/pyramid.cu) and its
+   torch ops at the benchmark cells' shapes (2048^2 sRGB, 12 levels; six
+   1024^2 linear HDR faces, 11 levels), bit for bit equal; each main-path
    convert (host clock, synchronised) median of 5, and each of its phases'
    median over the same 5 (EAC R11 and RG11 SNorm + mips too; the four
    fused paths through convert_with_mips, ETC2_R8G8B8A1 + mips, the
@@ -1073,8 +1076,9 @@ def cli_mesh_phase(torch, cp, dev, card, surf, counted, bc7_plain, tmp) -> None:
             if i == 0:
                 first = read(out)
             check(read(out) == first, f"cli {mode}: run {i} wrote other bytes")
-        check(launches.get("bc7", 0) > 0 and set(launches) == {"bc7"},
-              f"cli {mode}: launches {launches}, want bc7_kernel")
+        want = {"bc7"} | ({"pyramid"} if extra else set())
+        check(launches.get("bc7", 0) > 0 and set(launches) == want,
+              f"cli {mode}: launches {launches}, want {sorted(want)}")
         sub = os.path.join(tmp, f"cli_sub_{len(files)}.dds")
         sargv = [sys.executable, "-m", "cuttlefish_tpu_torch", "-i", png, "-f", "BC7", "-m",
                  "-o", sub] + extra
@@ -1169,7 +1173,8 @@ def cli_mesh_phase(torch, cp, dev, card, surf, counted, bc7_plain, tmp) -> None:
             tex, flaunches = counted(f"mesh {label} fused", convert_fused)
             check(all_levels(tex) == files["--device-mips"][1][148:],
                   f"mesh {label}: fused words differ from the unsplit run")
-            check(flaunches == {"bc7": m.size}, f"mesh {label} fused: launches {flaunches}")
+            check(flaunches == {"bc7": m.size, "pyramid": tex.mip_levels},
+                  f"mesh {label} fused: launches {flaunches}")
         log("mesh", f"{label} ({m.size} entries): BC7 2048^2 + mips, host mips and fused, "
             f"words identical to the unsplit run; launches {launches} and {flaunches}")
 
@@ -1314,7 +1319,9 @@ def main(argv: list[str]) -> int:
     import cuttlefish_tpu_torch as cp
     from cuttlefish_tpu_torch import native
     from cuttlefish_tpu_torch.convert.blocks import extract_blocks
-    from cuttlefish_tpu_torch.convert.device import dequant, pyramid_blocks, wire
+    from cuttlefish_tpu_torch.convert.device import (
+        dequant, pyramid_blocks, pyramid_blocks_plain, wire,
+    )
     from cuttlefish_tpu_torch.convert.astc import AstcConverter
     from cuttlefish_tpu_torch.decode import (
         decode_astc, decode_bc1, decode_bc2, decode_bc3, decode_bc4, decode_bc5,
@@ -1324,7 +1331,7 @@ def main(argv: list[str]) -> int:
     from cuttlefish_tpu_torch.decode.astc import decode_astc_hdr
     from cuttlefish_tpu_torch.kernels import (
         _build, astc, astc_cuda, astc_tables, bc, bc6h, bc6h_cuda, bc7, bc7_cuda, bc7_hq_cuda,
-        bc_cuda, etc, etc_cuda, launch_counts, astc_hdr, pvrtc,
+        bc_cuda, etc, etc_cuda, launch_counts, astc_hdr, pvrtc, pyramid_cuda,
     )
     from cuttlefish_tpu_torch.kernels.pvrtc_tables import morton_order
     from cuttlefish_tpu_torch.kernels.bc7 import _constants, encode_bc7, encode_bc7_plain
@@ -1344,7 +1351,7 @@ def main(argv: list[str]) -> int:
     # 2. build
     t0 = time.perf_counter()
     for name in ("bc7_encode", "bc7_hq_encode", "bc_encode", "bc6h_encode", "etc_encode",
-                 "astc_encode"):
+                 "astc_encode", "pyramid"):
         _build.load(name)
     build_s = time.perf_counter() - t0
     for name, info in sorted(_build.build_info.items()):
@@ -1355,6 +1362,8 @@ def main(argv: list[str]) -> int:
             log("build", f"ptxas {name}: {line}")
     for line in ptxas_entries(_build.build_info["bc7_encode"]["log"]):
         log("build", f"ptxas bc7_encode entry {line}")
+    for line in ptxas_entries(_build.build_info["pyramid"]["log"]):
+        log("build", f"ptxas pyramid entry {line}")
     log("build", "bc7_kernel: 4 warps a CTA, 32 blocks a warp, its blocks' texels and phase "
         "results in static shared memory (above)")
     for line in ptxas_entries(_build.build_info["bc_encode"]["log"]):
@@ -1797,7 +1806,8 @@ def main(argv: list[str]) -> int:
         result, {kernel: launches} of the kernels that launched)."""
         for mod, nm in plain_fns:
             setattr(mod, nm, counting(originals[nm]))
-        for wrapper in (bc7_cuda, bc7_hq_cuda, bc_cuda, bc6h_cuda, etc_cuda, astc_cuda):
+        for wrapper in (bc7_cuda, bc7_hq_cuda, bc_cuda, bc6h_cuda, etc_cuda, astc_cuda,
+                        pyramid_cuda):
             wrapper.reset_launches()
         plain_calls["n"] = 0
         try:
@@ -1867,9 +1877,12 @@ def main(argv: list[str]) -> int:
         finally:
             AstcConverter.refine_params = refine
         launched = {k: v for k, v in counts.items() if v}
-        check(all(k in launched for k in need) and all(v == 1 for v in launched.values())
-              and set(launched) <= set(need) | {"astc_c", "astc_d"},
-              f"{pname}: launches {launched}, want one of each of {need}")
+        encoders = {k: v for k, v in launched.items() if k != "pyramid"}
+        check(all(k in encoders for k in need) and all(v == 1 for v in encoders.values())
+              and set(encoders) <= set(need) | {"astc_c", "astc_d"}
+              and launched.get("pyramid") == tex.mip_levels,
+              f"{pname}: launches {launched}, want one of each of {need} and a pyramid "
+              f"launch a level")
         bs = 8 if fmt is TF.BC1_RGB else 16
         faces = list(cp.CubeFace) if cube else [None]
         path = os.path.join(tmp, f"{pname}.{ext}")
@@ -1887,13 +1900,18 @@ def main(argv: list[str]) -> int:
         if ext == "dds":
             check(size == 148 + payload, f"{pname}: DDS size {size} != 148 + {payload}")
 
-        # The pyramid: on the card as the convert built it, on the CPU, and
+        # The pyramid: on the card as the convert built it (the kernel), as
+        # torch ops on the card (bit for bit the kernel's), on the CPU, and
         # on the card with TF32 allowed for matmuls.
         x0 = np.stack([tex.get_image(face=f).rgbaf() for f in faces])
         levels, srgb = tex.mip_levels, cube
         nopts = None if normal_map is None else (int(normal_map), 2.0)
         xd = torch.from_numpy(x0).to(dev)
         pyr = pyramid_blocks(xd, levels, "catmullrom", srgb, 4, 4, nopts)
+        pyr_ops = pyramid_blocks_plain(xd, levels, "catmullrom", srgb, 4, 4, nopts)
+        check(torch.equal(pyr.view(torch.int32), pyr_ops.view(torch.int32)),
+              f"{pname}: the pyramid kernel's blocks differ from the torch ops' on the card")
+        del pyr_ops
         pyr_cpu = pyramid_blocks(torch.from_numpy(x0), levels, "catmullrom", srgb, 4, 4, nopts)
         pyr_err = float((pyr.cpu() - pyr_cpu).abs().max())
         check(pyr.shape == pyr_cpu.shape and pyr_err <= 1e-5,
@@ -2131,8 +2149,8 @@ def main(argv: list[str]) -> int:
 
     def fused_hdr_path(tmp):
         """ASTC_4x4 UFloat through convert_with_mips on the HDR surface ->
-        KTX: torch ops on the card (no kernel may launch, no plain version
-        may run).  Held to the host path's file of this phase
+        KTX: torch ops on the card (no encoder kernel may launch, only the
+        pyramid's, once a level; no plain version may run).  Held to the host path's file of this phase
         (astc4_hdr_2048_mips_ktx, generate_mipmaps + convert on the card):
         level 0's strided sample of 4,096 blocks >= 99 % identical and
         |dPSNR| <= 0.05 dB (peak-relative); every level's strided sample
@@ -2143,9 +2161,10 @@ def main(argv: list[str]) -> int:
         pname, fmt, typ = "astc4_hdr_2048_fused_ktx", TF.ASTC_4x4, TT.UFloat
         tex = fused_texture(hdr, False)
         counts, stats = convert_counted(pname, tex, fmt, typ, QN, {})
-        check(not any(counts.values()) and stats["launches"] == {},
-              f"{pname}: a kernel launched: {counts}")
         levels = tex.mip_levels
+        check(not any(v for k, v in counts.items() if k != "pyramid")
+              and stats["launches"] == {"pyramid": levels},
+              f"{pname}: an encoder kernel launched, or not a pyramid launch a level: {counts}")
         path = os.path.join(tmp, f"{pname}.ktx")
         check(tex.save(path) is cp.SaveResult.Success, f"{pname}: save failed")
         size = os.path.getsize(path)
@@ -2193,7 +2212,7 @@ def main(argv: list[str]) -> int:
         tf32 = ("identical" if all(again.data(mip_level=m) == tex.data(mip_level=m)
                                    for m in range(levels)) else "DIFFERS")
         log("paths", f"{pname}: {levels} mips, KTX {size} bytes read back; launches "
-            f"{stats['launches']} (torch ops, no kernel), plain calls 0; level-0 sample "
+            f"{stats['launches']} (torch ops, no encoder kernel), plain calls 0; level-0 sample "
             f"{n0} blocks identical to the host path's "
             f"{same * 100:.2f} %, PSNR fused {pk:.4f} dB host {pp:.4f} dB (peak-relative); worst "
             f"level mean |d log2| vs the host path {worst:.6f} (bar 0.05); TF32 allowed: {tf32}; "
@@ -2201,8 +2220,8 @@ def main(argv: list[str]) -> int:
         check(same >= MIN_SAME, f"{pname}: level 0 disagrees with the host path")
         check(abs(pk - pp) <= MAX_DPSNR and np.isfinite(pk), f"{pname}: fused and host PSNR differ")
         check(tf32 != "DIFFERS", f"{pname}: TF32 changed the words")
-        return {"launches": {}, "bytes": size, "psnr": pk, "same": same, "vs_host": worst,
-                "tf32": tf32}
+        return {"launches": stats["launches"], "bytes": size, "psnr": pk, "same": same,
+                "vs_host": worst, "tf32": tf32}
 
     with tempfile.TemporaryDirectory() as tmp:
         for pname, (fmt, typ, quality, mips, nlayers, ext, img, kname, _) in paths.items():
@@ -2523,6 +2542,36 @@ def main(argv: list[str]) -> int:
         for other in others:
             time_case(other, key, in_bytes)
 
+    # The fused pyramid's kernel (csrc/pyramid.cu, one launch a level) at the
+    # benchmark cells' shapes, against the torch ops on the same tensor
+    # (bit for bit); bound: level 0 read once and the blocks written once.
+    pyr_shapes = {
+        "2048^2 sRGB, 12 levels": (torch.from_numpy(surf)[None].to(dev), 12, True),
+        "6 x 1024^2 linear HDR, 11 levels": (
+            torch.from_numpy(np.stack([hdr[:1024, :1024]] * 6)).to(dev), 11, False),
+    }
+    for i, (label, (xp, levels, srgb)) in enumerate(pyr_shapes.items()):
+        got = pyramid_blocks(xp, levels, "catmullrom", srgb, 4, 4)
+        want = pyramid_blocks_plain(xp, levels, "catmullrom", srgb, 4, 4)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"pyramid {label}: the kernel's blocks differ from the torch ops'")
+        kernel_ms = event_ms(torch, lambda: pyramid_blocks(xp, levels, "catmullrom", srgb, 4, 4), 7)
+        plain_ms = event_ms(
+            torch, lambda: pyramid_blocks_plain(xp, levels, "catmullrom", srgb, 4, 4), 7)
+        bytes_ = xp.numel() * 4 + got.numel() * 4
+        bound_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        log("times", f"{card}: pyramid ({label}, {got.shape[0]} blocks, {levels} launches): "
+            f"kernel {kernel_ms:.4f} ms; torch ops {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"(bytes: {bytes_ / 1e6:.1f} MB, level 0 read and the blocks written once)")
+        if i == 0:  # the row: the BC7 cell's shape
+            rows.append({
+                "name": "pyramid", "route": "cuda", "source": "cuttlefish_tpu_torch/csrc/pyramid.cu",
+                "replaces": None, "launches": 0, "max_abs_err": 0.0, "ms": kernel_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                "library_ms": None,
+            })
+        del got, want
+
     # --parent: every case of the rows whose source was given, through the
     # earlier build in turns with this tree's (earlier, this, this,
     # earlier); the words must be the same.
@@ -2679,6 +2728,7 @@ def main(argv: list[str]) -> int:
                     host["rgba"])
     row_keys = {name: key for name, key, *_ in kernel_rows}
     row_keys.update({name: f"astc_{stage}" for name, stage, *_ in astc_rows})
+    row_keys["pyramid"] = "pyramid"
     for row in rows:
         row["launches"] = path_launches[row_keys[row["name"]]]
 

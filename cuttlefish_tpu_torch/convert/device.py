@@ -21,8 +21,11 @@ and the block tiling, then one encode.  The resample weights are
 ``image/resample.py:resample_weights``; each output texel sums its
 nonzero taps as elementwise products and adds (``_resample``), so no
 matrix unit and no TF32 setting can reach them, and the CPU and the card
-compute them alike.  Under a mesh the pyramid is built on the converter's
-device and its block batch split after it.
+compute them alike.  On the card one hand-written kernel a level
+(``kernels/pyramid_cuda.py``, ``csrc/pyramid.cu``) does the same
+arithmetic; on the CPU the torch ops run (``pyramid_blocks_plain``).  Under
+a mesh the pyramid is built on the converter's device and its block batch
+split after it.
 """
 
 from __future__ import annotations
@@ -317,6 +320,19 @@ def _taps(n_in: int, n_out: int, filter_name: str) -> tuple[np.ndarray, np.ndarr
     return idx, wt
 
 
+@functools.lru_cache(maxsize=64)
+def _taps_device(
+    n_in: int, n_out: int, filter_name: str, device: torch.device
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_taps`` on ``device``, uploaded once: (source index [n_out, K]
+    int32, weight [n_out, K] float32), contiguous."""
+    idx, wt = _taps(n_in, n_out, filter_name)
+    return (
+        torch.tensor(idx, dtype=torch.int32, device=device),
+        torch.tensor(wt, device=device),
+    )
+
+
 def _resample(x: torch.Tensor, n_out: int, filter_name: str, dim: int) -> torch.Tensor:
     """Resample [S,H,W,4] along ``dim`` (1: rows, 2: columns): each output
     texel is its taps' weighted sum, added in source order (the einsum
@@ -360,22 +376,49 @@ def pyramid_blocks(
     block_h: int,
     normal_opts: tuple | None = None,
 ) -> torch.Tensor:
-    """Level 0 [S,H,W,4] float32 (texture colour space, on any device) ->
-    the block batch of every level of every surface, [N, bh*bw, 4]
-    float32 on the same device, mip-major and surface-minor
-    (``_FusedPyramid.fn`` of the JAX package up to its encode).
+    """Level 0 [S,H,W,4] float32 (texture colour space) -> the block batch
+    of every level of every surface, [N, bh*bw, 4] float32 on the same
+    device, mip-major and surface-minor (``_FusedPyramid.fn`` of the JAX
+    package up to its encode).
+
+    On a CUDA tensor the hand kernel builds each level with one launch
+    (``kernels/pyramid_cuda.py``), bit for bit the torch ops of
+    ``pyramid_blocks_plain``, which run on any other device.
+    """
+    if x.device.type == "cuda":
+        from cuttlefish_tpu_torch.kernels.pyramid_cuda import build_level
+
+        return pyramid_blocks_levels(
+            x, levels, filter_name, srgb, block_w, block_h, normal_opts, build_level
+        )
+    return pyramid_blocks_plain(x, levels, filter_name, srgb, block_w, block_h, normal_opts)
+
+
+def _normal_level0(x: torch.Tensor, srgb: bool, normal_opts: tuple) -> torch.Tensor:
+    """Level 0 taken as a heightfield -> its normal map; an sRGB
+    heightfield is undone to linear for it and the map re-encoded."""
+    opts, nm_height = normal_opts
+    hf = srgb_to_linear_rgba(x) if srgb else x
+    nm = normal_map_device(hf[..., 0], opts, nm_height)
+    return linear_to_srgb_rgba(nm) if srgb else nm
+
+
+def pyramid_blocks_plain(
+    x: torch.Tensor,
+    levels: int,
+    filter_name: str,
+    srgb: bool,
+    block_w: int,
+    block_h: int,
+    normal_opts: tuple | None = None,
+) -> torch.Tensor:
+    """``pyramid_blocks`` as torch ops, on any device.
 
     ``normal_opts`` (NormalOptions bitmask, height): level 0 is taken as a
-    heightfield and turned into a normal map first; an sRGB heightfield
-    is undone to linear for it and the map re-encoded.  No clamp: filter
+    heightfield and turned into a normal map first.  No clamp: filter
     overshoot survives as on the host path.
     """
-    cur = x
-    if normal_opts is not None:
-        opts, nm_height = normal_opts
-        hf = srgb_to_linear_rgba(cur) if srgb else cur
-        nm = normal_map_device(hf[..., 0], opts, nm_height)
-        cur = linear_to_srgb_rgba(nm) if srgb else nm
+    cur = x if normal_opts is None else _normal_level0(x, srgb, normal_opts)
     parts = []
     for k, (hh, ww) in enumerate(mip_dims(x.shape[1], x.shape[2], levels)):
         if k:
@@ -384,3 +427,51 @@ def pyramid_blocks(
             cur = linear_to_srgb_rgba(t2) if srgb else t2
         parts.append(_tile(cur, block_w, block_h))
     return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def pyramid_blocks_levels(
+    x: torch.Tensor,
+    levels: int,
+    filter_name: str,
+    srgb: bool,
+    block_w: int,
+    block_h: int,
+    normal_opts: tuple | None,
+    build_level,
+) -> torch.Tensor:
+    """``pyramid_blocks`` by one ``build_level`` call a level (on the card
+    ``kernels/pyramid_cuda.py:build_level``, one launch).
+
+    ``build_level(src, lin, blocks, first, (h, w), taps, block_w, block_h,
+    srgb)`` writes the level of size (h, w) of every surface into
+    ``blocks`` from block ``first`` on, from ``src``, the level above in
+    linear light, through ``taps`` (rows' and columns' ``_taps_device``), or
+    for level 0 (``taps`` None) tiles ``src`` as stored; where ``lin`` is
+    given it writes the level there in linear light, which the next level
+    reads.  The normal map's level 0 stays torch ops.
+    """
+    if normal_opts is not None:
+        x = _normal_level0(x, srgb, normal_opts)
+    x = x.contiguous()
+    s, h, w, _ = x.shape
+    dims = mip_dims(h, w, levels)
+    counts = [s * (-(-hh // block_h)) * (-(-ww // block_w)) for hh, ww in dims]
+    blocks = torch.empty(
+        (sum(counts), block_h * block_w, 4), dtype=torch.float32, device=x.device
+    )
+    src, first = x, 0
+    for k, (hh, ww) in enumerate(dims):
+        lin = None
+        if k + 1 < levels and (k or srgb):
+            lin = torch.empty((s, hh, ww, 4), dtype=torch.float32, device=x.device)
+        taps = None
+        if k:
+            taps = (
+                _taps_device(src.shape[1], hh, filter_name, x.device),
+                _taps_device(src.shape[2], ww, filter_name, x.device),
+            )
+        build_level(src, lin, blocks, first, (hh, ww), taps, block_w, block_h, srgb)
+        first += counts[k]
+        if lin is not None:
+            src = lin
+    return blocks

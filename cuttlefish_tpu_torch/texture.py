@@ -561,9 +561,11 @@ class Texture:
         ``normal_map``: a ``NormalOptions`` bitmask; the level-0 images are
         heightfields turned into tangent-space normal maps on the device
         first (``Image.create_normal_map`` + ``set_image``'s colour-space
-        round trip).  ``last_convert_stats`` has convert's keys, its
-        ``phases`` the pipeline's (scan, upload, pyramid, kernel, fetch,
-        interleave) and ``fused``, the whole, and ``staging``: the share of
+        round trip).  ``last_convert_stats`` has convert's keys (on a CUDA
+        device ``launches["pyramid"]`` counts the pyramid kernel's launches,
+        one a level), its ``phases`` the pipeline's (scan, upload, pyramid,
+        kernel, fetch, interleave) and ``fused``, the whole, and
+        ``staging``: the share of
         level 0's bytes uploaded from page-locked memory (``pinned_share``)
         and the pinned blocks the host allocator made for this texture's
         ``set_image`` calls (``host_allocs``; 0 where a cached block was

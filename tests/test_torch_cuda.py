@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+import cuttlefish_tpu_torch as cp
+from cuttlefish_tpu_torch.convert import device as conv_device
 from cuttlefish_tpu_torch.decode import decode_bc7
 from cuttlefish_tpu_torch.kernels import (
     _build, astc, astc_cuda, astc_tables, bc, bc6h, bc6h_cuda, bc7_cuda, bc7_hq_cuda, bc_cuda, etc,
-    etc_cuda,
+    etc_cuda, pyramid_cuda,
 )
 from cuttlefish_tpu_torch.kernels.bc7 import _constants, encode_bc7, encode_bc7_plain
 
@@ -690,6 +692,81 @@ def test_cpu_tensor_never_reaches_the_launcher(monkeypatch):
     assert astc_cuda.launches == counts
 
 
+# The benchmark's two cells' pyramids: (level 0 [S,H,W,4], levels, sRGB).
+def _albedo_2048(device):
+    """A 2048^2 sRGB RGBA surface rounded to 8 bits, alpha varying."""
+    g = torch.Generator(device="cpu").manual_seed(24)
+    y = torch.linspace(0, 1, 2048)[:, None, None]
+    x = torch.linspace(0, 1, 2048)[None, :, None]
+    base = 0.5 + 0.4 * torch.sin(torch.tensor([3.0, 5.0, 7.0, 2.0]) * 6.283 * (x + 0.7 * y))
+    noise = torch.rand((2048, 2048, 4), generator=g) * 0.2
+    return (torch.round((base * 0.8 + noise).clamp(0, 1) * 255) / 255)[None].to(device)
+
+
+def _skybox_1024(device):
+    """Six 1024^2 linear HDR faces: a sky gradient with 1 % noise, a sun of
+    5,000 on face 1, alpha 1."""
+    g = torch.Generator(device="cpu").manual_seed(24)
+    y = torch.linspace(0, 1, 1024)[None, :, None, None]
+    faces = (0.1 + 2.0 * y) * (1.0 + 0.01 * torch.randn((6, 1024, 1024, 4), generator=g))
+    faces[1, 300:340, 500:540, :3] = 5000.0
+    faces[..., 3] = 1.0
+    return faces.to(device)
+
+
+_CELLS = {
+    "bc7_albedo_2048": (_albedo_2048, 12, True),
+    "bc6h_skybox_cube1024": (_skybox_1024, 11, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", list(_CELLS))
+def test_pyramid_kernel_equals_torch_ops_on_card(cuda, cell):
+    """The kernel's block batch is the torch ops' on the same CUDA tensor,
+    bit for bit, one launch a level."""
+    make, levels, srgb = _CELLS[cell]
+    x = make(cuda)
+    before = pyramid_cuda.launches
+    got = conv_device.pyramid_blocks(x, levels, "catmullrom", srgb, 4, 4)
+    torch.cuda.synchronize()
+    assert pyramid_cuda.launches == before + levels
+    want = conv_device.pyramid_blocks_plain(x, levels, "catmullrom", srgb, 4, 4)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", list(_CELLS))
+def test_fused_convert_counts_pyramid_launches_and_keeps_its_bytes(cuda, cell, monkeypatch):
+    """convert_with_mips at the cell's size launches the pyramid kernel once
+    a level, and writes the DDS bytes that the torch ops' pyramid gives."""
+    make, levels, srgb = _CELLS[cell]
+    x = make(torch.device("cpu")).numpy()
+    cube = x.shape[0] == 6
+    cs = cp.ColorSpace.sRGB if srgb else cp.ColorSpace.Linear
+    fmt, typ = (cp.TextureFormat.BC6H, cp.TextureType.UFloat) if cube else (
+        cp.TextureFormat.BC7, cp.TextureType.UNorm)
+
+    def dds():
+        tex = cp.Texture(cp.Dimension.Cube if cube else cp.Dimension.Dim2D, x.shape[2],
+                         x.shape[1], 0, 1, cs, device=cuda)
+        for f, face in enumerate(x):
+            img = cp.Image.from_array(face, cp.ImageFormat.RGBAF, cs)
+            assert tex.set_image(img, cp.CubeFace(f) if cube else None)
+        assert tex.convert_with_mips(fmt, typ, cp.Quality.Highest)
+        result, data = tex.save_to_bytes(cp.FileType.DDS)
+        assert result is cp.SaveResult.Success
+        return tex.last_convert_stats["launches"], data
+
+    launches, data = dds()
+    assert launches["pyramid"] == levels
+    monkeypatch.setattr(conv_device, "pyramid_blocks", conv_device.pyramid_blocks_plain)
+    plain_launches, plain_data = dds()
+    assert "pyramid" not in plain_launches
+    assert data == plain_data
+
+
 def test_build_flags_and_sources():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
@@ -698,14 +775,14 @@ def test_build_flags_and_sources():
     srcs = [p.name for p in _build._sources()]
     assert srcs == [
         "astc_encode.cu", "bc6h_encode.cu", "bc7_encode.cu", "bc7_hq_encode.cu", "bc_encode.cu",
-        "etc_encode.cu",
+        "etc_encode.cu", "pyramid.cu",
     ]
     # One library per source, keyed by its own hash.
     digests = {_build._digest(p) for p in _build._sources()}
-    assert len(digests) == 6 and all(len(d) == 16 for d in digests)
+    assert len(digests) == 7 and all(len(d) == 16 for d in digests)
     assert [p.name for p in map(_build._target, _build._sources())] == [
         "libastc_encode.so", "libbc6h_encode.so", "libbc7_encode.so", "libbc7_hq_encode.so",
-        "libbc_encode.so", "libetc_encode.so",
+        "libbc_encode.so", "libetc_encode.so", "libpyramid.so",
     ]
 
 
